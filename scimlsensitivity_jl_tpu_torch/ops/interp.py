@@ -1,0 +1,68 @@
+"""Dense output: cubic-Hermite interpolation over accepted steps (PyTorch
+port).
+
+Counterpart of `scimlsensitivity_jl_tpu/ops/interp.py:hermite_eval` and
+`:dense_eval`. The JAX package keeps node times on the device and locates
+an interval with a masked sum; here node times live on the host (the eager
+integrator knows them), so locating an interval reads nothing from the device.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+__all__ = ["DenseOutput", "hermite_eval", "dense_eval"]
+
+
+class DenseOutput(NamedTuple):
+    """Piecewise cubic-Hermite interpolant over accepted solver steps.
+
+    ts: (n_steps+1,) numpy node times in the time dtype.
+    ys: (n_steps+1, n) states at the nodes (flat).
+    fs: (n_steps+1, n) du/dt at the nodes.
+    n_steps: number of accepted steps.
+    tdir: +1 / -1 integration direction (time dtype).
+    """
+
+    ts: np.ndarray
+    ys: torch.Tensor
+    fs: torch.Tensor
+    n_steps: int
+    tdir: np.floating
+
+
+def hermite_eval(t, t0, t1, y0, f0, y1, f1):
+    """Cubic Hermite value at host time t on the step [t0, t1] (guards
+    h -> 0). Times are numpy scalars of one dtype; y*, f* are tensors."""
+    kind = type(t0)
+    h = kind(t1 - t0)
+    if h == 0:
+        return y0
+    theta = kind(kind(t - t0) / h)
+    one, two = kind(1.0), kind(2.0)
+    w = float(theta * (theta - one))
+    dy = y1 - y0
+    inner = (dy * float(one - two * theta) + f0 * float((theta - one) * h)
+             + f1 * float(theta * h))
+    return y0 * float(one - theta) + y1 * float(theta) + inner * w
+
+
+def _locate(dense: DenseOutput, t) -> int:
+    """Index i of the step interval holding t, clipped to valid steps."""
+    keys = dense.ts * dense.tdir
+    i = int(np.sum(keys <= t * dense.tdir)) - 1
+    return min(max(i, 0), max(dense.n_steps - 1, 0))
+
+
+def dense_eval(dense: DenseOutput, t):
+    """Evaluate the interpolant at scalar time t -> flat state vector."""
+    kind = type(dense.ts[0])
+    t = kind(t)
+    if dense.n_steps == 0:
+        return dense.ys[0]
+    i = _locate(dense, t)
+    return hermite_eval(t, dense.ts[i], dense.ts[i + 1], dense.ys[i],
+                        dense.fs[i], dense.ys[i + 1], dense.fs[i + 1])

@@ -1,0 +1,103 @@
+"""Explicit Runge-Kutta steppers (PyTorch port).
+
+Counterpart of `scimlsensitivity_jl_tpu/solvers/explicit.py:ExplicitRK`
+(`step`, explicit.py:38-72) and its Tsit5 / Dopri5 / BS3 / Heun / Midpoint /
+Euler constructors.
+
+The stages are summed in the JAX package's order, term by term, so float64
+results agree with it to roundoff. Times are host scalars of the time
+dtype (`numpy.float32` or `numpy.float64`): every scalar coefficient
+`dt * a_ij` is rounded in that dtype, as JAX rounds it, before it scales a
+stage on the device.
+"""
+
+from __future__ import annotations
+
+from .tableaus import BOSH3, DOPRI5, EULER, HEUN, MIDPOINT, TSIT5, ButcherTableau
+
+__all__ = ["ExplicitRK", "Tsit5", "Dopri5", "BS3", "Heun", "Midpoint", "Euler"]
+
+
+def _scale(dt, coef):
+    """dt * coef in dt's own floating type (a numpy scalar)."""
+    kind = type(dt)
+    return kind(dt * kind(coef))
+
+
+class ExplicitRK:
+    """Tableau-driven ERK stepper.
+
+    step(fvec, t, dt, u, f0) -> (u1, f1, err):
+      u1  : propagated state,
+      f1  : fvec(u1, t+dt) (reused FSAL-style by the integrator),
+      err : embedded local-error vector, or None when the tableau has no
+            embedded pair or the caller passed `need_err=False` (a fixed-grid
+            march reads no error, so it skips those device passes).
+    t and dt are numpy scalars of the time dtype; u and f0 are tensors.
+    """
+
+    def __init__(self, tableau: ButcherTableau, name: str):
+        self.tableau = tableau
+        self.order = tableau.order
+        self.fsal = tableau.fsal
+        self.n_stages = len(tableau.b)
+        self.name = name
+
+    def __repr__(self):
+        return f"{self.name}()"
+
+    def step(self, fvec, t, dt, u, f0, need_err: bool = True):
+        tab = self.tableau
+        kind = type(t)
+        ks = [f0]
+        for i, row in enumerate(tab.a):
+            du = None
+            for aij, k in zip(row, ks):
+                if aij == 0.0:
+                    continue
+                contrib = k * float(_scale(dt, aij))
+                du = contrib if du is None else du + contrib
+            ui = u if du is None else u + du
+            ti = kind(t + _scale(dt, tab.c[i + 1]))
+            ks.append(fvec(ui, ti))
+
+        u1 = u
+        for bi, k in zip(tab.b, ks):
+            if bi == 0.0:
+                continue
+            u1 = u1 + k * float(_scale(dt, bi))
+
+        f1 = ks[-1] if tab.fsal else fvec(u1, kind(t + dt))
+
+        err = None
+        if tab.b_err and need_err:
+            for ei, k in zip(tab.b_err, ks):
+                if ei == 0.0:
+                    continue
+                term = k * float(_scale(dt, ei))
+                err = term if err is None else err + term
+        return u1, f1, err
+
+
+def Tsit5():
+    return ExplicitRK(TSIT5, "Tsit5")
+
+
+def Dopri5():
+    return ExplicitRK(DOPRI5, "Dopri5")
+
+
+def BS3():
+    return ExplicitRK(BOSH3, "BS3")
+
+
+def Heun():
+    return ExplicitRK(HEUN, "Heun")
+
+
+def Midpoint():
+    return ExplicitRK(MIDPOINT, "Midpoint")
+
+
+def Euler():
+    return ExplicitRK(EULER, "Euler")
