@@ -6,21 +6,43 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It drives the port's main path, the gradient of Σ solve(...).ys[-1]² with
-respect to u0 and p for the flagship 1-D reaction-diffusion PDE (Tsit5, 64
-fixed steps of 1e-9, p = [1e-7, 1.5], n = 262,144 and 1,048,576 states),
-under sensealg=None (which dispatches to BacksolveAdjoint) and under
-DirectAdjoint. Phases, each printed before the last line:
+It drives two paths of the port through `solve`, each with the kernel
+launch counters set to 0 just before it and read just after:
+
+  * the flagship 1-D reaction-diffusion PDE: the gradient of
+    Σ solve(...).ys[-1]² with respect to u0 and p (Tsit5, 64 fixed steps of
+    1e-9, p = [1e-7, 1.5], n = 262,144 and 1,048,576 states), under
+    sensealg=None (which dispatches to BacksolveAdjoint) and DirectAdjoint;
+    kernels K1, K2 (csrc/rd1d.cu);
+  * the neural-ODE family with the fused MLP field fused_mlp2, kernels K3,
+    K4 (csrc/mlp2.cu): S1 the spiral (2->50->2 tanh MLP on u³, u0 = [2, 0],
+    Tsit5, dt = 1.5/29, 30 save times on [0, 1.5], unroll=True, so
+    DirectAdjoint; loss Σ(ys - data)² against a tight float64 solve of the
+    true spiral); S2 the same adaptive (rtol 1e-3, atol 1e-6,
+    BacksolveAdjoint, max_steps 256); S3 as S2 with sensealg=None, which
+    dispatches to GaussAdjoint; S4 the batched field (B = 1024,
+    512->2048->512, Tsit5, 64 fixed steps on [0, 1], sensealg=None, which
+    takes the discrete fixed-grid path; loss Σ ys[-1].float()²).
+
+Phases, each printed before the last line:
 
   1. device: CUDA is required (no CPU fallback); the card's name and power
      limit as nvidia-smi reports them;
-  2. build of the CUDA kernels from the repository's sources (set-up time);
-  3. each kernel against its plain PyTorch version on the card;
-  4. the float64 gradient on the card against the port's own CPU run
-     (plain path), with retcode, dispatch and kernel-launch checks;
-  5. the float32 gradients against the card's float64 ones;
-  6. timings: CUDA events (median of 10, arms interleaved) and a
-     torch.profiler trace for kernel time and the device's idle share.
+  2. build of the CUDA kernels from the repository's sources, one nvcc per
+     source, started together (set-up time), with the ptxas lines;
+  3. each kernel against its plain PyTorch version on the card (K3, K4 in
+     float64, float32 and bfloat16 at the spiral's, a ragged and S4's
+     shape; K2 and K4 return the same bits twice);
+  4. the PDE's float64 gradient on the card against the port's own CPU run
+     (plain path), with retcode, dispatch and kernel-launch checks, then
+     float32 against the card's float64;
+  5. S1-S3 in float64, the card against the port's CPU run; S4 in float64
+     at full width with B = 8 and 4 steps, card against CPU; S4 at full
+     size in float32 against the card's float64 and in bfloat16 against
+     the card's float32;
+  6. timings: CUDA events (median of interleaved rounds) and a
+     torch.profiler trace for kernel time and the device's idle share; per
+     kernel device time against its bound and its plain version.
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -46,7 +68,23 @@ STEPS, DT = 64, 1e-9
 P_FLAGSHIP = (1e-7, 1.5)
 ADJ = dict(adj_rtol=1e-3, adj_atol=1e-8, adj_max_steps=128)
 SIZES = (262144, 1048576)
-TIMING_REPS = 10
+TIMING_REPS = 5
+
+# the neural-ODE family (bench.py:124-163, 956-1038; __graft_entry__.py:61)
+SPIRAL_T1, SPIRAL_NT = 1.5, 30
+SPIRAL_ADAPTIVE = dict(rtol=1e-3, atol=1e-6, max_steps=256)
+S4_WIDTHS = (512, 2048, 512)
+S4_B, S4_STEPS = 1024, 64
+S4_EVALS = 6 * S4_STEPS + 1  # Tsit5: 6 fresh evaluations per step + the first
+# the last step's FSAL evaluation f(u1) reaches no output, so autograd never
+# pulls it back: one K4 call fewer than K3 calls per gradient
+S4_PULLBACKS = S4_EVALS - 1
+MLP_SHAPES = {"spiral": (None, 2, 50, 2), "ragged": (37, 5, 67, 3),
+              "S4": (S4_B,) + S4_WIDTHS}
+# H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel is the
+# larger of its bytes over HBM and its operations over the rate of its type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 # relative tolerances, each with its reason in the check's printed line
 K_TOL = {torch.float64: 1e-12, torch.float32: 1e-5}   # f, ū vs max|.|
@@ -54,6 +92,18 @@ KP_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}  # D̄, k̄
 F64_GRAD_TOL = 1e-9   # card f64 vs CPU f64, relative L2
 F32_U0_TOL = 1e-4     # card f32 vs card f64, relative L2 of the u0-grad
 F32_DK_TOL = 1e-3     # ... and of k̄
+# K3, K4 vs plain, relative to max|.| of each output: float64 and float32
+# sum up to 2048 products in another order (float32 never as TF32);
+# bfloat16 outputs keep 8 bits and a sum in another order can flip one
+# rounding of h, dz or an output (2^-8 each)
+MLP_TOL = {torch.float64: 1e-12, torch.float32: 1e-4, torch.bfloat16: 2e-2}
+NODE_F64_TOL = 1e-9   # S1-S4 card f64 vs CPU f64, relative L2 per leaf
+# S4 card f32 vs card f64: 385 evaluations of 512-2048-term float32 sums
+S4_F32_TOL = 1e-4
+# S4 bf16 vs card f32: the bf16 state rounds at every stage (unit roundoff
+# 2^-9 of |u| against increments of ~|u|/64), which compounds over 385
+# stages to a few percent; an O(1) error is a wrong result
+S4_BF16_TOL = 0.25
 
 
 def check(ok: bool, what: str):
@@ -129,6 +179,120 @@ def interleaved_ms(fns, rounds=TIMING_REPS):
     return {name: statistics.median(ts) for name, ts in times.items()}
 
 
+def mlp_inputs(shape, dtype, device):
+    """Seeded K3/K4 inputs at (B, din, hid, dout); B None is the 1-D row."""
+    B, din, hid, dout = shape
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    make = lambda *sh, s=1.0: (s * torch.randn(*sh, generator=gen,
+                                               device=device)).to(dtype)
+    rows = 1 if B is None else B
+    return (make(rows, din), make(din, hid, s=din ** -0.5), make(hid, s=0.1),
+            make(hid, dout, s=hid ** -0.5), make(dout, s=0.1),
+            make(rows, dout))
+
+
+def mlp_bound_ms(shape, dtype):
+    """(bound in ms, what bounds it) of K3 and of K4 at `shape`: each input
+    read once, each output written once; 2 flops per multiply-add."""
+    B, din, hid, dout = shape
+    B = B or 1
+    size = torch.tensor([], dtype=dtype).element_size()
+    flops = 2 * B * hid * (din + dout)
+    io = {"K3": (B * din + din * hid + hid + hid * dout + dout
+                 + B * dout + B * hid) * size,
+          "K4": (B * din + din * hid + hid * dout + B * hid + B * dout
+                 + B * din + din * hid + hid + hid * dout + dout) * size}
+    out = {}
+    for name, fl in (("K3", flops), ("K4", 2 * flops)):
+        t_ops = fl / PEAK_FLOPS[dtype] * 1e3
+        t_bytes = io[name] / HBM_BYTES_PER_S * 1e3
+        out[name] = (max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def spiral_setup(P, dtype, device, data64):
+    """Seeded spiral weights, u0, data and save times."""
+    gen = torch.Generator().manual_seed(SEED)
+    params = P.mlp_init(gen, (2, 50, 2), dtype, device=device)
+    u0 = torch.tensor([2.0, 0.0], dtype=dtype, device=device)
+    ts = torch.linspace(0.0, SPIRAL_T1, SPIRAL_NT, dtype=torch.float64).tolist()
+    return params, u0, data64.to(device=device, dtype=dtype), ts
+
+
+def spiral_data64(P):
+    """The spiral's true ODE solved tightly in float64 (bench.py:124-140)."""
+    prob, ts = P.spiral_data(torch.float64, SPIRAL_NT, SPIRAL_T1, device="cpu")
+    sol = P.solve(prob, P.Tsit5(), saveat=ts, rtol=1e-10, atol=1e-12)
+    check(sol.retcode == 0, f"spiral data solve retcode {sol.retcode}")
+    return sol.ys
+
+
+def spiral_solve(P, setup, kw, params):
+    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2
+
+    _, u0, _, ts = setup
+    prob = P.ODEProblem(lambda u, p, t: fused_mlp2(p, u ** 3), u0,
+                        (0.0, SPIRAL_T1), params)
+    return P.solve(prob, P.Tsit5(), saveat=ts, **kw)
+
+
+def spiral_gradient(P, setup, kw):
+    """(d/dp of Σ(ys - data)² per leaf, solution)."""
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in setup[0].items()}
+    sol = spiral_solve(P, setup, kw, params)
+    grads = torch.autograd.grad(torch.sum((sol.ys - setup[2]) ** 2),
+                                list(params.values()))
+    return dict(zip(params, grads)), sol
+
+
+def spiral_forward(P, setup, kw):
+    with torch.no_grad():
+        return spiral_solve(P, setup, kw, setup[0]).ys
+
+
+def s4_setup(P, dtype, device, B=S4_B, steps=S4_STEPS):
+    """Seeded S4 weights and u0 = 0.1·randn (drawn in float32, then cast)."""
+    gen = torch.Generator().manual_seed(SEED)
+    params = P.mlp_init(gen, S4_WIDTHS, dtype, device=device)
+    u0 = 0.1 * torch.randn((B, S4_WIDTHS[0]), generator=gen)
+    return params, u0.to(device=device, dtype=dtype), steps
+
+
+def s4_solve(P, setup, params):
+    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2
+
+    _, u0, steps = setup
+    prob = P.ODEProblem(lambda u, p, t: fused_mlp2(p, u), u0, (0.0, 1.0),
+                        params)
+    return P.solve(prob, P.Tsit5(), saveat=[0.0, 1.0], dt=1.0 / steps,
+                   adaptive=False)
+
+
+def s4_gradient(P, setup):
+    """(d/dp of Σ ys[-1].float()² per leaf, solution)."""
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in setup[0].items()}
+    sol = s4_solve(P, setup, params)
+    grads = torch.autograd.grad(torch.sum(sol.ys[-1].float() ** 2),
+                                list(params.values()))
+    return dict(zip(params, grads)), sol
+
+
+def s4_forward(P, setup):
+    with torch.no_grad():
+        return s4_solve(P, setup, setup[0]).ys[-1]
+
+
+def leaf_errors(got, ref):
+    return {k: rel_l2(got[k], ref[k]) for k in ref}
+
+
+def fmt_errors(errs):
+    return ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+
+
 def main() -> int:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -136,7 +300,11 @@ def main() -> int:
                            "torch.cuda.is_available() is false")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import scimlsensitivity_jl_tpu_torch as P
-    from scimlsensitivity_jl_tpu_torch.ops import cuda_build, rd1d
+    from scimlsensitivity_jl_tpu_torch.ops import cuda_build, mlp, rd1d
+
+    # every float32 comparison and timing is full float32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     dev = torch.device("cuda", 0)
     card = subprocess.run(
@@ -149,12 +317,16 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t = time.perf_counter()
+    cuda_build.build_libraries(["rd1d", "mlp2"])
     rd1d.load_rd1d_library()
-    print(f"[setup] nvcc build + load of csrc/rd1d.cu: "
-          f"{time.perf_counter() - t:.2f} s ({' '.join(cuda_build.NVCC_FLAGS)})")
-    for line in cuda_build.build_log("rd1d").splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"[setup] ptxas: {line.strip()}")
+    mlp.load_mlp2_library()
+    print(f"[setup] nvcc build (in parallel) + load of csrc/rd1d.cu and "
+          f"csrc/mlp2.cu: {time.perf_counter() - t:.2f} s "
+          f"({' '.join(cuda_build.NVCC_FLAGS)}); allow_tf32 False")
+    for name in ("rd1d", "mlp2"):
+        for line in cuda_build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[setup] ptxas {name}: {line.strip()}")
 
     # -- 3. kernels vs plain versions on the card --------------------------
     max_abs = {}
@@ -184,6 +356,35 @@ def main() -> int:
                 max_abs["K1"] = float((f - f_ref).abs().max())
                 # K2's D̄, k̄ are O(1e13) and O(1) and reported relative above
                 max_abs["K2"] = float((du - du_ref).abs().max())
+
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        for label, shape in MLP_SHAPES.items():
+            x, w0, b0, w1, b1, g = mlp_inputs(shape, dtype, dev)
+            y, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
+            grads = mlp.mlp2_vjp_cuda(x, w0, w1, h, g)
+            again = mlp.mlp2_vjp_cuda(x, w0, w1, h, g)
+            torch.cuda.synchronize()
+            refs = (mlp.mlp2_fwd_reference(x, w0, b0, w1, b1)
+                    + mlp.mlp2_vjp_reference(x, w0, w1, h, g))
+            errs = {}
+            for name, got, ref in zip(("y", "h", "dx", "dW0", "db0", "dW1",
+                                       "db1"), (y, h) + grads, refs):
+                check(got.dtype == dtype and got.shape == ref.shape,
+                      f"K3/K4 {name} {got.dtype} {tuple(got.shape)}")
+                d = (got.double() - ref.double()).abs().max()
+                errs[name] = (float(d / ref.double().abs().max()), float(d))
+            same = all(torch.equal(a, b) for a, b in zip(again, grads))
+            worst = max(e for e, _ in errs.values())
+            print(f"[kernels] {str(dtype)[6:]} {label} {shape}: K3/K4 vs plain,"
+                  f" max|err|/max|ref| "
+                  + ", ".join(f"{k} {e:.2e}" for k, (e, _) in errs.items())
+                  + f" (tol {MLP_TOL[dtype]:g}); K4 same bits twice: {same}")
+            check(worst <= MLP_TOL[dtype], f"K3/K4 disagree: {errs}")
+            check(same, "K4 gave other bits on a second call")
+            if dtype == torch.bfloat16 and label == "S4":
+                max_abs["K3"] = max(errs["y"][1], errs["h"][1])
+                max_abs["K4"] = max(errs[k][1] for k in
+                                    ("dx", "dW0", "db0", "dW1", "db1"))
 
     # -- 4. main path, float64: card vs the port's CPU run -----------------
     n = SIZES[0]
@@ -251,6 +452,92 @@ def main() -> int:
             check(sol.retcode == 0 and rc == 0, f"f32 ({arm}) n={n} retcode")
             check(e_u <= F32_U0_TOL and e_dk <= F32_DK_TOL,
                   f"f32 ({arm}) n={n} gradient off the f64 one")
+
+    # -- 5b. neural-ODE paths, float64: card vs the port's CPU run ---------
+    data64 = spiral_data64(P)
+    spiral_arms = {
+        "S1 fixed grid, unroll -> DirectAdjoint": dict(
+            dt=SPIRAL_T1 / (SPIRAL_NT - 1), adaptive=False, unroll=True),
+        "S2 adaptive BacksolveAdjoint": dict(SPIRAL_ADAPTIVE,
+                                             sensealg=P.BacksolveAdjoint()),
+        "S3 adaptive sensealg=None": dict(SPIRAL_ADAPTIVE),
+    }
+    want_rule = [P.DirectAdjoint, P.BacksolveAdjoint, P.GaussAdjoint]
+    node_launches = {"K3": 0, "K4": 0}
+
+    def count_path(fn):
+        """Run one path with K3/K4's counters zeroed before and read after."""
+        mlp.mlp2_fwd_cuda.launches = 0
+        mlp.mlp2_vjp_cuda.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = (mlp.mlp2_fwd_cuda.launches, mlp.mlp2_vjp_cuda.launches)
+        check(got[0] > 0 and got[1] > 0, f"the path did not launch K3 and K4: "
+              f"{got}")
+        node_launches["K3"] += got[0]
+        node_launches["K4"] += got[1]
+        return out, got
+
+    setup_card = spiral_setup(P, torch.float64, dev, data64)
+    setup_cpu = spiral_setup(P, torch.float64, "cpu", data64)
+    for (arm, kw), rule in zip(spiral_arms.items(), want_rule):
+        (g_card, sol), got = count_path(
+            lambda: spiral_gradient(P, setup_card, kw))
+        g_cpu, sol_cpu = spiral_gradient(P, setup_cpu, kw)
+        errs = leaf_errors(g_card, g_cpu)
+        rc = sol.adjoint.stats.retcode if sol.adjoint is not None else 0
+        rev = sol.adjoint.stats if sol.adjoint is not None else "autograd"
+        print(f"[node f64] {arm}: dispatched to {type(sol.sensealg).__name__}; "
+              f"forward {sol.stats}; reverse {rev}; K3 {got[0]} and K4 {got[1]}"
+              f" launches; card vs CPU rel L2 {fmt_errors(errs)} "
+              f"(tol {NODE_F64_TOL:g})")
+        check(type(sol.sensealg) is rule,
+              f"{arm} dispatched to {sol.sensealg!r}")
+        check(sol.retcode == 0 and rc == 0, f"{arm}: retcode {sol.retcode}/{rc}")
+        check(max(errs.values()) <= NODE_F64_TOL,
+              f"{arm}: f64 card gradient disagrees with the CPU run")
+
+    s4_small = {dev: s4_setup(P, torch.float64, dev, B=8, steps=4),
+                "cpu": s4_setup(P, torch.float64, "cpu", B=8, steps=4)}
+    (g_card, sol), got = count_path(lambda: s4_gradient(P, s4_small[dev]))
+    g_cpu, _ = s4_gradient(P, s4_small["cpu"])
+    errs = leaf_errors(g_card, g_cpu)
+    print(f"[node f64] S4 at full width, B=8, 4 steps: dispatched to "
+          f"{type(sol.sensealg).__name__} on the fixed-grid discrete path; "
+          f"K3 {got[0]} and K4 {got[1]} launches; card vs CPU rel L2 "
+          f"{fmt_errors(errs)} (tol {NODE_F64_TOL:g})")
+    check(sol.retcode == 0 and sol.adjoint is None,
+          "S4 did not take the discrete fixed-grid path")
+    check(max(errs.values()) <= NODE_F64_TOL, "S4 f64 card vs CPU disagrees")
+
+    s4_grads = {}
+    for dtype in (torch.float64, torch.float32, torch.bfloat16):
+        setup = s4_setup(P, dtype, dev)
+        (g, sol), got = count_path(lambda: s4_gradient(P, setup))
+        check(sol.ys.dtype == dtype, f"S4 state dtype {sol.ys.dtype}")
+        check(got == (S4_EVALS, S4_PULLBACKS),
+              f"S4 {dtype}: {got} launches, expected {S4_EVALS} and "
+              f"{S4_PULLBACKS}")
+        finite = all(bool(torch.isfinite(v).all()) for v in g.values())
+        check(finite, f"S4 {dtype}: non-finite gradient")
+        s4_grads[dtype] = g
+        line = (f"[node {str(dtype)[6:]}] S4 full size (B={S4_B}, "
+                f"{'->'.join(map(str, S4_WIDTHS))}, {S4_STEPS} steps): K3 "
+                f"{got[0]} and K4 {got[1]} launches")
+        if dtype == torch.float32:
+            errs = leaf_errors(g, s4_grads[torch.float64])
+            line += (f"; vs card f64 rel L2 {fmt_errors(errs)} "
+                     f"(tol {S4_F32_TOL:g})")
+            check(max(errs.values()) <= S4_F32_TOL, "S4 f32 off the f64 run")
+        elif dtype == torch.bfloat16:
+            errs = leaf_errors(g, s4_grads[torch.float32])
+            line += (f"; vs card f32 rel L2 {fmt_errors(errs)} "
+                     f"(tol {S4_BF16_TOL:g})")
+            check(max(errs.values()) <= S4_BF16_TOL, "S4 bf16 off the f32 run")
+        print(line)
+        del setup, g, sol
+    del s4_grads
+    print(f"[node] K3/K4 launches over S1-S4's card runs: {node_launches}")
 
     # -- host syncs: the fixed-grid march and DirectAdjoint make none; the
     # Backsolve reverse reads its error norm once per step attempt ------------
@@ -321,18 +608,101 @@ def main() -> int:
                   f"{cells} B/cell), host-paced {wall * 1e3:.2f} us per call; "
                   "profiler over 100 calls")
 
+    # -- 6b. neural-ODE timings ------------------------------------------------
+    setup32 = spiral_setup(P, torch.float32, dev, data64)
+    arms = {"S1 forward": lambda: spiral_forward(
+        P, setup32, spiral_arms["S1 fixed grid, unroll -> DirectAdjoint"])}
+    for arm, kw in spiral_arms.items():
+        arms[arm.split(" ")[0] + " gradient"] = (
+            lambda kw=kw: spiral_gradient(P, setup32, kw))
+    med = interleaved_ms(arms, rounds=10)
+    for name, fn in arms.items():
+        busy, wall = profiled_ms(fn)
+        print(f"[time] {card}: spiral f32 {name}: {med[name]:.3f} ms "
+              f"({med[name] / med['S1 forward']:.2f}x S1 forward; CUDA events, "
+              f"median of 10 interleaved); profiled run: kernels {busy:.3f} ms "
+              f"of {wall:.3f} ms wall, device idle "
+              f"{100 * (1 - busy / wall):.1f}%")
+
+    setup_bf = s4_setup(P, torch.bfloat16, dev)
+    arms = {"S4 forward": lambda: s4_forward(P, setup_bf),
+            "S4 gradient": lambda: s4_gradient(P, setup_bf)}
+    med = interleaved_ms(arms, rounds=5)
+    eval_flops = 2 * S4_B * S4_WIDTHS[1] * (S4_WIDTHS[0] + S4_WIDTHS[2])
+    for name, fn in arms.items():
+        flops = eval_flops * S4_EVALS
+        if name == "S4 gradient":  # K4 does twice K3's products
+            flops += 2 * eval_flops * S4_PULLBACKS
+        busy, wall = profiled_ms(fn)
+        print(f"[time] {card}: S4 bf16 {name}: {med[name]:.3f} ms "
+              f"({med[name] / med['S4 forward']:.2f}x forward; CUDA events, "
+              f"median of 5 interleaved), {flops / 1e9:.1f} GFLOP of field "
+              f"products -> {flops / (med[name] * 1e-3) / 1e12:.1f} TFLOP/s "
+              f"({100 * flops / (med[name] * 1e-3) / PEAK_FLOPS[torch.bfloat16]:.1f}"
+              f"% of the bf16 peak); profiled run: kernels {busy:.3f} ms of "
+              f"{wall:.3f} ms wall, device idle {100 * (1 - busy / wall):.1f}%")
+    del setup_bf
+
+    mlp_timing = {}
+    for label, dtype, calls in (("S4", torch.bfloat16, 20),
+                                ("S4", torch.float32, 5),
+                                ("spiral", torch.float32, 100)):
+        shape = MLP_SHAPES[label]
+        x, w0, b0, w1, b1, g = mlp_inputs(shape, dtype, dev)
+        _, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
+        versions = {
+            "K3": lambda: mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1),
+            "K3_plain": lambda: mlp.mlp2_fwd_reference(x, w0, b0, w1, b1),
+            "K4": lambda: mlp.mlp2_vjp_cuda(x, w0, w1, h, g),
+            "K4_plain": lambda: mlp.mlp2_vjp_reference(x, w0, w1, h, g),
+        }
+        bounds = mlp_bound_ms(shape, dtype)
+        key = (label, dtype)
+        mlp_timing[key] = {"bound": bounds}
+        for name, fn in versions.items():
+            busy, wall = profiled_ms(fn, calls=calls)
+            mlp_timing[key][name] = busy
+            kname = name[:2]
+            flops = (2 if kname == "K3" else 4) * (shape[0] or 1) * shape[2] * (
+                shape[1] + shape[3])
+            print(f"[time] {card}: {label} {shape} {str(dtype)[6:]} {name}: "
+                  f"device {busy * 1e3:.2f} us per call "
+                  f"({flops / (busy * 1e-3) / 1e12:.2f} TFLOP/s), bound "
+                  f"{bounds[kname][0] * 1e3:.2f} us by {bounds[kname][1]} "
+                  f"({100 * bounds[kname][0] / busy:.1f}% of it), host-paced "
+                  f"{wall * 1e3:.2f} us per call; profiler over {calls} calls")
+
     n = SIZES[0]
+    k1_bound = 8 * n / HBM_BYTES_PER_S * 1e3
+    k2_bound = 12 * n / HBM_BYTES_PER_S * 1e3
+    s4 = mlp_timing[("S4", torch.bfloat16)]
     kernels = [
         {"name": "rd1d_fwd (K1)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:58",
          "launches": launches["K1"], "max_abs_err": max_abs["K1"],
-         "ms": timing[n]["K1"], "plain_ms": timing[n]["K1_plain"]},
+         "ms": timing[n]["K1"], "plain_ms": timing[n]["K1_plain"],
+         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "rd1d_vjp (K2)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:66",
          "launches": launches["K2"], "max_abs_err": max_abs["K2"],
-         "ms": timing[n]["K2"], "plain_ms": timing[n]["K2_plain"]},
+         "ms": timing[n]["K2"], "plain_ms": timing[n]["K2_plain"],
+         "bound_ms": k2_bound, "bound_by": "bytes", "library_ms": None},
+        {"name": "mlp2_fwd (K3)", "route": "cuda",
+         "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
+         "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:53",
+         "launches": node_launches["K3"], "max_abs_err": max_abs["K3"],
+         "ms": s4["K3"], "plain_ms": s4["K3_plain"],
+         "bound_ms": s4["bound"]["K3"][0], "bound_by": s4["bound"]["K3"][1],
+         "library_ms": None},
+        {"name": "mlp2_vjp (K4)", "route": "cuda",
+         "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
+         "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:68",
+         "launches": node_launches["K4"], "max_abs_err": max_abs["K4"],
+         "ms": s4["K4"], "plain_ms": s4["K4_plain"],
+         "bound_ms": s4["bound"]["K4"][0], "bound_by": s4["bound"]["K4"][1],
+         "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,9 @@
 
 Counterpart of `scimlsensitivity_jl_tpu/adjoints/common.py`:
 `forward_saveat_solve` (:430) with `save_hook_factory` (:407),
-`reverse_joined_solve` (:185) with loss-cotangent jumps and checkpoint
-snaps only (event arguments wait for ROADMAP M8), and `match_cotangents`
-(:551).
+`reverse_joined_solve` (:185) with loss-cotangent jumps, checkpoint snaps
+and the per-accepted-step hook (event arguments wait for ROADMAP M8), and
+`match_cotangents` (:551).
 
 Save times, jump times and snap times are host values, so matching them
 against the integrator's host clock reads nothing from the device.
@@ -12,7 +12,7 @@ against the integrator's host clock reads nothing from the device.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -132,11 +132,13 @@ def reverse_joined_solve(
     rtol,
     atol,
     max_steps: int,
+    hook: Optional[Callable] = None,
+    hook_carry: Any = None,
     snap_values: Optional[torch.Tensor] = None,
     snap_start: Optional[int] = None,
     err_weights=None,
     t_span=None,
-) -> Tuple[torch.Tensor, Stats]:
+) -> Tuple[torch.Tensor, Any, Stats]:
     """ONE adaptive reverse solve over [t_hi -> t_lo], adding the loss
     cotangents `lam_jumps[k]` into z[:n_lam] exactly when the integrator lands
     on times[k] (the ReverseLossCallback jumps, applied through the integrator's
@@ -145,14 +147,17 @@ def reverse_joined_solve(
     times: ascending host times, shape (m,); lam_jumps (m, n_lam).
     snap_values (m, s) with snap_start: overwrite z[snap_start:] with
     snap_values[j] at times[j] (Backsolve's checkpoint snap).
+    hook: `(step_record, carry) -> carry` on every accepted reverse step,
+    before the jumps at its end fire (GaussAdjoint's quadrature), with
+    step_record = (t_old, t_new, z0, f0, z1, f1) as in `integrate`.
     Every row that coincides with a stop fires there; the JAX function
     unrolls a fixed three checks (`jump_unroll`), which covers every stop
     `times` can hold.
 
-    Returns (z at t_lo after all jumps, reverse Stats). The JAX function
-    returns the retcode where this returns the Stats that hold it (the eager
-    integrator counts the reverse steps for free); its per-step hook and dense
-    collection wait for the rules that use them (ROADMAP M4).
+    Returns (z at t_lo after all jumps, the hook's carry, reverse Stats).
+    The JAX function returns the retcode where this returns the Stats that
+    hold it (the eager integrator counts the reverse steps for free); its
+    dense collection waits for the rules that use it (ROADMAP M4).
     """
     kind = time_dtype(z_init.dtype)
     times = np.asarray(times, dtype=kind)
@@ -176,9 +181,10 @@ def reverse_joined_solve(
         add_row(z0, k0)
         k0 -= 1
 
-    def stop_transform(t, z, k):
+    def stop_transform(t, z, carry):
         # every row that coincides with this stop fires (a save time that
         # duplicates the t0 extension gives two)
+        hc, k = carry
         tol = _match_tol(kind, t, t_hi)
         k_start = k
         while k >= 0 and abs(kind(times[k] - t)) <= tol:
@@ -186,15 +192,20 @@ def reverse_joined_solve(
                 z = z.clone()
             add_row(z, k)
             k -= 1
-        return z, k, k != k_start
+        return z, (hc, k), k != k_start
+
+    wrapped_hook = None
+    if hook is not None:
+        wrapped_hook = lambda rec, carry: (hook(rec, carry[0]), carry[1])
 
     res = integrate(
         stepper, aug_rhs, t_hi, t_lo, z0,
         rtol=rtol, atol=atol, max_steps=max_steps + m + 4, tstops=times,
-        hook_carry=k0, stop_transform=stop_transform, store_dense=False,
+        hook=wrapped_hook, hook_carry=(hook_carry, k0),
+        stop_transform=stop_transform, store_dense=False,
         err_weights=err_weights,
     )
-    return res.u_final, res.stats
+    return res.u_final, res.hook_carry[0], res.stats
 
 
 def match_cotangents(du0, dp, primals):

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..ops.vjp import make_vjp_kernels
-from ..solvers.integrate import Stats, time_dtype
+from ..solvers.integrate import Stats, state_kind
 from ..utils.pytree import ravel_pytree
 from .continuous import AuxOut, SolveOptions
 
@@ -34,13 +34,16 @@ def make_fixed_grid_solve_fn(f, solver, opts: SolveOptions, t0, t1, *,
 
     def solve_fn(u0, p, saveat):
         u0vec, unravel_u = ravel_pytree(u0)
-        kind = time_dtype(u0vec.dtype)
+        # dt and the grid times in the state dtype (bfloat16 included), as
+        # the JAX factory keeps them
+        kind = state_kind(u0vec.dtype)
         kern = make_vjp_kernels(f, u0, p)
         fvec = lambda uv, t: kern.fvec(uv, p, t)
         dt = kind(dt_py)
 
-        steps_f = (np.asarray(saveat, dtype=kind).astype(np.float64)
-                   - float(t0)) / dt_py
+        save_t = np.array([float(kind(s)) for s in
+                           np.asarray(saveat, dtype=np.float64).reshape(-1)])
+        steps_f = (save_t - float(t0)) / dt_py
         if not np.allclose(steps_f, np.rint(steps_f), atol=1e-4):
             raise ValueError("fixed-grid saveat times must lie on the dt "
                              f"grid; got offsets {steps_f}")

@@ -19,8 +19,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
-__all__ = ["NVCC_FLAGS", "find_nvcc", "build_library", "load_library",
-           "build_log"]
+__all__ = ["NVCC_FLAGS", "find_nvcc", "build_library", "build_libraries",
+           "load_library", "build_log"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -59,19 +59,33 @@ def _library_path(name: str) -> Path:
 
 def build_library(name: str) -> Path:
     """Compile csrc/<name>.cu unless a library of the same sources exists."""
-    out = _library_path(name)
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a half file
-    return out
+    return build_libraries([name])[name]
+
+
+def build_libraries(names) -> Dict[str, Path]:
+    """Compile every csrc/<name>.cu not built yet, one nvcc process each, all
+    started together; raises if any fails."""
+    outs = {name: _library_path(name) for name in names}
+    procs = {}
+    for name, out in outs.items():
+        if out.is_file():
+            continue
+        BUILD_DIR.mkdir(exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (cmd, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (cmd, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            continue
+        outs[name].with_suffix(".log").write_text(log)
+        os.replace(tmp, outs[name])  # atomic: a concurrent build never loads a half file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build_log(name: str) -> str:

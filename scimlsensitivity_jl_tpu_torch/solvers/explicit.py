@@ -6,13 +6,16 @@ Euler constructors.
 
 The stages are summed in the JAX package's order, term by term, so float64
 results agree with it to roundoff. Times are host scalars of the time
-dtype (`numpy.float32` or `numpy.float64`): every scalar coefficient
-`dt * a_ij` is rounded in that dtype, as JAX rounds it, before it scales a
-stage on the device.
+dtype (`numpy.float32`, `numpy.float64`, or `bfloat16_scalar` on the
+bfloat16 fixed grid): every scalar coefficient `dt * a_ij` is rounded in
+that dtype, as JAX rounds it, before it scales a stage on the device.
 """
 
 from __future__ import annotations
 
+import torch
+
+from .integrate import kind_torch_dtype
 from .tableaus import BOSH3, DOPRI5, EULER, HEUN, MIDPOINT, TSIT5, ButcherTableau
 
 __all__ = ["ExplicitRK", "Tsit5", "Dopri5", "BS3", "Heun", "Midpoint", "Euler"]
@@ -33,7 +36,10 @@ class ExplicitRK:
       err : embedded local-error vector, or None when the tableau has no
             embedded pair or the caller passed `need_err=False` (a fixed-grid
             march reads no error, so it skips those device passes).
-    t and dt are numpy scalars of the time dtype; u and f0 are tensors.
+    t and dt are host scalars of the time dtype; u and f0 are tensors. The
+    stages run in promote(state dtype, time dtype): a bfloat16 state under
+    float32 time steps in float32, as JAX promotes it against its float32
+    dt, and the integrator casts u1 and f1 back.
     """
 
     def __init__(self, tableau: ButcherTableau, name: str):
@@ -49,6 +55,9 @@ class ExplicitRK:
     def step(self, fvec, t, dt, u, f0, need_err: bool = True):
         tab = self.tableau
         kind = type(t)
+        wide = torch.promote_types(u.dtype, kind_torch_dtype(kind))
+        if wide != u.dtype:
+            u, f0 = u.to(wide), f0.to(wide)
         ks = [f0]
         for i, row in enumerate(tab.a):
             du = None

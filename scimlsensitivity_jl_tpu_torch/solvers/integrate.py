@@ -17,6 +17,7 @@ integrator has to replace.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import numpy as np
@@ -31,6 +32,9 @@ __all__ = [
     "hairer_norm",
     "initial_step_size",
     "time_dtype",
+    "state_kind",
+    "kind_torch_dtype",
+    "bfloat16_scalar",
     "RETCODE_SUCCESS",
     "RETCODE_MAXITERS",
     "RETCODE_DTMIN",
@@ -67,15 +71,54 @@ class IntegrateResult(NamedTuple):
     hook_carry: Any
 
 
+def _round_bf16(x: float) -> float:
+    """x rounded to the nearest bfloat16 (ties to even), through float32."""
+    if not math.isfinite(x):
+        return x
+    bits = int(np.float32(x).view(np.uint32))
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    return float(np.uint32(bits).view(np.float32))
+
+
+class bfloat16_scalar(float):
+    """A host scalar rounded to bfloat16, which numpy lacks: every
+    construction rounds, so `kind(a * b)` rounds a product of two such
+    scalars as bfloat16 arithmetic does (the exact product fits a double)."""
+
+    def __new__(cls, x):
+        return float.__new__(cls, _round_bf16(float(x)))
+
+
+_KIND_TORCH = {np.float16: torch.float16, np.float32: torch.float32,
+               np.float64: torch.float64, bfloat16_scalar: torch.bfloat16}
+_STATE_KIND = {dtype: kind for kind, dtype in _KIND_TORCH.items()}
+
+
 def time_dtype(dtype: torch.dtype):
     """numpy scalar type of the time and controller variables of a solve
-    whose state has `dtype` (the JAX package's promote(real(dtype), f32))."""
-    if dtype == torch.float32:
+    whose state has `dtype`: promote(real(dtype), float32), as the JAX
+    integrator keeps it (integrate.py:180). A bfloat16 or float16 state
+    keeps float32 time, and its stage arithmetic runs promoted."""
+    if dtype in (torch.float16, torch.bfloat16, torch.float32):
         return np.float32
     if dtype == torch.float64:
         return np.float64
     raise NotImplementedError(
-        f"state dtype {dtype}: the port solves float32 and float64 states")
+        f"state dtype {dtype}: the port solves real floating-point states")
+
+
+def state_kind(dtype: torch.dtype):
+    """Host scalar type of the state dtype itself: the fixed-grid discrete
+    path keeps dt and the grid times in it (JAX adjoints/direct.py:44-48)."""
+    if dtype not in _STATE_KIND:
+        raise NotImplementedError(
+            f"state dtype {dtype}: the port solves real floating-point states")
+    return _STATE_KIND[dtype]
+
+
+def kind_torch_dtype(kind) -> torch.dtype:
+    """The torch dtype of a host scalar type (numpy float or bfloat16)."""
+    return _KIND_TORCH[kind]
 
 
 def hairer_norm(x: torch.Tensor) -> torch.Tensor:
@@ -85,8 +128,12 @@ def hairer_norm(x: torch.Tensor) -> torch.Tensor:
 
 def initial_step_size(fvec, t0, u0, f0, order, rtol, atol, tdir):
     """Hairer-Norsett-Wanner automatic initial dt (Solving ODEs I, II.4).
-    Scalars are host values of the time dtype; reads three norms."""
+    Scalars are host values of the time dtype; reads three norms. A
+    state below float32 is promoted to the time dtype, as JAX promotes it
+    against its float32 rtol."""
     kind = type(t0)
+    wide = torch.promote_types(u0.dtype, kind_torch_dtype(kind))
+    u0, f0 = u0.to(wide), f0.to(wide)
     sc = u0.abs() * float(rtol) + float(atol)
     d0, d1 = (kind(v) for v in torch.stack(
         [hairer_norm(u0 / sc), hairer_norm(f0 / sc)]).tolist())
@@ -125,7 +172,8 @@ def _error_norm(err, u, u1, rtol, atol, err_weights, weight_count) -> float:
     error scaled by atol + rtol·max(|u|, |u1|), over the weighted components
     only when `err_weights` is given (weight-0 rows, pure quadrature
     accumulators, must not dilute the mean)."""
-    sc = torch.maximum(u.abs(), u1.abs()) * float(rtol) + float(atol)
+    sc = (torch.maximum(u.abs(), u1.abs()).to(err.dtype) * float(rtol)
+          + float(atol))
     if err_weights is None:
         return hairer_norm(err / sc).item()
     scaled = (err_weights * (err / sc)).abs() ** 2

@@ -8,7 +8,9 @@ JAX package's.
 
 `from_numpy_tree` carries weights across: it turns the JAX package's
 parameters, handed over as numpy arrays or Python numbers, into the port's
-tensors on an explicit device and dtype.
+tensors on an explicit device and dtype. A JAX bfloat16 array becomes a
+numpy array of the `ml_dtypes` bfloat16 type, which torch does not take; it
+goes through float32, which holds every bfloat16 value exactly.
 """
 
 from __future__ import annotations
@@ -87,7 +89,10 @@ def from_numpy_tree(tree, device, dtype: torch.dtype):
         if isinstance(x, (int, float)) or (isinstance(x, np.ndarray)
                                            and x.ndim == 0):
             return torch.tensor(float(x), device=device, dtype=dtype)
-        return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+        a = np.asarray(x)
+        if a.dtype.kind == "V":  # ml_dtypes' bfloat16 and kin
+            a = a.astype(np.float32)
+        return torch.as_tensor(a, dtype=dtype).to(device)
 
     if isinstance(tree, dict):
         return {key: from_numpy_tree(tree[key], device, dtype) for key in tree}

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import scimlsensitivity_jl_tpu_torch as P
-from scimlsensitivity_jl_tpu_torch.ops import rd1d
+from scimlsensitivity_jl_tpu_torch.ops import mlp, rd1d
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +80,71 @@ def test_gradient_on_card_matches_cpu(cuda, sensealg):
     rel = torch.linalg.vector_norm(gu_card - gu_cpu) / torch.linalg.vector_norm(gu_cpu)
     assert float(rel) <= 1e-9
     assert float(((gp_card - gp_cpu).abs() / gp_cpu.abs()).max()) <= 1e-9
+
+
+# relative to max|.| of each output: float64 and float32 sum in another order
+# than the plain version; bfloat16 outputs keep 8 bits, and a sum in another
+# order can flip one rounding of h, dz or an output (2^-8 ~ 3.9e-3 each)
+MLP_TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
+                                   torch.bfloat16], ids=str)
+def test_mlp_kernels_match_plain_versions(cuda, dtype):
+    """K3 and K4 at a ragged shape (B = 37, 5 -> 67 -> 3: no dimension a
+    multiple of a tile) against their plain versions on the card, float32
+    without TF32; K4 returns the same bits twice."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, din, hid, dout = 37, 5, 67, 3
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    make = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(dtype)
+    x, w0, b0, w1, b1, g = (make(B, din), make(din, hid), make(hid),
+                            make(hid, dout), make(dout), make(B, dout))
+    y, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
+    grads = mlp.mlp2_vjp_cuda(x, w0, w1, h, g)
+    torch.cuda.synchronize()
+    y_ref, h_ref = mlp.mlp2_fwd_reference(x, w0, b0, w1, b1)
+    refs = mlp.mlp2_vjp_reference(x, w0, w1, h, g)
+    for name, got, ref in zip(("y", "h", "dx", "dW0", "db0", "dW1", "db1"),
+                              (y, h) + tuple(grads), (y_ref, h_ref) + refs):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        err = float((got.double() - ref.double()).abs().max()
+                    / ref.double().abs().max())
+        assert err <= MLP_TOL[dtype], (name, err)
+    again = mlp.mlp2_vjp_cuda(x, w0, w1, h, g)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+
+
+def test_spiral_gradient_on_card_matches_cpu(cuda):
+    """S1, the spiral on a fixed grid with the fused field (DirectAdjoint),
+    float64: the card through K3 and K4 against the port's CPU run through
+    the plain versions, relative L2 <= 1e-9 per parameter; the launch
+    counters move on the card and stay put on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ts = torch.linspace(0.0, 1.5, 30, dtype=torch.float64).tolist()
+    grads = []
+    for device in (cuda, "cpu"):
+        gen = torch.Generator().manual_seed(0)
+        params = {k: v.requires_grad_() for k, v in P.mlp_init(
+            gen, (2, 50, 2), torch.float64, device=device).items()}
+        data = 0.1 * torch.arange(60, dtype=torch.float64,
+                                  device=device).reshape(30, 2)
+        before = (mlp.mlp2_fwd_cuda.launches, mlp.mlp2_vjp_cuda.launches)
+        prob = P.ODEProblem(lambda u, p, t: mlp.fused_mlp2(p, u ** 3),
+                            torch.tensor([2.0, 0.0], dtype=torch.float64,
+                                         device=device), (0.0, 1.5), params)
+        sol = P.solve(prob, P.Tsit5(), saveat=ts, dt=1.5 / 29,
+                      adaptive=False, unroll=True)
+        loss = torch.sum((sol.ys - data) ** 2)
+        grads.append({k: g.cpu() for k, g in zip(
+            params, torch.autograd.grad(loss, list(params.values())))})
+        after = (mlp.mlp2_fwd_cuda.launches, mlp.mlp2_vjp_cuda.launches)
+        assert isinstance(sol.sensealg, P.DirectAdjoint)
+        if device != "cpu":
+            assert all(a > b for a, b in zip(after, before))
+        else:
+            assert after == before
+    for k in grads[1]:
+        rel = (torch.linalg.vector_norm(grads[0][k] - grads[1][k])
+               / torch.linalg.vector_norm(grads[1][k]))
+        assert float(rel) <= 1e-9, (k, float(rel))

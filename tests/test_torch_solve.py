@@ -120,7 +120,9 @@ def test_unported_paths_raise():
     u0 = to_port(LV_U0).requires_grad_()
     prob = P.ODEProblem(lotka_volterra_port, u0, (0.0, 1.0), to_port(LV_P))
     with pytest.raises(NotImplementedError, match="ROADMAP M4"):
-        P.solve(prob, sensealg=P.GaussAdjoint())
+        P.solve(prob, sensealg=P.InterpolatingAdjoint())
+    with pytest.raises(NotImplementedError, match="ROADMAP M4"):
+        P.solve(prob, sensealg=P.GaussAdjoint(checkpointing=True))
     with pytest.raises(NotImplementedError, match="ROADMAP M8"):
         P.solve(prob, callback=object())
     with pytest.raises(NotImplementedError, match="ROADMAP M3"):
