@@ -6,8 +6,8 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It drives two paths of the port through `solve`, each with the kernel
-launch counters set to 0 just before it and read just after:
+It drives three paths of the port through its entry points, each with the
+kernel launch counters set to 0 just before it and read just after:
 
   * the flagship 1-D reaction-diffusion PDE: the gradient of
     Σ solve(...).ys[-1]² with respect to u0 and p (Tsit5, 64 fixed steps of
@@ -22,7 +22,13 @@ launch counters set to 0 just before it and read just after:
     BacksolveAdjoint, max_steps 256); S3 as S2 with sensealg=None, which
     dispatches to GaussAdjoint; S4 the batched field (B = 1024,
     512->2048->512, Tsit5, 64 fixed steps on [0, 1], sensealg=None, which
-    takes the discrete fixed-grid path; loss Σ ys[-1].float()²).
+    takes the discrete fixed-grid path; loss Σ ys[-1].float()²); S5 the
+    spiral adaptive under DirectAdjoint (autograd through the adaptive
+    loop), also with remat=True;
+  * the RK4 block megakernel (bench.py:838-954, bench_pde_megakernel):
+    make_rd1d_rk4_block(n = 1,048,576, S = 16) chained 4 and 32 times (64
+    and 512 RK4 steps of h = 1e-9, p = [1e-7, 1.5], the flagship u0); the
+    gradient of Σ u²; kernels K5, K6 (csrc/rd1d_rk4.cu).
 
 Phases, each printed before the last line:
 
@@ -32,17 +38,24 @@ Phases, each printed before the last line:
      source, started together (set-up time), with the ptxas lines;
   3. each kernel against its plain PyTorch version on the card (K3, K4 in
      float64, float32 and bfloat16 at the spiral's, a ragged and S4's
-     shape; K2 and K4 return the same bits twice);
+     shape; K5, K6 in float64 and float32 at the flagship and a ragged
+     geometry; K2, K4 and K6 return the same bits twice);
   4. the PDE's float64 gradient on the card against the port's own CPU run
      (plain path), with retcode, dispatch and kernel-launch checks, then
      float32 against the card's float64;
-  5. S1-S3 in float64, the card against the port's CPU run; S4 in float64
-     at full width with B = 8 and 4 steps, card against CPU; S4 at full
-     size in float32 against the card's float64 and in bfloat16 against
-     the card's float32;
+  5. S1-S3 and S5 in float64, the card against the port's CPU run (S5's
+     remat arm launching K3 again for every accepted step's 6 stages); S4
+     in float64 at full width with B = 8 and 4 steps, card against CPU; S4
+     at full size in float32 against the card's float64 and in bfloat16
+     against the card's float32; the megakernel's 64-step float64 gradient,
+     card against CPU, and its float32 gradient at 64 and 512 steps against
+     the card's float64;
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
-     kernel device time against its bound and its plain version.
+     kernel device time against its bound and its plain version; the
+     megakernel against the plain RK4 loop (64 steps) and against the plain
+     loop with per-step torch.utils.checkpoint (512 steps), with the peak
+     device memory of each.
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -105,6 +118,22 @@ S4_F32_TOL = 1e-4
 # stages to a few percent; an O(1) error is a wrong result
 S4_BF16_TOL = 0.25
 
+# the RK4 block megakernel (bench.py:838-954)
+MEGA_N, MEGA_S, MEGA_H = 1048576, 16, 1e-9
+# K5 / K6 checks: (n, S, chunk, bwd_chunk); the flagship tiles and a ragged
+# geometry (windows of 1064 and 564 cells, not a multiple of a block's 512
+# threads, 5 and 10 tiles)
+RK4_GEOMS = {"flagship": (MEGA_N, MEGA_S, 4096, 1024),
+             "ragged": (5000, 7, 1000, 500)}
+# operations per cell and step of the function each kernel computes,
+# counted from csrc/rd1d_rk4.cu (a multiply-add is 2): K5's RK4 step is 4
+# field evaluations of 8 (stencil 3, D·inv_dx2·L 1, k·u(1-u) 3, sum 1),
+# 3 stage inputs of 2 and a final combination of 6; K6 needs the stage
+# states (44) and the reverse sweep: 4 transposes of 9, the w's 10, λ's
+# update 4, D̄ 8 and k̄ 16
+RK4_FLOPS = {"K5": 44, "K6": 44 + 74}
+RK4_BYTES = {"K5": 2, "K6": 3}  # values per cell read or written once
+
 
 def check(ok: bool, what: str):
     if not ok:
@@ -145,19 +174,25 @@ def flagship_forward(P, field, u0, p):
 def profiled_ms(fn, calls=1):
     """(device kernel time, host wall time) per call of fn, in ms, from a
     torch.profiler (CUPTI) trace: the sum of the kernels' own device time,
-    so the rest of the wall time is the device idling on the host."""
+    so the rest of the wall time is the device idling on the host. Only
+    device activity is traced: with host operators traced as well, the
+    traces of one process lost device events after some forty of them. A
+    trace without device activity is taken again, twice at most."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t) * 1e3 / calls
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / calls
-    check(busy > 0, "the profiler recorded no device time")
-    return busy, wall
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3 / calls
+        busy = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / calls
+        if busy > 0:
+            return busy, wall
+        print(f"[time] trace {attempt + 1} recorded no device time; again")
+    raise AssertionError("the profiler recorded no device time")
 
 
 def interleaved_ms(fns, rounds=TIMING_REPS):
@@ -293,6 +328,58 @@ def fmt_errors(errs):
     return ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
 
 
+def rk4_check_inputs(n, dtype, device):
+    """Seeded K5/K6 check inputs: u in [0, 1], λ ~ N(0, 1), h·D·inv_dx2 =
+    1e-3, so every step moves u while the window-edge values that the halo
+    absorbs stay (1e-3)^(2S+2) below the interior's."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    u = torch.rand(n, generator=gen, device=device, dtype=dtype)
+    lam = torch.randn(n, generator=gen, device=device, dtype=dtype)
+    inv_dx2 = float(n) * float(n)
+    p = torch.tensor([1.0 / inv_dx2, 1.5], device=device, dtype=dtype)
+    return u, lam, p, inv_dx2, 1e-3
+
+
+def mega_run(P, u0, p, steps, grad, remat=False, block=None):
+    """`steps` RK4 steps of the flagship field from u0: through the
+    megakernel block (block=make_rd1d_rk4_block(...)) or, with block None,
+    through the plain RK4 loop (per-step torch.utils.checkpoint when
+    remat). Returns u, or (u0-grad, p-grad) of Σ u² when grad."""
+    from torch.utils.checkpoint import checkpoint
+
+    from scimlsensitivity_jl_tpu_torch.ops.rd1d import rd1d_rk4_scan_reference
+
+    inv_dx2 = float(MEGA_N) * float(MEGA_N)
+    uu = u0.clone().requires_grad_(grad)
+    pp = p.clone().requires_grad_(grad)
+    with torch.set_grad_enabled(grad):
+        u = uu
+        if block is not None:
+            for _ in range(steps // MEGA_S):
+                u = block(u, pp, inv_dx2, MEGA_H)
+        else:
+            for _ in range(steps):
+                if remat:
+                    u = checkpoint(rd1d_rk4_scan_reference, u, pp, inv_dx2,
+                                   MEGA_H, 1, use_reentrant=False,
+                                   preserve_rng_state=False)
+                else:
+                    u = rd1d_rk4_scan_reference(u, pp, inv_dx2, MEGA_H, 1)
+        if not grad:
+            return u
+        return torch.autograd.grad(torch.sum(u ** 2), (uu, pp))
+
+
+def rk4_bound_ms(name, n, S, dtype):
+    """(bound in ms, what bounds it) of one K5 / K6 call at (n, S): the
+    operations of S steps over the non-tensor-core peak, against each input
+    read once and each output written once."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    t_ops = S * RK4_FLOPS[name] * n / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = RK4_BYTES[name] * n * size / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def main() -> int:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -301,6 +388,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import scimlsensitivity_jl_tpu_torch as P
     from scimlsensitivity_jl_tpu_torch.ops import cuda_build, mlp, rd1d
+    sources = ("rd1d", "mlp2", "rd1d_rk4")
 
     # every float32 comparison and timing is full float32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -317,13 +405,15 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     t = time.perf_counter()
-    cuda_build.build_libraries(["rd1d", "mlp2"])
+    cuda_build.build_libraries(sources)
     rd1d.load_rd1d_library()
     mlp.load_mlp2_library()
-    print(f"[setup] nvcc build (in parallel) + load of csrc/rd1d.cu and "
-          f"csrc/mlp2.cu: {time.perf_counter() - t:.2f} s "
+    rd1d.load_rd1d_rk4_library()
+    print(f"[setup] nvcc build (in parallel) + load of "
+          f"{', '.join(f'csrc/{name}.cu' for name in sources)}: "
+          f"{time.perf_counter() - t:.2f} s "
           f"({' '.join(cuda_build.NVCC_FLAGS)}); allow_tf32 False")
-    for name in ("rd1d", "mlp2"):
+    for name in sources:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[setup] ptxas {name}: {line.strip()}")
@@ -385,6 +475,37 @@ def main() -> int:
                 max_abs["K3"] = max(errs["y"][1], errs["h"][1])
                 max_abs["K4"] = max(errs[k][1] for k in
                                     ("dx", "dW0", "db0", "dW1", "db1"))
+
+    for dtype in (torch.float64, torch.float32):
+        for label, (n, S, chunk, bwd_chunk) in RK4_GEOMS.items():
+            u, lam, p, inv_dx2, h = rk4_check_inputs(n, dtype, dev)
+            y = rd1d.rd1d_rk4_fwd_cuda(u, p, inv_dx2, h, S, chunk)
+            du, dp = rd1d.rd1d_rk4_vjp_cuda(u, p, inv_dx2, h, S, bwd_chunk,
+                                            lam)
+            du2, dp2 = rd1d.rd1d_rk4_vjp_cuda(u, p, inv_dx2, h, S, bwd_chunk,
+                                              lam)
+            torch.cuda.synchronize()
+            y_ref = rd1d.rd1d_rk4_scan_reference(u, p, inv_dx2, h, S)
+            du_ref, dp_ref = rd1d.rd1d_rk4_block_vjp_reference(
+                u, p, inv_dx2, h, S, lam)
+            e_y = float((y - y_ref).abs().max() / y_ref.abs().max())
+            e_du = float((du - du_ref).abs().max() / du_ref.abs().max())
+            e_dp = ((dp - dp_ref).abs() / dp_ref.abs()).tolist()
+            same = torch.equal(du, du2) and torch.equal(dp, dp2)
+            print(f"[kernels] {str(dtype)[6:]} {label} (n, S, chunk, "
+                  f"bwd_chunk) = {(n, S, chunk, bwd_chunk)}: K5 "
+                  f"max|u-u_ref|/max|u|={e_y:.3e}, K6 max|ū-ū_ref|/max|ū|="
+                  f"{e_du:.3e} (tol {K_TOL[dtype]:g}), D̄ rel {e_dp[0]:.3e}, "
+                  f"k̄ rel {e_dp[1]:.3e} (tol {KP_TOL[dtype]:g}); K6 same "
+                  f"bits twice: {same}")
+            check(e_y <= K_TOL[dtype], f"K5 disagrees: {e_y}")
+            check(e_du <= K_TOL[dtype], f"K6 ū disagrees: {e_du}")
+            check(max(e_dp) <= KP_TOL[dtype], f"K6 dp disagrees: {e_dp}")
+            check(same, "K6 gave other bits on a second call")
+            if dtype == torch.float32 and label == "flagship":
+                max_abs["K5"] = float((y - y_ref).abs().max())
+                max_abs["K6"] = float((du - du_ref).abs().max())
+            del y, du, du2, y_ref, du_ref
 
     # -- 4. main path, float64: card vs the port's CPU run -----------------
     n = SIZES[0]
@@ -461,8 +582,14 @@ def main() -> int:
         "S2 adaptive BacksolveAdjoint": dict(SPIRAL_ADAPTIVE,
                                              sensealg=P.BacksolveAdjoint()),
         "S3 adaptive sensealg=None": dict(SPIRAL_ADAPTIVE),
+        "S5 adaptive DirectAdjoint": dict(SPIRAL_ADAPTIVE,
+                                          sensealg=P.DirectAdjoint()),
+        "S5r adaptive DirectAdjoint(remat=True)": dict(
+            SPIRAL_ADAPTIVE, sensealg=P.DirectAdjoint(remat=True)),
     }
-    want_rule = [P.DirectAdjoint, P.BacksolveAdjoint, P.GaussAdjoint]
+    want_rule = [P.DirectAdjoint, P.BacksolveAdjoint, P.GaussAdjoint,
+                 P.DirectAdjoint, P.DirectAdjoint]
+    spiral_runs = {}
     node_launches = {"K3": 0, "K4": 0}
 
     def count_path(fn):
@@ -496,6 +623,15 @@ def main() -> int:
         check(sol.retcode == 0 and rc == 0, f"{arm}: retcode {sol.retcode}/{rc}")
         check(max(errs.values()) <= NODE_F64_TOL,
               f"{arm}: f64 card gradient disagrees with the CPU run")
+        spiral_runs[arm.split(" ")[0]] = (got, sol.stats)
+    # remat: the backward pass evaluates every accepted step's 6 fresh Tsit5
+    # stages again, one K3 launch each; the pullbacks are the same
+    (k3, k4), st = spiral_runs["S5"]
+    (k3r, k4r), st_r = spiral_runs["S5r"]
+    print(f"[node f64] S5 remat: K3 {k3r} = {k3} + 6 x {st.n_accepted} "
+          f"accepted steps; K4 {k4r} = {k4}")
+    check(st_r == st and k3r == k3 + 6 * st.n_accepted and k4r == k4,
+          "S5 remat did not recompute each accepted step once")
 
     s4_small = {dev: s4_setup(P, torch.float64, dev, B=8, steps=4),
                 "cpu": s4_setup(P, torch.float64, "cpu", B=8, steps=4)}
@@ -537,7 +673,48 @@ def main() -> int:
         print(line)
         del setup, g, sol
     del s4_grads
-    print(f"[node] K3/K4 launches over S1-S4's card runs: {node_launches}")
+    print(f"[node] K3/K4 launches over S1-S5's card runs: {node_launches}")
+
+    # -- 5c. the RK4 block megakernel: f64 card vs CPU, f32 vs card f64 ------
+    mega = P.make_rd1d_rk4_block(MEGA_N, MEGA_S)
+    u0, p = flagship_inputs(MEGA_N, torch.float64, dev)
+    rd1d.rd1d_rk4_fwd_cuda.launches = 0
+    rd1d.rd1d_rk4_vjp_cuda.launches = 0
+    gu64, gp64 = mega_run(P, u0, p, 64, grad=True, block=mega)
+    torch.cuda.synchronize()
+    mega_launches = {"K5": rd1d.rd1d_rk4_fwd_cuda.launches,
+                     "K6": rd1d.rd1d_rk4_vjp_cuda.launches}
+    t = time.perf_counter()
+    u0c, pc = flagship_inputs(MEGA_N, torch.float64, "cpu")
+    gu_c, gp_c = mega_run(P, u0c, pc, 64, grad=True, block=mega)
+    e_u = rel_l2(gu64, gu_c)
+    e_p = ((gp64.cpu() - gp_c).abs() / gp_c.abs()).tolist()
+    print(f"[mega f64] n={MEGA_N}, S={MEGA_S}, 64 steps: K5 "
+          f"{mega_launches['K5']} and K6 {mega_launches['K6']} launches; card "
+          f"vs CPU u0-grad rel L2 {e_u:.3e}, dD rel {e_p[0]:.3e}, dk rel "
+          f"{e_p[1]:.3e} (tol {F64_GRAD_TOL:g}); p-grad {gp64.tolist()}; CPU "
+          f"run {time.perf_counter() - t:.1f} s")
+    check(mega_launches == {"K5": 4, "K6": 4},
+          f"the megakernel path launched {mega_launches}, not 4 and 4")
+    check(e_u <= F64_GRAD_TOL and max(e_p) <= F64_GRAD_TOL,
+          "megakernel f64 card gradient disagrees with the CPU run")
+    del u0c, pc, gu_c, gp_c
+    for steps in (64, 512):
+        if steps != 64:
+            gu64, gp64 = mega_run(P, u0, p, steps, grad=True, block=mega)
+        u32, p32 = flagship_inputs(MEGA_N, torch.float32, dev)
+        gu, gp = mega_run(P, u32, p32, steps, grad=True, block=mega)
+        e_u = rel_l2(gu, gu64)
+        e_dD = abs(float(gp[0]) - float(gp64[0])) / abs(float(gp64[0]))
+        e_dk = abs(float(gp[1]) - float(gp64[1])) / abs(float(gp64[1]))
+        print(f"[mega f32] {steps} steps vs card f64: u0-grad rel L2 "
+              f"{e_u:.3e} (tol {F32_U0_TOL:g}), dk rel {e_dk:.3e} (tol "
+              f"{F32_DK_TOL:g}), dD rel {e_dD:.3e} (not gated: D̄ = "
+              "inv_dx2·Σ(L w)·u cancels O(1) values into L ~ 1e-9, "
+              "roundoff-bound in float32 by the problem, not the kernel)")
+        check(bool(torch.isfinite(gu).all()) and e_u <= F32_U0_TOL
+              and e_dk <= F32_DK_TOL, f"megakernel f32 {steps} steps off f64")
+    del u0, p, gu64, gp64, gu, gp
 
     # -- host syncs: the fixed-grid march and DirectAdjoint make none; the
     # Backsolve reverse reads its error norm once per step attempt ------------
@@ -566,7 +743,71 @@ def main() -> int:
           f"{attempts} reverse step attempts (one error-norm read each, plus "
           "the initial-step norms, the weight count and the drift guard)")
 
-    # -- 6. timings ------------------------------------------------------------
+    # -- 6. timings: the megakernel path first ---------------------------------
+    u0, p = flagship_inputs(MEGA_N, torch.float32, dev)
+    arms = {
+        "megakernel forward": lambda: mega_run(P, u0, p, 64, False, block=mega),
+        "plain forward": lambda: mega_run(P, u0, p, 64, False),
+        "megakernel gradient": lambda: mega_run(P, u0, p, 64, True, block=mega),
+        "plain gradient": lambda: mega_run(P, u0, p, 64, True),
+    }
+    med = interleaved_ms(arms)
+    for name, fn in arms.items():
+        busy, wall = profiled_ms(fn)
+        print(f"[time] {card}: megakernel path f32 n={MEGA_N}, 64 steps, "
+              f"{name}: {med[name]:.3f} ms "
+              f"({med[name] / med['plain forward']:.3f}x the plain forward; "
+              f"CUDA events, median of {TIMING_REPS} interleaved); profiled run: kernels {busy:.3f} ms of "
+              f"{wall:.3f} ms wall, device idle {100 * (1 - busy / wall):.1f}%")
+    arms = {
+        "megakernel gradient": lambda: mega_run(P, u0, p, 512, True,
+                                                block=mega),
+        "plain per-step-checkpoint gradient": lambda: mega_run(
+            P, u0, p, 512, True, remat=True),
+    }
+    med = interleaved_ms(arms, rounds=3)
+    for name, fn in arms.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        print(f"[time] {card}: megakernel path f32 n={MEGA_N}, 512 steps, "
+              f"{name}: {med[name]:.3f} ms (CUDA events, median of 3 "
+              f"interleaved); peak device memory above the inputs "
+              f"{peak:.1f} MiB (torch.cuda.max_memory_allocated)")
+
+    lam = torch.randn(MEGA_N, generator=torch.Generator(device=dev).manual_seed(
+        SEED), device=dev)
+    inv_dx2 = float(MEGA_N) * float(MEGA_N)
+    versions = {
+        "K5": lambda: rd1d.rd1d_rk4_fwd_cuda(u0, p, inv_dx2, MEGA_H, MEGA_S,
+                                             4096),
+        "K5_plain": lambda: rd1d.rd1d_rk4_scan_reference(u0, p, inv_dx2,
+                                                         MEGA_H, MEGA_S),
+        "K6": lambda: rd1d.rd1d_rk4_vjp_cuda(u0, p, inv_dx2, MEGA_H, MEGA_S,
+                                             1024, lam),
+        "K6_plain": lambda: rd1d.rd1d_rk4_block_vjp_reference(
+            u0, p, inv_dx2, MEGA_H, MEGA_S, lam),
+    }
+    rk4_timing = {}
+    for name, fn in versions.items():
+        calls = 20 if name in ("K5", "K6") else 3
+        busy, wall = profiled_ms(fn, calls=calls)
+        rk4_timing[name] = busy
+        kname = name[:2]
+        bound, by = rk4_bound_ms(kname, MEGA_N, MEGA_S, torch.float32)
+        flops = MEGA_S * RK4_FLOPS[kname] * MEGA_N
+        print(f"[time] {card}: n={MEGA_N} S={MEGA_S} f32 {name}: device "
+              f"{busy * 1e3:.2f} us per call ({flops / (busy * 1e-3) / 1e12:.2f}"
+              f" TFLOP/s of the function's {flops / 1e9:.3f} GFLOP), bound "
+              f"{bound * 1e3:.2f} us by {by} ({100 * bound / busy:.1f}% of it),"
+              f" host-paced {wall * 1e3:.2f} us per call; profiler over "
+              f"{calls} calls")
+    del u0, p, lam
+
+    # -- 6b. PDE timings --------------------------------------------------------
     timing = {}
     for n in SIZES:
         field = rd1d.make_rd1d_field(n, 1.0 / n)
@@ -608,7 +849,7 @@ def main() -> int:
                   f"{cells} B/cell), host-paced {wall * 1e3:.2f} us per call; "
                   "profiler over 100 calls")
 
-    # -- 6b. neural-ODE timings ------------------------------------------------
+    # -- 6c. neural-ODE timings ------------------------------------------------
     setup32 = spiral_setup(P, torch.float32, dev, data64)
     arms = {"S1 forward": lambda: spiral_forward(
         P, setup32, spiral_arms["S1 fixed grid, unroll -> DirectAdjoint"])}
@@ -704,6 +945,16 @@ def main() -> int:
          "bound_ms": s4["bound"]["K4"][0], "bound_by": s4["bound"]["K4"][1],
          "library_ms": None},
     ]
+    for name, label, line in (("K5", "rd1d_rk4_fwd", 223),
+                              ("K6", "rd1d_rk4_vjp", 253)):
+        bound, by = rk4_bound_ms(name, MEGA_N, MEGA_S, torch.float32)
+        kernels.append(
+            {"name": f"{label} ({name})", "route": "cuda",
+             "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d_rk4.cu",
+             "replaces": f"scimlsensitivity_jl_tpu/ops/pallas_pde.py:{line}",
+             "launches": mega_launches[name], "max_abs_err": max_abs[name],
+             "ms": rk4_timing[name], "plain_ms": rk4_timing[f"{name}_plain"],
+             "bound_ms": bound, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,12 @@
 Counterpart of `scimlsensitivity_jl_tpu/__init__.py`, the public subset that
 is ported: `ODEProblem`, `solve`, the explicit Runge-Kutta solvers, and the
 sensealg configurations. Gradients run under `BacksolveAdjoint`,
-`GaussAdjoint` (without checkpointing) and `DirectAdjoint` (fixed grid);
-see ROADMAP.md for the rest. Beside them: the neural-ODE models
-(`models/neural_ode.py`) and the fused MLP field `fused_mlp2`
-(`ops/mlp.py`), which the JAX package keeps in its submodules.
+`GaussAdjoint` (without checkpointing) and `DirectAdjoint` (fixed grid and
+adaptive, with `remat`); see ROADMAP.md for the rest. Beside them: the
+neural-ODE and PDE models (`models/neural_ode.py`, `models/pde.py`), the
+fused MLP field `fused_mlp2` (`ops/mlp.py`) and the RK4 block megakernel
+`make_rd1d_rk4_block` (`ops/rd1d.py`), which the JAX package keeps in its
+submodules.
 
 The package imports torch, never jax. Importing it builds and loads no
 kernel: the CUDA kernels of `ops/rd1d.py` and `ops/mlp.py` are compiled at
@@ -22,7 +24,14 @@ from .models.neural_ode import (
     spiral_data,
     spiral_neural_ode,
 )
+from .models.pde import (
+    brusselator_2d_field,
+    brusselator_2d_problem,
+    heat1d_field,
+    heat1d_problem,
+)
 from .ops.mlp import fused_mlp2
+from .ops.rd1d import make_rd1d_rk4_block
 from .problems import ODEProblem, remake
 from .sensealg import (
     AdjointLSS,
@@ -59,4 +68,6 @@ __all__ = [
     "default_sensealg", "setvjp",
     "fused_mlp2", "mlp_init", "mlp_apply", "neural_ode_field", "spiral_data",
     "spiral_neural_ode", "mnist_node_init", "mnist_node_apply",
+    "heat1d_field", "heat1d_problem", "brusselator_2d_field",
+    "brusselator_2d_problem", "make_rd1d_rk4_block",
 ]

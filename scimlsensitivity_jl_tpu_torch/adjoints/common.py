@@ -84,8 +84,10 @@ def forward_saveat_solve(
     store_dense: bool = True,
     dtmax=None,
     fixed_dt=None,
+    fixed_trip: bool = False,
 ) -> ForwardResult:
-    """Forward solve capturing the saveat states exactly."""
+    """Forward solve capturing the saveat states exactly; `fixed_trip` as in
+    `integrate`."""
     kind = time_dtype(u0vec.dtype)
     t0, t1 = kind(t0), kind(t1)
     saveat = np.asarray(saveat, dtype=kind)
@@ -109,7 +111,7 @@ def forward_saveat_solve(
         rtol=rtol, atol=atol, dt0=dt0, max_steps=max_steps,
         tstops=all_stops, hook=save_hook_factory(saveat, tdir),
         hook_carry=(rows, k0), store_dense=store_dense, dtmax=dtmax,
-        fixed_dt=fixed_dt,
+        fixed_dt=fixed_dt, fixed_trip=fixed_trip,
     )
     rows, k = res.hook_carry
     # save times never reached (MaxIters/DtMin truncation) hold the final

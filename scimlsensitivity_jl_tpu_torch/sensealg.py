@@ -168,9 +168,11 @@ class GaussKronrodAdjoint(AbstractAdjointSensealg):
 @dataclass(frozen=True)
 class DirectAdjoint(AbstractSensealg):
     """Discrete (discretize-then-optimize) reverse AD through the solver
-    loop. In the port this is autograd through the eager step loop.
-    remat=True (rematerialize each step, torch.utils.checkpoint) waits for
-    ROADMAP M3."""
+    loop. In the port this is autograd through the eager step loop; an
+    adaptive solve has the masked scan's budget of max_steps attempts.
+    remat=True runs each adaptive step attempt under
+    torch.utils.checkpoint: the backward pass evaluates its stages again
+    instead of keeping them."""
 
     max_steps: int = 0  # 0 => inherit solve's max_steps
     remat: bool = False

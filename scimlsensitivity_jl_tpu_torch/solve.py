@@ -3,7 +3,8 @@
 Counterpart of `scimlsensitivity_jl_tpu/solve.py:solve` -> `_solve_ode` for
 plain ODEs: saveat validation, the default-sensealg dispatch (solve.py:
 404-431, with its `fixed_grid_continuous` rule) and the fixed-grid branch
-(solve.py:538-547). Gradients follow `sensealg` through torch.autograd.
+(solve.py:538-547), and adaptive DirectAdjoint (solve.py:611-619).
+Gradients follow `sensealg` through torch.autograd.
 Other problem types, callbacks, mass matrices and the sensealgs whose rules
 are not ported raise NotImplementedError naming the ROADMAP item.
 """
@@ -179,10 +180,11 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
                                bwd_solver=bwd_solver)
         ys, aux = fn(prob.u0, prob.p, saveat)
     elif isinstance(sensealg, DirectAdjoint):
-        # adaptive DirectAdjoint (autograd through the adaptive loop)
-        raise NotImplementedError(
-            "DirectAdjoint with adaptive=True: ROADMAP M3 (the port has the "
-            "fixed-grid DirectAdjoint, adaptive=False, dt=...)")
+        from .adjoints.direct import make_direct_solve_fn
+
+        fn = make_direct_solve_fn(prob.f, solver, sensealg, opts, t0, t1,
+                                  unroll=unroll)
+        ys, aux = fn(prob.u0, prob.p, saveat)
     elif isinstance(sensealg, ForwardSensitivity):
         raise NotImplementedError("ForwardSensitivity: ROADMAP M7")
     else:

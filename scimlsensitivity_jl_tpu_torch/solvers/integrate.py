@@ -3,8 +3,11 @@
 Counterpart of `scimlsensitivity_jl_tpu/solvers/integrate.py`:
 `hairer_norm`, `initial_step_size` and `integrate` (integrate.py:118-300),
 the PI-controlled adaptive loop with its `fixed_dt=` march, tstops landed
-exactly, a per-accepted-step hook and a stop transform. Events, the masked
-`integrate_scan` and the unrolled integrators are not ported (ROADMAP M8).
+exactly, a per-accepted-step hook and a stop transform. `fixed_trip=True`
+gives it the budget of the masked `integrate_scan` (:498), the loop that
+DirectAdjoint differentiates; the scan itself is not needed, since autograd
+records the eager loop. Events and the unrolled integrators are not ported
+(ROADMAP M8).
 
 The JAX `lax.while_loop` becomes an eager Python loop. Time, step size and
 controller state stay on the host as numpy scalars of the time dtype, so
@@ -199,6 +202,7 @@ def integrate(
     stop_transform: Optional[Callable] = None,
     dtmax=None,
     fixed_dt=None,
+    fixed_trip: bool = False,
 ) -> IntegrateResult:
     """Integrate du/dt = fvec(u, t) from t0 to t1 (t1 < t0 allowed).
 
@@ -214,6 +218,10 @@ def integrate(
         step lands exactly on a stop (the PresetTimeCallback analogue). When
         it fires, f is evaluated again at u' and a zero-width dense row
         holds the post-jump state.
+    fixed_trip: the budget of JAX's `integrate_scan` (integrate.py:774-800):
+        max_steps attempts, rejected ones included, then MaxIters; no DtMin
+        check (a vanishing step runs the budget out); n_fevals reports
+        max_steps·stages, the scan's fixed trip count.
     """
     dtype = u0.dtype
     kind = time_dtype(dtype)
@@ -312,9 +320,13 @@ def integrate(
         done = accept and kind(kind(t1 - t_new) * tdir) <= kind(
             kind(abs(t1) * kind(1e-14)) + kind(1e-300))
         dt_floor = kind(kind(1e-14) * max(kind(1.0), abs(t_new)))
-        underflow = abs(dt_next) < dt_floor and not done
-        out_of_steps = (n_acc >= max_steps
-                        or n_iter + 1 >= 4 * max_steps) and not done
+        if fixed_trip:
+            underflow = False
+            out_of_steps = n_iter + 1 >= max_steps and not done
+        else:
+            underflow = abs(dt_next) < dt_floor and not done
+            out_of_steps = (n_acc >= max_steps
+                            or n_iter + 1 >= 4 * max_steps) and not done
         if done:
             status = RETCODE_SUCCESS
         elif out_of_steps:
@@ -330,8 +342,9 @@ def integrate(
         dense = DenseOutput(ts=np.asarray(rows_t, dtype=kind),
                             ys=torch.stack(rows_y), fs=torch.stack(rows_f),
                             n_steps=len(rows_t) - 1, tdir=tdir)
+    trips = max_steps if fixed_trip else n_iter
     stats = Stats(n_accepted=n_acc, n_rejected=n_rej,
-                  n_fevals=n_iter * getattr(stepper, "n_stages", 1),
+                  n_fevals=trips * getattr(stepper, "n_stages", 1),
                   retcode=status)
     return IntegrateResult(dense=dense, t_final=t, u_final=u, stats=stats,
                            hook_carry=hook_carry)

@@ -148,3 +148,90 @@ def test_spiral_gradient_on_card_matches_cpu(cuda):
         rel = (torch.linalg.vector_norm(grads[0][k] - grads[1][k])
                / torch.linalg.vector_norm(grads[1][k]))
         assert float(rel) <= 1e-9, (k, float(rel))
+
+
+# K5, K6 vs plain, relative to max|.| (ū, u) and per entry (D̄, k̄): float64
+# to roundoff; float32 runs 4·S stages whose sums round in another order
+RK4_TOL = {torch.float64: (1e-12, 1e-10), torch.float32: (1e-5, 1e-5)}
+
+
+def _rk4_inputs(n, dtype, device, h=1e-3):
+    """Random u in [0, 1] and λ, with h·D·inv_dx2 = h·k-scale = 1e-3: every
+    step moves u, while the window-edge values that the halo absorbs stay
+    (1e-3)^(2S+2) below the interior's (the windowed pullback equals the
+    whole-grid one to that order, in JAX as here)."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    u = torch.rand(n, generator=gen, device=device, dtype=dtype)
+    lam = torch.randn(n, generator=gen, device=device, dtype=dtype)
+    inv_dx2 = float(n) ** 2
+    p = torch.tensor([1.0 / inv_dx2, 1.5], device=device, dtype=dtype)
+    return u, lam, p, inv_dx2, h
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("n,S,chunk,bwd_chunk", [
+    (65536, 16, 4096, 1024),  # the flagship tiles, G = 16 and 64
+    (3072, 8, 1024, 512),     # few tiles: both grid edges next to each other
+    (1024, 4, 1024, 1024),    # one tile, no halo
+])
+def test_rk4_kernels_match_plain_versions(cuda, dtype, n, S, chunk, bwd_chunk):
+    """K5 and K6 against the whole-grid plain versions; K6 gives the same
+    bits twice."""
+    u, lam, p, inv_dx2, h = _rk4_inputs(n, dtype, cuda)
+    tol, dp_tol = RK4_TOL[dtype]
+    y = rd1d.rd1d_rk4_fwd_cuda(u, p, inv_dx2, h, S, chunk)
+    du, dp = rd1d.rd1d_rk4_vjp_cuda(u, p, inv_dx2, h, S, bwd_chunk, lam)
+    torch.cuda.synchronize()
+    y_ref = rd1d.rd1d_rk4_scan_reference(u, p, inv_dx2, h, S)
+    du_ref, dp_ref = rd1d.rd1d_rk4_block_vjp_reference(u, p, inv_dx2, h, S,
+                                                       lam)
+    assert float((y - y_ref).abs().max() / y_ref.abs().max()) <= tol
+    assert float((du - du_ref).abs().max() / du_ref.abs().max()) <= tol
+    assert float(((dp - dp_ref).abs() / dp_ref.abs()).max()) <= dp_tol
+    du2, dp2 = rd1d.rd1d_rk4_vjp_cuda(u, p, inv_dx2, h, S, bwd_chunk, lam)
+    assert torch.equal(du2, du) and torch.equal(dp2, dp)
+
+
+def test_rk4_wrappers_refuse_bad_geometry(cuda):
+    """Both contracts of _chunk_geometry, and a window larger than a
+    block's shared memory, raise before any launch."""
+    u, _, p, inv_dx2, h = _rk4_inputs(4096, torch.float32, cuda)
+    before = rd1d.rd1d_rk4_fwd_cuda.launches
+    with pytest.raises(ValueError, match="divisible"):
+        rd1d.rd1d_rk4_fwd_cuda(u, p, inv_dx2, h, 4, 1000)
+    with pytest.raises(ValueError, match="halo width"):
+        rd1d.rd1d_rk4_fwd_cuda(u, p, inv_dx2, h, 16, 64)
+    big = torch.zeros(1 << 20, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        rd1d.rd1d_rk4_fwd_cuda(big, p, inv_dx2, h, 16, 1 << 16)
+    with pytest.raises(ValueError, match="shared memory"):
+        rd1d.rd1d_rk4_vjp_cuda(big, p, inv_dx2, h, 16, 4096, big)
+    assert rd1d.rd1d_rk4_fwd_cuda.launches == before
+
+
+def test_rk4_block_gradient_on_card_matches_cpu(cuda):
+    """Four chained blocks (S = 16, n = 65536, float64) through
+    make_rd1d_rk4_block: the card through K5 and K6 against the port's CPU
+    run through the plain versions, relative L2 <= 1e-9; each block is
+    one K5 and one K6 launch."""
+    n, S = 65536, 16
+    blk = rd1d.make_rd1d_rk4_block(n, S)
+    u_cpu, _, p_cpu, inv_dx2, h = _rk4_inputs(n, torch.float64, "cpu")
+    grads = []
+    for device in (cuda, "cpu"):
+        u = u_cpu.to(device).requires_grad_()
+        p = p_cpu.to(device).requires_grad_()
+        before = (rd1d.rd1d_rk4_fwd_cuda.launches,
+                  rd1d.rd1d_rk4_vjp_cuda.launches)
+        y = u
+        for _ in range(4):
+            y = blk(y, p, inv_dx2, h)
+        grads.append([g.cpu() for g in torch.autograd.grad(
+            torch.sum(y ** 2), (u, p))])
+        after = (rd1d.rd1d_rk4_fwd_cuda.launches,
+                 rd1d.rd1d_rk4_vjp_cuda.launches)
+        want = (4, 4) if device != "cpu" else (0, 0)
+        assert tuple(a - b for a, b in zip(after, before)) == want
+    for got, ref in zip(*grads):
+        rel = torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)
+        assert float(rel) <= 1e-9

@@ -125,8 +125,8 @@ def test_unported_paths_raise():
         P.solve(prob, sensealg=P.GaussAdjoint(checkpointing=True))
     with pytest.raises(NotImplementedError, match="ROADMAP M8"):
         P.solve(prob, callback=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP M3"):
-        P.solve(prob, sensealg=P.DirectAdjoint())
+    with pytest.raises(NotImplementedError, match="ROADMAP M7"):
+        P.solve(prob, sensealg=P.ForwardSensitivity())
     # without a gradient the shared forward solve runs under any rule
     sol = P.solve(P.ODEProblem(lotka_volterra_port, to_port(LV_U0),
                                (0.0, 1.0), to_port(LV_P)))
