@@ -38,8 +38,11 @@ Phases, each printed before the last line:
      source, started together (set-up time), with the ptxas lines;
   3. each kernel against its plain PyTorch version on the card (K3, K4 in
      float64, float32 and bfloat16 at the spiral's, a ragged and S4's
-     shape; K5, K6 in float64 and float32 at the flagship and a ragged
-     geometry; K2, K4 and K6 return the same bits twice);
+     shape, bfloat16 also at an aligned ragged shape, each on the route
+     mlp2_route picks and S4 also forced onto WMMA, with the per-route
+     counters checked, and 2 kernels per K3 and per K4 call on each route
+     in a profiler trace; K5, K6 in float64 and float32 at the flagship
+     and a ragged geometry; K2, K4 and K6 return the same bits twice);
   4. the PDE's float64 gradient on the card against the port's own CPU run
      (plain path), with retcode, dispatch and kernel-launch checks, then
      float32 against the card's float64;
@@ -47,15 +50,18 @@ Phases, each printed before the last line:
      remat arm launching K3 again for every accepted step's 6 stages); S4
      in float64 at full width with B = 8 and 4 steps, card against CPU; S4
      at full size in float32 against the card's float64 and in bfloat16
-     against the card's float32; the megakernel's 64-step float64 gradient,
+     against the card's float32 (every S4 call on the route of its dtype:
+     wgmma for bfloat16); the megakernel's 64-step float64 gradient,
      card against CPU, and its float32 gradient at 64 and 512 steps against
      the card's float64;
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
-     kernel device time against its bound and its plain version; the
-     megakernel against the plain RK4 loop (64 steps) and against the plain
-     loop with per-step torch.utils.checkpoint (512 steps), with the peak
-     device memory of each.
+     kernel device time against its bound and its plain version; K3/K4
+     at S4 bf16 on the wgmma and the WMMA route in turns, per kernel, and
+     the cuBLAS products as a yardstick; the megakernel against the plain
+     RK4 loop (64 steps) and against the plain loop with per-step
+     torch.utils.checkpoint (512 steps), with the peak device memory of
+     each.
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -93,7 +99,17 @@ S4_EVALS = 6 * S4_STEPS + 1  # Tsit5: 6 fresh evaluations per step + the first
 # pulls it back: one K4 call fewer than K3 calls per gradient
 S4_PULLBACKS = S4_EVALS - 1
 MLP_SHAPES = {"spiral": (None, 2, 50, 2), "ragged": (37, 5, 67, 3),
-              "S4": (S4_B,) + S4_WIDTHS}
+              "S4": (S4_B,) + S4_WIDTHS,
+              # widths that are multiples of 8 but of no tile: the wgmma
+              # route with partial tiles in every dimension
+              "aligned": (1000, 264, 1032, 136)}
+# K3/K4 checks on the card: (dtype, shape label, forced route or None for
+# the one mlp2_route picks); bfloat16 S4 also on the WMMA route it left
+MLP_CHECKS = ([(dt, label, None) for dt in (torch.float64, torch.float32)
+               for label in ("spiral", "ragged", "S4")]
+              + [(torch.bfloat16, label, None)
+                 for label in ("spiral", "ragged", "S4", "aligned")]
+              + [(torch.bfloat16, "S4", "wmma")])
 # H100 SXM peaks (NVIDIA data sheet, dense): the bound of each kernel is the
 # larger of its bytes over HBM and its operations over the rate of its type
 HBM_BYTES_PER_S = 3.35e12
@@ -171,13 +187,16 @@ def flagship_forward(P, field, u0, p):
     return sol.ys[-1]
 
 
-def profiled_ms(fn, calls=1):
+def profiled_ms(fn, calls=1, kernels=None):
     """(device kernel time, host wall time) per call of fn, in ms, from a
     torch.profiler (CUPTI) trace: the sum of the kernels' own device time,
     so the rest of the wall time is the device idling on the host. Only
     device activity is traced: with host operators traced as well, the
-    traces of one process lost device events after some forty of them. A
-    trace without device activity is taken again, twice at most."""
+    traces of one process lost device events after some forty of them.
+    With `kernels`, fn launches that many distinct kernels once each per
+    call, and the time per call is the sum of their mean times, which a
+    trace that lost some events still gives. A trace without device
+    activity (or without one of the kernels) is taken again, twice at most."""
     fn()
     torch.cuda.synchronize()
     for attempt in range(3):
@@ -187,12 +206,37 @@ def profiled_ms(fn, calls=1):
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3 / calls
-        busy = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / calls
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count]
+        if kernels is None:
+            busy = sum(e.self_device_time_total for e in events) / 1e3 / calls
+        else:
+            busy = (sum(e.self_device_time_total / e.count for e in events) / 1e3
+                    if len(events) == kernels else 0.0)
         if busy > 0:
             return busy, wall
-        print(f"[time] trace {attempt + 1} recorded no device time; again")
+        print(f"[time] trace {attempt + 1} recorded no (or not every) kernel; "
+              "again")
     raise AssertionError("the profiler recorded no device time")
+
+
+def kernels_per_call(fn):
+    """Device kernels in a torch.profiler trace of one call of fn; a trace
+    without device activity is taken again, twice at most (see
+    profiled_ms)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        count = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and "memcpy" not in e.key.lower()
+                    and "memset" not in e.key.lower())
+        if count:
+            return count
+    return 0
 
 
 def interleaved_ms(fns, rounds=TIMING_REPS):
@@ -447,34 +491,59 @@ def main() -> int:
                 # K2's D̄, k̄ are O(1e13) and O(1) and reported relative above
                 max_abs["K2"] = float((du - du_ref).abs().max())
 
-    for dtype in (torch.float64, torch.float32, torch.bfloat16):
-        for label, shape in MLP_SHAPES.items():
-            x, w0, b0, w1, b1, g = mlp_inputs(shape, dtype, dev)
-            y, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
-            grads = mlp.mlp2_vjp_cuda(x, w0, w1, h, g)
-            again = mlp.mlp2_vjp_cuda(x, w0, w1, h, g)
-            torch.cuda.synchronize()
-            refs = (mlp.mlp2_fwd_reference(x, w0, b0, w1, b1)
-                    + mlp.mlp2_vjp_reference(x, w0, w1, h, g))
-            errs = {}
-            for name, got, ref in zip(("y", "h", "dx", "dW0", "db0", "dW1",
-                                       "db1"), (y, h) + grads, refs):
-                check(got.dtype == dtype and got.shape == ref.shape,
-                      f"K3/K4 {name} {got.dtype} {tuple(got.shape)}")
-                d = (got.double() - ref.double()).abs().max()
-                errs[name] = (float(d / ref.double().abs().max()), float(d))
-            same = all(torch.equal(a, b) for a, b in zip(again, grads))
-            worst = max(e for e, _ in errs.values())
-            print(f"[kernels] {str(dtype)[6:]} {label} {shape}: K3/K4 vs plain,"
-                  f" max|err|/max|ref| "
-                  + ", ".join(f"{k} {e:.2e}" for k, (e, _) in errs.items())
-                  + f" (tol {MLP_TOL[dtype]:g}); K4 same bits twice: {same}")
-            check(worst <= MLP_TOL[dtype], f"K3/K4 disagree: {errs}")
-            check(same, "K4 gave other bits on a second call")
-            if dtype == torch.bfloat16 and label == "S4":
-                max_abs["K3"] = max(errs["y"][1], errs["h"][1])
-                max_abs["K4"] = max(errs[k][1] for k in
-                                    ("dx", "dW0", "db0", "dW1", "db1"))
+    for dtype, label, forced in MLP_CHECKS:
+        shape = MLP_SHAPES[label]
+        x, w0, b0, w1, b1, g = mlp_inputs(shape, dtype, dev)
+        route = forced or mlp.mlp2_route(*x.shape, *w1.shape, dtype, True)
+        before = (dict(mlp.mlp2_fwd_cuda.routes), dict(mlp.mlp2_vjp_cuda.routes))
+        y, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1, route=forced)
+        grads = mlp.mlp2_vjp_cuda(x, w0, w1, h, g, route=forced)
+        again = mlp.mlp2_vjp_cuda(x, w0, w1, h, g, route=forced)
+        torch.cuda.synchronize()
+        moved = [{k: v - b[k] for k, v in now.items() if v != b[k]} for now, b
+                 in zip((mlp.mlp2_fwd_cuda.routes, mlp.mlp2_vjp_cuda.routes),
+                        before)]
+        check(moved == [{route: 1}, {route: 2}],
+              f"K3/K4 {label} took {moved}, expected route {route}")
+        refs = (mlp.mlp2_fwd_reference(x, w0, b0, w1, b1)
+                + mlp.mlp2_vjp_reference(x, w0, w1, h, g))
+        errs = {}
+        for name, got, ref in zip(("y", "h", "dx", "dW0", "db0", "dW1",
+                                   "db1"), (y, h) + grads, refs):
+            check(got.dtype == dtype and got.shape == ref.shape,
+                  f"K3/K4 {name} {got.dtype} {tuple(got.shape)}")
+            d = (got.double() - ref.double()).abs().max()
+            errs[name] = (float(d / ref.double().abs().max()), float(d))
+        same = all(torch.equal(a, b) for a, b in zip(again, grads))
+        worst = max(e for e, _ in errs.values())
+        print(f"[kernels] {str(dtype)[6:]} {label} {shape} route {route}"
+              f"{' (forced)' if forced else ''}: K3/K4 vs plain, "
+              f"max|err|/max|ref| "
+              + ", ".join(f"{k} {e:.2e}" for k, (e, _) in errs.items())
+              + f" (tol {MLP_TOL[dtype]:g}); K4 same bits twice: {same}")
+        check(worst <= MLP_TOL[dtype], f"K3/K4 disagree: {errs}")
+        check(same, "K4 gave other bits on a second call")
+        if dtype == torch.bfloat16 and label == "S4" and not forced:
+            max_abs["K3"] = max(errs["y"][1], errs["h"][1])
+            max_abs["K4"] = max(errs[k][1] for k in
+                                ("dx", "dW0", "db0", "dW1", "db1"))
+
+    # kernels per K3/K4 call on each route, from a profiler trace of one
+    # call, among the process's first traces (later ones can lose events)
+    for label, dtype in (("spiral", torch.float32), ("ragged", torch.bfloat16),
+                         ("S4", torch.bfloat16)):
+        x, w0, b0, w1, b1, g = mlp_inputs(MLP_SHAPES[label], dtype, dev)
+        _, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
+        route = mlp.mlp2_route(*x.shape, *w1.shape, dtype, True)
+        counts = {"K3": kernels_per_call(lambda: mlp.mlp2_fwd_cuda(
+                      x, w0, b0, w1, b1)),
+                  "K4": kernels_per_call(lambda: mlp.mlp2_vjp_cuda(
+                      x, w0, w1, h, g))}
+        print(f"[kernels] {label} {str(dtype)[6:]} route {route}: kernels per "
+              f"call in the profiler trace: K3 {counts['K3']}, K4 "
+              f"{counts['K4']}")
+        check(counts == {"K3": 2, "K4": 2},
+              f"{label}: K3/K4 launched {counts} kernels per call, not 2")
 
     for dtype in (torch.float64, torch.float32):
         for label, (n, S, chunk, bwd_chunk) in RK4_GEOMS.items():
@@ -592,15 +661,22 @@ def main() -> int:
     spiral_runs = {}
     node_launches = {"K3": 0, "K4": 0}
 
+    wrappers = (mlp.mlp2_fwd_cuda, mlp.mlp2_vjp_cuda)
+    path_routes = {}
+
     def count_path(fn):
-        """Run one path with K3/K4's counters zeroed before and read after."""
-        mlp.mlp2_fwd_cuda.launches = 0
-        mlp.mlp2_vjp_cuda.launches = 0
+        """Run one path with K3/K4's counters zeroed before and read after;
+        the routes they took are left in path_routes."""
+        for w in wrappers:
+            w.launches = 0
+            w.routes = dict.fromkeys(w.routes, 0)
         out = fn()
         torch.cuda.synchronize()
-        got = (mlp.mlp2_fwd_cuda.launches, mlp.mlp2_vjp_cuda.launches)
+        got = tuple(w.launches for w in wrappers)
         check(got[0] > 0 and got[1] > 0, f"the path did not launch K3 and K4: "
               f"{got}")
+        for name, w in zip(("K3", "K4"), wrappers):
+            path_routes[name] = {k: v for k, v in w.routes.items() if v}
         node_launches["K3"] += got[0]
         node_launches["K4"] += got[1]
         return out, got
@@ -657,9 +733,13 @@ def main() -> int:
         finite = all(bool(torch.isfinite(v).all()) for v in g.values())
         check(finite, f"S4 {dtype}: non-finite gradient")
         s4_grads[dtype] = g
+        want = "simt" if dtype != torch.bfloat16 else "wgmma"
+        check(path_routes == {"K3": {want: S4_EVALS},
+                              "K4": {want: S4_PULLBACKS}},
+              f"S4 {dtype} took the routes {path_routes}, expected {want}")
         line = (f"[node {str(dtype)[6:]}] S4 full size (B={S4_B}, "
                 f"{'->'.join(map(str, S4_WIDTHS))}, {S4_STEPS} steps): K3 "
-                f"{got[0]} and K4 {got[1]} launches")
+                f"{got[0]} and K4 {got[1]} launches, routes {path_routes}")
         if dtype == torch.float32:
             errs = leaf_errors(g, s4_grads[torch.float64])
             line += (f"; vs card f64 rel L2 {fmt_errors(errs)} "
@@ -897,21 +977,77 @@ def main() -> int:
             "K4": lambda: mlp.mlp2_vjp_cuda(x, w0, w1, h, g),
             "K4_plain": lambda: mlp.mlp2_vjp_reference(x, w0, w1, h, g),
         }
+        route = mlp.mlp2_route(*x.shape, *w1.shape, dtype, True)
         bounds = mlp_bound_ms(shape, dtype)
         key = (label, dtype)
         mlp_timing[key] = {"bound": bounds}
         for name, fn in versions.items():
-            busy, wall = profiled_ms(fn, calls=calls)
+            busy, wall = profiled_ms(fn, calls=calls,
+                                     kernels=None if "_" in name else 2)
             mlp_timing[key][name] = busy
             kname = name[:2]
             flops = (2 if kname == "K3" else 4) * (shape[0] or 1) * shape[2] * (
                 shape[1] + shape[3])
-            print(f"[time] {card}: {label} {shape} {str(dtype)[6:]} {name}: "
+            print(f"[time] {card}: {label} {shape} {str(dtype)[6:]} {name}"
+                  f"{'' if '_' in name else ' (route ' + route + ')'}: "
                   f"device {busy * 1e3:.2f} us per call "
                   f"({flops / (busy * 1e-3) / 1e12:.2f} TFLOP/s), bound "
-                  f"{bounds[kname][0] * 1e3:.2f} us by {bounds[kname][1]} "
+                  f"{bounds[kname][0] * 1e3:.4g} us by {bounds[kname][1]} "
                   f"({100 * bounds[kname][0] / busy:.1f}% of it), host-paced "
                   f"{wall * 1e3:.2f} us per call; profiler over {calls} calls")
+
+    # S4 bf16: the wgmma route against the WMMA route it replaced, in turns
+    # (new, old, old, new), and the cuBLAS products as a yardstick
+    x, w0, b0, w1, b1, g = mlp_inputs(MLP_SHAPES["S4"], torch.bfloat16, dev)
+    _, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
+    dzc = h.clone()  # any (B, hid) bfloat16 operand
+    pairs = {
+        "K3": {r: (lambda r=r: mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1, route=r))
+               for r in ("wgmma", "wmma")},
+        "K4": {r: (lambda r=r: mlp.mlp2_vjp_cuda(x, w0, w1, h, g, route=r))
+               for r in ("wgmma", "wmma")},
+    }
+    for kname, fns in pairs.items():
+        got = {r: [] for r in fns}
+        for r in ("wgmma", "wmma", "wmma", "wgmma"):
+            got[r].append(profiled_ms(fns[r], calls=20, kernels=2)[0])
+        mean = {r: sum(v) / len(v) for r, v in got.items()}
+        bound = mlp_timing[("S4", torch.bfloat16)]["bound"][kname][0]
+        mlp_timing[("S4", torch.bfloat16)][f"{kname}_wmma"] = mean["wmma"]
+        print(f"[time] {card}: S4 bf16 {kname} in turns (wgmma, wmma, wmma, "
+              f"wgmma; profiler over 20 calls each): wgmma "
+              + "/".join(f"{t * 1e3:.2f}" for t in got["wgmma"])
+              + " us, wmma " + "/".join(f"{t * 1e3:.2f}" for t in got["wmma"])
+              + f" us; mean {mean['wgmma'] * 1e3:.2f} against "
+              f"{mean['wmma'] * 1e3:.2f} us ({mean['wmma'] / mean['wgmma']:.2f}x"
+              f"), {100 * bound / mean['wgmma']:.1f}% / "
+              f"{100 * bound / mean['wmma']:.1f}% of the {bound * 1e3:.2f} us "
+              "bound")
+    parts = {"EpiBiasTanh": "h = tanh(x·W0 + b0)", "EpiBias<": "y = h·W1 + b1",
+             "EpiDz": "launch 1 (dW1, dz, g sums)",
+             "ColFinals": "launch 2 (dx, dW0, db0, db1)"}
+    for kname in ("K3", "K4"):
+        fn = pairs[kname]["wgmma"]
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+        rows = [f"{label} {e.self_device_time_total / e.count:.2f} us"
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count
+                for key, label in parts.items() if key in e.key]
+        print(f"[time] {card}: S4 bf16 {kname} wgmma per kernel (profiler, "
+              f"mean of 20 calls): {', '.join(rows)}")
+    yard = {"K3": lambda: (x @ w0, h @ w1),
+            "K4": lambda: (h.T @ g, g @ w1.T, x.T @ dzc, dzc @ w0.T)}
+    lib = {k: profiled_ms(fn, calls=20)[0] for k, fn in yard.items()}
+    print(f"[time] {card}: S4 bf16 yardstick the port never calls, bf16 "
+          f"torch.matmul (cuBLAS) of the same products: K3's 2 "
+          f"{lib['K3'] * 1e3:.2f} us, K4's 4 {lib['K4'] * 1e3:.2f} us per "
+          "call (no epilogues, no column sums); profiler over 20 calls")
+    mlp_timing[("S4", torch.bfloat16)]["cublas"] = lib
 
     n = SIZES[0]
     k1_bound = 8 * n / HBM_BYTES_PER_S * 1e3

@@ -11,47 +11,75 @@
 // the second product reads that rounded h; dz is rounded to the data type
 // before dW0 and dx, while db0 sums the unrounded dz.
 //
-// K3 mlp2_fwd_<t> replaces the Pallas kernel
+// K3 mlp2_fwd_<route>_<t> replaces the Pallas kernel
 //    scimlsensitivity_jl_tpu/ops/pallas_mlp.py:_fwd_kernel (via
-//    _fused_fwd_call). Two tiled products from one entry point: x W0 with a
-//    bias + tanh epilogue that stores h, then h W1 with a bias epilogue.
-//    The TPU kernel holds all of h in VMEM; a Hopper block holds at most
-//    227 KB, and B = 1024 rows of h at hid = 2048 is 4 MB, so h makes one
-//    round trip through device memory (L2 holds it: 50 MB).
-// K4 mlp2_bwd_<t> replaces scimlsensitivity_jl_tpu/ops/pallas_mlp.py:
-//    _bwd_kernel (via _fused_bwd). The TPU kernel is one sequential
-//    program; here dz must exist in full before dW0 and dx, so the entry
-//    point runs six passes in order on the caller's stream: dW1, db1, dz
-//    (g W1^T with the (1 - h^2) epilogue), db0, dW0, dx.
+//    _fused_fwd_call). Two launches, one per product: x W0 with a bias +
+//    tanh epilogue that stores h, then h W1 with a bias epilogue. The TPU
+//    kernel holds all of h in VMEM; a Hopper block holds at most 227 KB, and
+//    B = 1024 rows of h at hid = 2048 is 4 MB, so h makes one round trip
+//    through device memory (L2 holds it: 50 MB).
+// K4 mlp2_bwd_<route>_<t> replaces scimlsensitivity_jl_tpu/ops/pallas_mlp.py:
+//    _bwd_kernel (via _fused_bwd). The TPU kernel is one sequential program;
+//    here dz must exist in full before dW0 and dx, so K4 is two launches:
+//    1. one grid over the tiles of dW1 = h^T g and dz = (g W1^T)(1 - h^2):
+//       the dz tiles store dz rounded (dzc) and the column sums of the
+//       unrounded dz over their rows (one row of partials per row tile, for
+//       db0); blocks after the tiles sum g over 64-row chunks (for db1);
+//    2. one grid over the tiles of dx = dzc W0^T and dW0 = x^T dzc, then
+//       blocks that sum each column of partials in order: db0 and db1.
 //
 // What bounds them on an H100: at the batched field's shape (B = 1024,
 // 512 -> 2048 -> 512, bfloat16) K3 does 4 B din hid = 4.29 GFLOP on
 // 10.5 MB, 4.3 us at the 989 TFLOP/s bf16 tensor-core peak against 3.1 us
-// of HBM time: arithmetic bounds it, and K4 (8.59 GFLOP) likewise. What the
-// design does about it: bfloat16 products run on the tensor cores (WMMA
-// 16x16x16 fragments, float32 accumulation) over 64x64 tiles staged in
-// shared memory with 16-byte loads, the next depth slice prefetched into
-// registers; float32 and float64 products, which must not round to
-// TF32, run on the CUDA cores as a 64x64 tile per block of 256 threads, 4x4
-// outputs per thread. The spiral's 2 -> 50 -> 2 field at B = 1 is bound by
-// the launches alone. Making the tensor-core path fast (TMA, wgmma,
-// pipelining) is later work; these kernels are simple and right first.
+// of HBM time: arithmetic bounds it, and K4 (8.59 GFLOP, 8.7 us) likewise.
+// The spiral's 2 -> 50 -> 2 field at B = 1 computes next to nothing: its
+// launches are its cost, hence two per call.
 //
-// Transposed operands (h^T, x^T, W1^T, W0^T) are read from their row-major
-// storage by their own tile-load index maps (CUDA cores) or tile layouts
-// and column-major fragments (tensor cores), so neighbouring threads read
-// neighbouring addresses in either layout. Ragged edges are masked at the
-// loads (zero fill) and at the stores.
+// Routes, one entry point each, chosen by the caller (ops/mlp.py:mlp2_route):
+//  * wgmma (bfloat16; din, hid, dout multiples of 8; 16-byte aligned
+//    operands): the kernel shape of a Hopper GEMM. TMA copies 64-deep
+//    operand tiles into a ring of 4-6 shared-memory stages with the 128-byte
+//    swizzle, one full and one empty mbarrier per stage; one producer warp
+//    keeps the loads in flight; one or two consumer warpgroups issue
+//    wgmma.mma_async m64n64k16 (float32 accumulators in registers), and the
+//    epilogues run from those registers with 4-byte bf16x2 stores. Every
+//    operand is read as it is stored: h^T and x^T are MN-major A operands,
+//    W0, W1, g and dz MN-major B operands of K3, dW1 and dW0, W1^T and W0^T
+//    K-major B operands of dz and dx; the layout sits in the tensor map and
+//    in wgmma's transpose bits. TMA fills rows past an edge with zeros, so B
+//    is free; the row strides (din, hid, dout) must be multiples of 16 bytes.
+//    Tiles: 128x64 (two consumer warpgroups, 4 stages) when their grid
+//    still covers 9/10 of the SMs, else 64x64 (one warpgroup, 6 stages);
+//    ~100 KB of shared memory, two blocks per SM. At S4 on 132 SMs (264
+//    slots): h = x W0 256 tiles of 128x64; y = h W1 128 of 64x64; K4's
+//    first launch 128 + 256 tiles of 128x64 (+ 128 blocks of g sums), its
+//    second 64 + 128 (+ 10 blocks of final sums). Each product streams its
+//    operands from L2, (kBM + kBN) K 2 bytes per tile: wider tiles move
+//    fewer bytes but leave SMs idle or one block per SM, and on an H100
+//    128x128 tiles (3 or 5 stages) and 64x128 tiles ran no S4 product
+//    faster than this pair.
+//  * wmma (other bfloat16 shapes): 64x64 tiles of WMMA 16x16x16 fragments,
+//    storage-layout shared tiles, 16-byte loads, a register prefetch of the
+//    next 32-deep slice, the epilogue through a float32 tile in shared
+//    memory. Kept for ragged widths; it is the slower route.
+//  * simt (float32, float64, which must not round to TF32): the CUDA cores,
+//    a 64x64 tile per block of 256 threads, 4x4 outputs per thread.
+// Ragged edges are masked at the loads (zero fill) and at the stores.
 //
-// Determinism: every output element is one thread's (or one WMMA tile's)
-// sum over K in a fixed order, and the column sums db0, db1 reduce in a
-// fixed tree; there are no atomics and no split-K, so two calls return the
-// same bits. Every launcher uses the caller's stream, never synchronises,
-// allocates nothing (the wrapper passes dz scratch), and returns
-// cudaGetLastError().
+// Determinism: every output element is one thread's (or one fragment's)
+// sum over K in a fixed order; the column sums db0 and db1 go through fixed
+// partials (per tile: a fixed shuffle tree and a fixed pass over warps) and
+// a fixed-order final sum. No atomics, no split-K: two calls return the same
+// bits. Every launcher uses the caller's stream, never synchronises,
+// allocates nothing (the wrapper passes dzc and the partials), and returns
+// the first CUDA error.
 
+#include <atomic>
+#include <climits>
 #include <cstdint>
+#include <initializer_list>
 #include <type_traits>
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -63,6 +91,10 @@ using bf16 = __nv_bfloat16;
 template <typename T> struct AccOf { using type = float; };
 template <> struct AccOf<double> { using type = double; };
 template <typename T> using acc_t = typename AccOf<T>::type;
+
+__host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) {
+  return (a + b - 1) / b;
+}
 
 __device__ __forceinline__ float to_acc(float v) { return v; }
 __device__ __forceinline__ double to_acc(double v) { return v; }
@@ -83,132 +115,277 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
 
-// -- epilogues: called once per output element with the accumulated sum ----
+// two neighbouring bfloat16 values (4-byte aligned) as floats, and back
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ void store2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// -- epilogues -----------------------------------------------------------------
+//
+// operator() takes one output element's sum; pair() two neighbouring
+// columns of one row (the wgmma route, bfloat16 only). Both return what the
+// tile sums per column when kColSum (dz for db0); colsum() stores that sum.
 
 template <typename T>
 struct EpiBiasTanh {  // h = tanh(v + b0)
+  static constexpr bool kColSum = false;
   const T* bias;
   T* out;
   int64_t ld;
-  __device__ void operator()(int64_t m, int64_t n, acc_t<T> v) const {
+  __device__ acc_t<T> operator()(int64_t m, int64_t n, acc_t<T> v) const {
     store(out + m * ld + n, acc_tanh(v + to_acc(bias[n])));
+    return acc_t<T>(0);
+  }
+  __device__ float2 pair(int64_t m, int64_t n, float v0, float v1) const {
+    const float2 b = load2(bias + n);
+    store2(out + m * ld + n, tanhf(v0 + b.x), tanhf(v1 + b.y));
+    return make_float2(0.f, 0.f);
   }
 };
 
 template <typename T>
 struct EpiBias {  // y = v + b1
+  static constexpr bool kColSum = false;
   const T* bias;
   T* out;
   int64_t ld;
-  __device__ void operator()(int64_t m, int64_t n, acc_t<T> v) const {
+  __device__ acc_t<T> operator()(int64_t m, int64_t n, acc_t<T> v) const {
     store(out + m * ld + n, v + to_acc(bias[n]));
+    return acc_t<T>(0);
+  }
+  __device__ float2 pair(int64_t m, int64_t n, float v0, float v1) const {
+    const float2 b = load2(bias + n);
+    store2(out + m * ld + n, v0 + b.x, v1 + b.y);
+    return make_float2(0.f, 0.f);
   }
 };
 
 template <typename T>
 struct EpiStore {  // dW1, dW0, dx
+  static constexpr bool kColSum = false;
   T* out;
   int64_t ld;
-  __device__ void operator()(int64_t m, int64_t n, acc_t<T> v) const {
+  __device__ acc_t<T> operator()(int64_t m, int64_t n, acc_t<T> v) const {
     store(out + m * ld + n, v);
+    return acc_t<T>(0);
+  }
+  __device__ float2 pair(int64_t m, int64_t n, float v0, float v1) const {
+    store2(out + m * ld + n, v0, v1);
+    return make_float2(0.f, 0.f);
   }
 };
 
 template <typename T>
-struct EpiDz {  // dz = dh * (1 - h*h), kept unrounded and rounded to T
+struct EpiDz {  // dz = dh * (1 - h*h): dzc = dz rounded to T; tile column sums of dz
+  static constexpr bool kColSum = true;
   const T* h;
-  acc_t<T>* dz;
   T* dzc;
   int64_t ld;
-  __device__ void operator()(int64_t m, int64_t n, acc_t<T> v) const {
+  acc_t<T>* part;  // (row tiles, ld)
+  __device__ acc_t<T> operator()(int64_t m, int64_t n, acc_t<T> v) const {
     const int64_t i = m * ld + n;
     const acc_t<T> hv = to_acc(h[i]);
     const acc_t<T> d = mul_rn(v, sub_rn(acc_t<T>(1), mul_rn(hv, hv)));
-    dz[i] = d;
     store(dzc + i, d);
+    return d;
+  }
+  __device__ float2 pair(int64_t m, int64_t n, float v0, float v1) const {
+    const int64_t i = m * ld + n;
+    const float2 hv = load2(h + i);
+    const float d0 = mul_rn(v0, sub_rn(1.f, mul_rn(hv.x, hv.x)));
+    const float d1 = mul_rn(v1, sub_rn(1.f, mul_rn(hv.y, hv.y)));
+    store2(dzc + i, d0, d1);
+    return make_float2(d0, d1);
+  }
+  __device__ void colsum(int64_t tile_row, int64_t n, acc_t<T> s) const {
+    part[tile_row * ld + n] = s;
   }
 };
 
-// Element (m, k) of op(A) and (k, n) of op(B), read from row-major storage:
-// A is (M, K) with leading dimension lda, or (K, M) when TA; B is (K, N),
-// or (N, K) when TB.
-template <bool TA, typename T>
-__device__ __forceinline__ const T* a_at(const T* A, int64_t m, int64_t k,
-                                         int64_t lda) {
-  return TA ? A + k * lda + m : A + m * lda + k;
-}
-template <bool TB, typename T>
-__device__ __forceinline__ const T* b_at(const T* B, int64_t k, int64_t n,
-                                         int64_t ldb) {
-  return TB ? B + n * ldb + k : B + k * ldb + n;
-}
+// -- jobs: one product of a launch --------------------------------------------
+//
+// A is (M, K) row-major with leading dimension lda, or, when TA, stored
+// (K, M); B is (K, N), or, when TB, stored (N, K).
 
-// -- CUDA-core tiled product (float32, float64) -------------------------------
+template <typename T, bool TA_, bool TB_, typename Epi_>
+struct Job {
+  static constexpr bool TA = TA_, TB = TB_;
+  using Epi = Epi_;
+  const T* A;
+  const T* B;
+  int64_t M, N, K, lda, ldb;
+  bool vec_a, vec_b;  // 16-byte chunk loads (WMMA)
+  Epi epi;
+  int tiles_n, tiles;
+};
 
-constexpr int kBM = 64, kBN = 64, kBK = 16;
-constexpr int kThreads = 256;  // 16 x 16, each thread 4 x 4 outputs
+// the wgmma route's job: the operands as TMA tensor maps (packed rows)
+template <bool TA_, bool TB_, typename Epi_>
+struct WgJob {
+  static constexpr bool TA = TA_, TB = TB_;
+  using Epi = Epi_;
+  CUtensorMap ma, mb;
+  int64_t M, N, K;
+  Epi epi;
+  int tiles_n, tiles;
+};
 
-template <typename T, bool TA, bool TB, typename Epi>
-__global__ void __launch_bounds__(kThreads)
-gemm_simt_kernel(const T* __restrict__ A, const T* __restrict__ B, int64_t M,
-                 int64_t N, int64_t K, int64_t lda, int64_t ldb, Epi epi) {
-  using Acc = acc_t<T>;
-  __shared__ Acc As[kBK][kBM + 1];
-  __shared__ Acc Bs[kBK][kBN + 1];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kBN;
-  Acc acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = Acc(0);
+struct NoJob {
+  int tiles;
+};
 
-  for (int64_t k0 = 0; k0 < K; k0 += kBK) {
-    // each tile is 1024 elements, 4 per thread; the index map follows the
-    // storage so that neighbouring threads read neighbouring addresses
-#pragma unroll
-    for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
-      const int e = threadIdx.x + r * kThreads;
-      const int mm = TA ? e % kBM : e / kBK;
-      const int kk = TA ? e / kBM : e % kBK;
-      const int64_t gm = m0 + mm, gk = k0 + kk;
-      As[kk][mm] = (gm < M && gk < K) ? to_acc(*a_at<TA>(A, gm, gk, lda)) : Acc(0);
-    }
-#pragma unroll
-    for (int r = 0; r < (kBN * kBK) / kThreads; ++r) {
-      const int e = threadIdx.x + r * kThreads;
-      const int nn = TB ? e / kBK : e % kBN;
-      const int kk = TB ? e % kBK : e / kBN;
-      const int64_t gn = n0 + nn, gk = k0 + kk;
-      Bs[kk][nn] = (gn < N && gk < K) ? to_acc(*b_at<TB>(B, gk, gn, ldb)) : Acc(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      Acc a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += a[i] * b[j];
+// -- tails: the blocks after a launch's tiles -----------------------------------
+
+struct NoTail {
+  int blocks;
+  __device__ void run(int, unsigned char*) const {}
+};
+
+// part[i][c] = sum of src[r][c] over the 64 rows r of chunk i, in order
+template <typename T>
+struct ColPartials {
+  static constexpr int kRows = 64, kCols = 64;
+  const T* src;
+  int64_t rows, cols;
+  acc_t<T>* part;
+  int blocks;
+  __device__ void run(int b, unsigned char* smem) const {
+    using Acc = acc_t<T>;
+    Acc* red = reinterpret_cast<Acc*>(smem);
+    const int64_t col_blocks = cdiv(cols, kCols);
+    const int64_t chunk = b / col_blocks;
+    const int64_t c = (b % col_blocks) * kCols + threadIdx.x % kCols;
+    const int lanes = blockDim.x / kCols, lane = threadIdx.x / kCols;
+    if (lane < lanes) {
+      Acc s = Acc(0);
+      if (c < cols)
+        for (int r = lane; r < kRows; r += lanes) {
+          const int64_t gr = chunk * kRows + r;
+          if (gr >= rows) break;
+          s += to_acc(src[gr * cols + c]);
+        }
+      red[lane * kCols + threadIdx.x % kCols] = s;
     }
     __syncthreads();
+    if (threadIdx.x < kCols && c < cols) {
+      Acc s = red[threadIdx.x];
+      for (int l = 1; l < lanes; ++l) s += red[l * kCols + threadIdx.x];
+      part[chunk * cols + c] = s;
+    }
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int64_t gm = m0 + ty + 16 * i, gn = n0 + tx + 16 * j;
-      if (gm < M && gn < N) epi(gm, gn, acc[i][j]);
-    }
-}
+};
 
-// -- tensor-core tiled product (bfloat16 data, float32 accumulation) ---------
+// out[c] = sum over i of part[i][c], in order of i: db0 and db1
+template <typename T>
+struct ColFinals {
+  struct Sum {
+    const acc_t<T>* part;
+    int64_t parts, cols;
+    T* out;
+  };
+  Sum s0, s1;
+  int blocks0, blocks;
+  __device__ void run(int b, unsigned char*) const {
+    const Sum& s = b < blocks0 ? s0 : s1;
+    const int64_t c =
+        static_cast<int64_t>(b < blocks0 ? b : b - blocks0) * blockDim.x + threadIdx.x;
+    if (c >= s.cols) return;
+    acc_t<T> t = acc_t<T>(0);
+    for (int64_t i = 0; i < s.parts; ++i) t += s.part[i * s.cols + c];
+    store(s.out + c, t);
+  }
+};
+
+// -- engine: CUDA-core tiles (float32, float64) ---------------------------------
+
+template <typename T>
+struct Simt {
+  using Acc = acc_t<T>;
+  static constexpr int kBM = 64, kBN = 64, kBK = 16;
+  static constexpr int kThreads = 256, kMinBlocks = 1;  // 16 x 16, 4 x 4 outputs each
+  static constexpr int kSmem = 2 * kBK * (kBM + 1) * static_cast<int>(sizeof(Acc));
+
+  template <class J>
+  static __device__ void tile(const J& job, int t, unsigned char* smem) {
+    constexpr bool TA = J::TA, TB = J::TB;
+    const J j = job;  // in registers: the kernel's parameters sit behind a generic pointer
+    auto As = reinterpret_cast<Acc(*)[kBM + 1]>(smem);
+    auto Bs = reinterpret_cast<Acc(*)[kBN + 1]>(smem + kBK * (kBM + 1) * sizeof(Acc));
+    const int tx = threadIdx.x % 16;
+    const int ty = threadIdx.x / 16;
+    const int64_t tm = t / j.tiles_n;
+    const int64_t m0 = tm * kBM;
+    const int64_t n0 = static_cast<int64_t>(t % j.tiles_n) * kBN;
+    Acc acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc[i][k] = Acc(0);
+
+    for (int64_t k0 = 0; k0 < j.K; k0 += kBK) {
+      // each tile is 1024 elements, 4 per thread; the index map follows the
+      // storage so that neighbouring threads read neighbouring addresses
+#pragma unroll
+      for (int r = 0; r < (kBM * kBK) / kThreads; ++r) {
+        const int e = threadIdx.x + r * kThreads;
+        const int mm = TA ? e % kBM : e / kBK;
+        const int kk = TA ? e / kBM : e % kBK;
+        const int64_t gm = m0 + mm, gk = k0 + kk;
+        As[kk][mm] = (gm < j.M && gk < j.K)
+                         ? to_acc(TA ? j.A[gk * j.lda + gm] : j.A[gm * j.lda + gk])
+                         : Acc(0);
+      }
+#pragma unroll
+      for (int r = 0; r < (kBN * kBK) / kThreads; ++r) {
+        const int e = threadIdx.x + r * kThreads;
+        const int nn = TB ? e / kBK : e % kBN;
+        const int kk = TB ? e % kBK : e / kBN;
+        const int64_t gn = n0 + nn, gk = k0 + kk;
+        Bs[kk][nn] = (gn < j.N && gk < j.K)
+                         ? to_acc(TB ? j.B[gn * j.ldb + gk] : j.B[gk * j.ldb + gn])
+                         : Acc(0);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int kk = 0; kk < kBK; ++kk) {
+        Acc a[4], b[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) b[k] = Bs[kk][tx + 16 * k];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) acc[i][k] += a[i] * b[k];
+      }
+      __syncthreads();
+    }
+    Acc cs[4] = {Acc(0), Acc(0), Acc(0), Acc(0)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int64_t gm = m0 + ty + 16 * i, gn = n0 + tx + 16 * k;
+        if (gm < j.M && gn < j.N) cs[k] += j.epi(gm, gn, acc[i][k]);
+      }
+    if constexpr (J::Epi::kColSum) {  // the tile's column sums, in a fixed order
+      auto red = reinterpret_cast<Acc(*)[kBN + 1]>(smem);  // 16 x 65, after the last barrier
+#pragma unroll
+      for (int k = 0; k < 4; ++k) red[ty][tx + 16 * k] = cs[k];
+      __syncthreads();
+      if (threadIdx.x < kBN && n0 + threadIdx.x < j.N) {
+        Acc s = red[0][threadIdx.x];
+        for (int r = 1; r < 16; ++r) s += red[r][threadIdx.x];
+        j.epi.colsum(tm, n0 + threadIdx.x, s);
+      }
+    }
+  }
+};
+
+// -- engine: WMMA tiles (bfloat16 of any shape) ----------------------------------
 //
 // Each shared tile keeps the layout of its operand's storage, so every
 // thread moves whole 16-byte chunks (8 values) from device memory, and a
@@ -216,18 +393,15 @@ gemm_simt_kernel(const T* __restrict__ A, const T* __restrict__ B, int64_t M,
 // transposed on the way in. The next depth slice is loaded into registers
 // while the tensor cores work on the current one.
 
-constexpr int kWK = 32;          // depth of a shared tile
-constexpr int kWThreads = 128;   // 4 warps, each a 32 x 32 quarter of 64 x 64
-constexpr int kCld = kBN + 4;    // padded leading dimension of the C tile
-constexpr int kPad = 8;          // row padding (elements): rows stay 16-byte aligned
+constexpr int kWK = 32;  // depth of a shared tile
+constexpr int kPad = 8;  // row padding (elements): rows stay 16-byte aligned
 
 // A tile of `R` rows whose `C` values each lie contiguous in storage, with
 // row r0 + r and column c0 + c at G[(r0 + r) * ld + c0 + c]. Chunk `i`
 // (of R * C / 8) is 8 values of one row.
-template <int R, int C>
+template <int R, int C, int kThreads>
 struct Tile {
-  static constexpr int kChunks = R * C / 8;
-  static constexpr int kPerThread = kChunks / kWThreads;
+  static constexpr int kPerThread = R * C / 8 / kThreads;
   __device__ static uint4 load(const bf16* G, int64_t ld, int64_t r0,
                                int64_t c0, int64_t rows, int64_t cols, int i,
                                bool vec) {
@@ -248,269 +422,737 @@ struct Tile {
   }
 };
 
-template <bool TA, bool TB, typename Epi>
-__global__ void __launch_bounds__(kWThreads)
-gemm_wmma_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B,
-                 int64_t M, int64_t N, int64_t K, int64_t lda, int64_t ldb,
-                 bool vec_a, bool vec_b, Epi epi) {
-  using namespace nvcuda;
-  // storage layouts: A is (m, k) or, when TA, (k, m); B is (k, n) or, when
-  // TB, (n, k); the contiguous index is the second
-  constexpr int AR = TA ? kWK : kBM, AC = TA ? kBM : kWK;
-  constexpr int BR = TB ? kBN : kWK, BC = TB ? kWK : kBN;
-  using TileA = Tile<AR, AC>;
-  using TileB = Tile<BR, BC>;
-  using LayoutA = typename std::conditional<TA, wmma::col_major,
-                                            wmma::row_major>::type;
-  using LayoutB = typename std::conditional<TB, wmma::col_major,
-                                            wmma::row_major>::type;
-  __shared__ __align__(32) bf16 As[AR][AC + kPad];
-  __shared__ __align__(32) bf16 Bs[BR][BC + kPad];
-  __shared__ __align__(32) float Cs[kBM][kCld];
-  const int warp = threadIdx.x / 32;
-  const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
-  const int64_t n0 = static_cast<int64_t>(blockIdx.x) * kBN;
-  // (row, column) origin and extent of each tile in its storage
-  auto a_origin = [&](int64_t k0, int64_t& r0, int64_t& c0) {
-    r0 = TA ? k0 : m0;
-    c0 = TA ? m0 : k0;
-  };
-  auto b_origin = [&](int64_t k0, int64_t& r0, int64_t& c0) {
-    r0 = TB ? n0 : k0;
-    c0 = TB ? k0 : n0;
-  };
-  const int64_t a_rows = TA ? K : M, a_cols = TA ? M : K;
-  const int64_t b_rows = TB ? N : K, b_cols = TB ? K : N;
+struct Wmma {
+  static constexpr int kBM = 64, kBN = 64;
+  static constexpr int kThreads = 128, kMinBlocks = 1;  // 4 warps, each a 32 x 32 quarter
+  static constexpr int kCld = kBN + 4;                  // padded leading dimension of C
+  static constexpr int kOpBytes = 64 * (kWK + kPad) * 2;  // the larger operand tile
+  static constexpr int kSmem = 2 * kOpBytes + kBM * kCld * 4;
 
-  uint4 ra[TileA::kPerThread], rb[TileB::kPerThread];
-  auto fetch = [&](int64_t k0) {
-    int64_t r0, c0;
-    a_origin(k0, r0, c0);
-#pragma unroll
-    for (int j = 0; j < TileA::kPerThread; ++j)
-      ra[j] = TileA::load(A, lda, r0, c0, a_rows, a_cols,
-                          threadIdx.x + j * kWThreads, vec_a);
-    b_origin(k0, r0, c0);
-#pragma unroll
-    for (int j = 0; j < TileB::kPerThread; ++j)
-      rb[j] = TileB::load(B, ldb, r0, c0, b_rows, b_cols,
-                          threadIdx.x + j * kWThreads, vec_b);
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int j = 0; j < TileA::kPerThread; ++j)
-      TileA::store(As, threadIdx.x + j * kWThreads, ra[j]);
-#pragma unroll
-    for (int j = 0; j < TileB::kPerThread; ++j)
-      TileB::store(Bs, threadIdx.x + j * kWThreads, rb[j]);
-  };
+  template <class J>
+  static __device__ void tile(const J& job, int t, unsigned char* smem) {
+    using namespace nvcuda;
+    constexpr bool TA = J::TA, TB = J::TB;
+    const J j = job;  // in registers, as in Simt::tile
+    // storage layouts: A is (m, k) or, when TA, (k, m); B is (k, n) or, when
+    // TB, (n, k); the contiguous index is the second
+    constexpr int AR = TA ? kWK : kBM, AC = TA ? kBM : kWK;
+    constexpr int BR = TB ? kBN : kWK, BC = TB ? kWK : kBN;
+    using TileA = Tile<AR, AC, kThreads>;
+    using TileB = Tile<BR, BC, kThreads>;
+    using LayoutA = typename std::conditional<TA, wmma::col_major,
+                                              wmma::row_major>::type;
+    using LayoutB = typename std::conditional<TB, wmma::col_major,
+                                              wmma::row_major>::type;
+    auto As = reinterpret_cast<bf16(*)[AC + kPad]>(smem);
+    auto Bs = reinterpret_cast<bf16(*)[BC + kPad]>(smem + kOpBytes);
+    auto Cs = reinterpret_cast<float(*)[kCld]>(smem + 2 * kOpBytes);
+    const int warp = threadIdx.x / 32;
+    const int wr = (warp / 2) * 32, wc = (warp % 2) * 32;
+    const int64_t tm = t / j.tiles_n;
+    const int64_t m0 = tm * kBM;
+    const int64_t n0 = static_cast<int64_t>(t % j.tiles_n) * kBN;
+    const int64_t a_rows = TA ? j.K : j.M, a_cols = TA ? j.M : j.K;
+    const int64_t b_rows = TB ? j.N : j.K, b_cols = TB ? j.K : j.N;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
+    uint4 ra[TileA::kPerThread], rb[TileB::kPerThread];
+    auto fetch = [&](int64_t k0) {  // (row, column) origin of each tile in its storage
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < TileA::kPerThread; ++i)
+        ra[i] = TileA::load(j.A, j.lda, TA ? k0 : m0, TA ? m0 : k0, a_rows,
+                            a_cols, threadIdx.x + i * kThreads, j.vec_a);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(c[i][j], 0.0f);
+      for (int i = 0; i < TileB::kPerThread; ++i)
+        rb[i] = TileB::load(j.B, j.ldb, TB ? n0 : k0, TB ? k0 : n0, b_rows,
+                            b_cols, threadIdx.x + i * kThreads, j.vec_b);
+    };
+    auto stage = [&]() {
+#pragma unroll
+      for (int i = 0; i < TileA::kPerThread; ++i)
+        TileA::store(As, threadIdx.x + i * kThreads, ra[i]);
+#pragma unroll
+      for (int i = 0; i < TileB::kPerThread; ++i)
+        TileB::store(Bs, threadIdx.x + i * kThreads, rb[i]);
+    };
 
-  fetch(0);
-  stage();
-  __syncthreads();
-  for (int64_t k0 = 0; k0 < K; k0 += kWK) {
-    const bool more = k0 + kWK < K;
-    if (more) fetch(k0 + kWK);  // in flight while the tensor cores work
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2][2];
 #pragma unroll
-    for (int kk = 0; kk < kWK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b[2];
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const bf16* pa = TA ? &As[kk][wr + 16 * i] : &As[wr + 16 * i][kk];
-        wmma::load_matrix_sync(a[i], pa, AC + kPad);
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bf16* pb = TB ? &Bs[wc + 16 * j][kk] : &Bs[kk][wc + 16 * j];
-        wmma::load_matrix_sync(b[j], pb, BC + kPad);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(c[i][j], a[i], b[j], c[i][j]);
-    }
+      for (int k = 0; k < 2; ++k) wmma::fill_fragment(c[i][k], 0.0f);
+
+    fetch(0);
+    stage();
     __syncthreads();
-    if (more) {
-      stage();
+    for (int64_t k0 = 0; k0 < j.K; k0 += kWK) {
+      const bool more = k0 + kWK < j.K;
+      if (more) fetch(k0 + kWK);  // in flight while the tensor cores work
+#pragma unroll
+      for (int kk = 0; kk < kWK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a[2];
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const bf16* pa = TA ? &As[kk][wr + 16 * i] : &As[wr + 16 * i][kk];
+          wmma::load_matrix_sync(a[i], pa, AC + kPad);
+        }
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const bf16* pb = TB ? &Bs[wc + 16 * k][kk] : &Bs[kk][wc + 16 * k];
+          wmma::load_matrix_sync(b[k], pb, BC + kPad);
+        }
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int k = 0; k < 2; ++k) wmma::mma_sync(c[i][k], a[i], b[k], c[i][k]);
+      }
       __syncthreads();
+      if (more) {
+        stage();
+        __syncthreads();
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        wmma::store_matrix_sync(&Cs[wr + 16 * i][wc + 16 * k], c[i][k], kCld,
+                                wmma::mem_row_major);
+    __syncthreads();
+    for (int e = threadIdx.x; e < kBM * kBN; e += kThreads) {
+      const int mm = e / kBN, nn = e % kBN;
+      const int64_t gm = m0 + mm, gn = n0 + nn;
+      float d = 0.f;
+      if (gm < j.M && gn < j.N) d = j.epi(gm, gn, Cs[mm][nn]);
+      if constexpr (J::Epi::kColSum) Cs[mm][nn] = d;
+    }
+    if constexpr (J::Epi::kColSum) {  // the tile's column sums, rows in order
+      __syncthreads();
+      if (threadIdx.x < kBN && n0 + threadIdx.x < j.N) {
+        float s = Cs[0][threadIdx.x];
+        for (int mm = 1; mm < kBM; ++mm) s += Cs[mm][threadIdx.x];
+        j.epi.colsum(tm, n0 + threadIdx.x, s);
+      }
     }
   }
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wr + 16 * i][wc + 16 * j], c[i][j], kCld,
-                              wmma::mem_row_major);
-  __syncthreads();
-  for (int e = threadIdx.x; e < kBM * kBN; e += kWThreads) {
-    const int mm = e / kBN, nn = e % kBN;
-    const int64_t gm = m0 + mm, gn = n0 + nn;
-    if (gm < M && gn < N) epi(gm, gn, Cs[mm][nn]);
-  }
-}
-
-// -- launch: the route follows the data type ----------------------------------
-
-inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
-
-inline bool grid_fits(int64_t M, int64_t N) {
-  return cdiv(M, kBM) <= 65535 && cdiv(N, kBN) <= 2147483647;
-}
-
-template <typename T>
-struct Gemm {  // float32, float64: CUDA cores
-  template <bool TA, bool TB, typename Epi>
-  static cudaError_t run(const T* A, const T* B, int64_t M, int64_t N,
-                         int64_t K, int64_t lda, int64_t ldb, Epi epi,
-                         cudaStream_t s) {
-    if (!grid_fits(M, N)) return cudaErrorInvalidConfiguration;
-    const dim3 grid(static_cast<unsigned>(cdiv(N, kBN)),
-                    static_cast<unsigned>(cdiv(M, kBM)));
-    gemm_simt_kernel<T, TA, TB, Epi><<<grid, kThreads, 0, s>>>(
-        A, B, M, N, K, lda, ldb, epi);
-    return cudaGetLastError();
-  }
 };
 
-template <>
-struct Gemm<bf16> {  // bfloat16: tensor cores
-  template <bool TA, bool TB, typename Epi>
-  static cudaError_t run(const bf16* A, const bf16* B, int64_t M, int64_t N,
-                         int64_t K, int64_t lda, int64_t ldb, Epi epi,
-                         cudaStream_t s) {
-    if (!grid_fits(M, N)) return cudaErrorInvalidConfiguration;
-    const dim3 grid(static_cast<unsigned>(cdiv(N, kBN)),
-                    static_cast<unsigned>(cdiv(M, kBM)));
-    // 16-byte chunks need 16-byte aligned rows
-    const bool vec_a = reinterpret_cast<uintptr_t>(A) % 16 == 0 && lda % 8 == 0;
-    const bool vec_b = reinterpret_cast<uintptr_t>(B) % 16 == 0 && ldb % 8 == 0;
-    gemm_wmma_kernel<TA, TB, Epi><<<grid, kWThreads, 0, s>>>(
-        A, B, M, N, K, lda, ldb, vec_a, vec_b, epi);
-    return cudaGetLastError();
+// -- engine: wgmma tiles fed by TMA (bfloat16, aligned widths) -------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// wait until the phase of parity `parity` has completed; a wait of more than
+// 10 s traps, so a broken pipeline fails its launch instead of hanging
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+  while (!mbar_try_wait(bar, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (t - t0 > 10000000000ull) __trap();
   }
-};
+}
+// a 2-D box at coordinates (c0 along the contiguous dimension, c1) into
+// shared memory; completion counts its bytes on the barrier
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads across a wait
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-// -- column sums in a fixed order (db1 over g, db0 over dz) -------------------
+// Shared-memory matrix descriptor, 128-byte swizzle. Every tile is a stack
+// of 128-byte rows (64 bf16 values along the contiguous dimension), 8-row
+// groups 1024 bytes apart (the stride byte offset). A K-major operand (K
+// contiguous) advances 32 bytes per 16-deep step inside its rows; an
+// MN-major one 16 rows (2048 bytes), with its 64-wide MN slabs 8192 bytes
+// apart (the leading byte offset).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+}
 
-constexpr int kCols = 32, kRowLanes = 32;
+#define MLP2_ACC8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-template <typename T, typename S>
-__global__ void __launch_bounds__(kCols * kRowLanes)
-colsum_kernel(const S* __restrict__ src, int64_t rows, int64_t cols,
-              T* __restrict__ out) {
-  using Acc = acc_t<T>;
-  __shared__ Acc part[kRowLanes][kCols + 1];
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kCols + threadIdx.x;
-  Acc s = Acc(0);
-  if (col < cols)
-    for (int64_t r = threadIdx.y; r < rows; r += kRowLanes)
-      s += to_acc(src[r * cols + col]);
-  part[threadIdx.y][threadIdx.x] = s;
-  __syncthreads();
-  for (int stride = kRowLanes / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.y < stride)
-      part[threadIdx.y][threadIdx.x] += part[threadIdx.y + stride][threadIdx.x];
+// d (64 x 64, float32) += A (64 x 16) B (16 x 64); TA / TB: the operand is
+// MN-major (wgmma's transpose bits)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : MLP2_ACC8(0), MLP2_ACC8(8), MLP2_ACC8(16), MLP2_ACC8(24)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+#undef MLP2_ACC8
+
+// NWG consumer warpgroups, each 64 rows of a (64 NWG) x 64 tile, and one
+// producer warp after them
+template <int NWG>
+struct Wg {
+  static constexpr int kBM = 64 * NWG, kBN = 64, kBK = 64;
+  static constexpr int kConsumers = 128 * NWG;
+  static constexpr int kThreads = kConsumers + 32, kMinBlocks = 2;
+  static constexpr int kABytes = kBM * kBK * 2, kBBytes = kBN * kBK * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kStages = (96 * 1024) / kStageBytes;  // 4 (128x64) or 6 (64x64)
+  static constexpr int kSlab = 64 * 128;  // one 64-row (or 64-deep) box of 128-byte rows
+  static constexpr int kRedBytes = 4 * NWG * kBN * 4;  // per-warp column sums
+  // 1024 bytes of slack to align the ring to the swizzle's 1024-byte period
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 16 * kStages + kRedBytes;
+
+  template <class J>
+  static __device__ void tile(const J& j, int t, unsigned char* smem) {
+    constexpr bool TA = J::TA, TB = J::TB;
+    const int64_t tm = t / j.tiles_n;
+    const int64_t m0 = tm * kBM;
+    const int64_t n0 = static_cast<int64_t>(t % j.tiles_n) * kBN;
+    const int ktiles = static_cast<int>(cdiv(j.K, kBK));
+    const uint32_t raw = smem_u32(smem);
+    const uint32_t ring = (raw + 1023u) & ~1023u;
+    const uint32_t bars = ring + kStages * kStageBytes;  // full[s], then empty[s]
+    float* red = reinterpret_cast<float*>(smem + (bars + 16 * kStages - raw));
+    auto full = [&](int s) { return bars + 8u * s; };
+    auto empty = [&](int s) { return bars + 8u * (kStages + s); };
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < kStages; ++s) {
+        mbar_init(full(s), 1);
+        mbar_init(empty(s), 4 * NWG);  // one arrival per consumer warp
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
     __syncthreads();
+
+    if (threadIdx.x >= kConsumers) {  // producer warp: one thread issues the loads
+      if (threadIdx.x == kConsumers)
+        for (int kt = 0; kt < ktiles; ++kt) {
+          const int s = kt % kStages;
+          mbar_wait(empty(s), ((kt / kStages) & 1) ^ 1);
+          mbar_expect_tx(full(s), kStageBytes);
+          const uint32_t sa = ring + s * kStageBytes, sb = sa + kABytes;
+          const int k0 = kt * kBK;
+          if (TA)  // A stored (K, M): 64-wide M slabs, 64 deep
+            for (int i = 0; i < NWG; ++i)
+              tma_load(sa + i * kSlab, &j.ma, static_cast<int>(m0) + 64 * i, k0, full(s));
+          else  // A stored (M, K): kBM rows, 64 deep
+            tma_load(sa, &j.ma, k0, static_cast<int>(m0), full(s));
+          if (TB)  // B stored (N, K): kBN rows, 64 deep
+            tma_load(sb, &j.mb, k0, static_cast<int>(n0), full(s));
+          else  // B stored (K, N): one 64-wide N slab, 64 deep
+            tma_load(sb, &j.mb, static_cast<int>(n0), k0, full(s));
+        }
+      return;
+    }
+
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+    float acc[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < ktiles; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(full(s), (kt / kStages) & 1);
+      const uint32_t sa = ring + s * kStageBytes + wg * kSlab, sb = ring + s * kStageBytes + kABytes;
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint64_t da = TA ? smem_desc(sa + kk * 2048, kSlab, 1024)
+                               : smem_desc(sa + kk * 32, 16, 1024);
+        const uint64_t db = TB ? smem_desc(sb + kk * 32, 16, 1024)
+                               : smem_desc(sb + kk * 2048, kSlab, 1024);
+        wgmma_n64<TA ? 1 : 0, TB ? 0 : 1>(acc, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      fence_acc(acc);
+      if (kt > 0 && lane == 0) mbar_arrive(empty((kt - 1) % kStages));
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+
+    // acc[4 c + 2 h + e] holds row 16 warp + lane / 4 + 8 h, column
+    // 8 c + 2 (lane % 4) + e of the warpgroup's 64 rows
+    const int64_t r0 = m0 + 64 * wg + 16 * warp + lane / 4;
+    const auto epi = j.epi;  // in registers
+    const int64_t M = j.M, N = j.N;
+#pragma unroll
+    for (int c = 0; c < kBN / 8; ++c) {
+      const int64_t col = n0 + 8 * c + 2 * (lane % 4);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int64_t row = r0 + 8 * h;
+        if (row < M && col < N) {
+          const float2 d = epi.pair(row, col, acc[4 * c + 2 * h], acc[4 * c + 2 * h + 1]);
+          s0 += d.x;
+          s1 += d.y;
+        }
+      }
+      if constexpr (J::Epi::kColSum) {  // over the warp's 16 rows, a fixed tree
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          s0 += __shfl_xor_sync(0xffffffffu, s0, o);
+          s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+        }
+        if (lane < 4) {
+          red[(4 * wg + warp) * kBN + 8 * c + 2 * lane] = s0;
+          red[(4 * wg + warp) * kBN + 8 * c + 2 * lane + 1] = s1;
+        }
+      }
+    }
+    if constexpr (J::Epi::kColSum) {  // then over the warps, in order
+      asm volatile("bar.sync 1, %0;" ::"r"(kConsumers) : "memory");
+      if (threadIdx.x < kBN && n0 + threadIdx.x < N) {
+        float s = red[threadIdx.x];
+        for (int w = 1; w < 4 * NWG; ++w) s += red[w * kBN + threadIdx.x];
+        epi.colsum(tm, n0 + threadIdx.x, s);
+      }
+    }
   }
-  if (threadIdx.y == 0 && col < cols) store(out + col, part[0][threadIdx.x]);
+};
+
+// -- the kernel: a launch's tiles, job after job, then its tail blocks -----------
+
+template <class Eng, class J0, class J1, class Tail>
+__global__ void __launch_bounds__(Eng::kThreads, Eng::kMinBlocks)
+pair_kernel(const __grid_constant__ J0 j0, const __grid_constant__ J1 j1,
+            const __grid_constant__ Tail tail) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int b = static_cast<int>(blockIdx.x);
+  if (b < j0.tiles) {
+    Eng::tile(j0, b, smem);
+    return;
+  }
+  b -= j0.tiles;
+  if constexpr (!std::is_same<J1, NoJob>::value) {
+    if (b < j1.tiles) {
+      Eng::tile(j1, b, smem);
+      return;
+    }
+    b -= j1.tiles;
+  }
+  tail.run(b, smem);
 }
 
-template <typename T, typename S>
-cudaError_t colsum(const S* src, int64_t rows, int64_t cols, T* out,
-                   cudaStream_t s) {
-  colsum_kernel<T, S><<<static_cast<unsigned>(cdiv(cols, kCols)),
-                        dim3(kCols, kRowLanes), 0, s>>>(src, rows, cols, out);
+template <class Eng, class J0, class J1, class Tail>
+cudaError_t launch(const J0& j0, const J1& j1, const Tail& tail, cudaStream_t s) {
+  auto* kern = pair_kernel<Eng, J0, J1, Tail>;
+  if constexpr (Eng::kSmem > 48 * 1024) {  // once per kernel and device
+    static std::atomic<uint64_t> done{0};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    const uint64_t bit = 1ull << (dev & 63);
+    if (!(done.load() & bit)) {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Eng::kSmem);
+      if (e != cudaSuccess) return e;
+      done.fetch_or(bit);
+    }
+  }
+  const int64_t blocks = static_cast<int64_t>(j0.tiles) + j1.tiles + tail.blocks;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  kern<<<static_cast<unsigned>(blocks), Eng::kThreads, Eng::kSmem, s>>>(j0, j1, tail);
   return cudaGetLastError();
 }
 
-template <typename T>
-int fwd_impl(const void* x, const void* w0, const void* b0, const void* w1,
-             const void* b1, void* y, void* h, int64_t B, int64_t din,
-             int64_t hid, int64_t dout, void* stream) {
-  if (B <= 0 || din <= 0 || hid <= 0 || dout <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* X = static_cast<const T*>(x);
-  T* H = static_cast<T*>(h);
-  cudaError_t e = Gemm<T>::template run<false, false>(
-      X, static_cast<const T*>(w0), B, hid, din, din, hid,
-      EpiBiasTanh<T>{static_cast<const T*>(b0), H, hid}, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = Gemm<T>::template run<false, false>(
-      H, static_cast<const T*>(w1), B, dout, hid, hid, dout,
-      EpiBias<T>{static_cast<const T*>(b1), static_cast<T*>(y), dout}, s);
-  return static_cast<int>(e);
+// tile counts stay far inside an int (the entry points check the widths)
+inline int tiles_of(int64_t M, int64_t N, int bm, int bn) {
+  return static_cast<int>(cdiv(M, bm) * cdiv(N, bn));
+}
+
+inline bool widths_fit(int64_t B, int64_t din, int64_t hid, int64_t dout) {
+  const int64_t lim = int64_t(1) << 26;  // and under 2^29 tiles of 64 x 64 per launch
+  return B < lim && din < lim && hid < lim && dout < lim &&
+         cdiv(B, 64) * cdiv(hid, 64) < (int64_t(1) << 28) &&
+         cdiv(hid, 64) * cdiv(dout, 64) < (int64_t(1) << 28) &&
+         cdiv(din, 64) * cdiv(hid, 64) < (int64_t(1) << 28) &&
+         cdiv(B, 64) * (cdiv(din, 64) + cdiv(dout, 64)) < (int64_t(1) << 28);
+}
+
+template <class Eng, bool TA, bool TB, typename T, typename Epi>
+Job<T, TA, TB, Epi> make_job(const T* A, const T* B, int64_t M, int64_t N,
+                             int64_t K, int64_t lda, int64_t ldb, Epi epi) {
+  Job<T, TA, TB, Epi> j{};
+  j.A = A;
+  j.B = B;
+  j.M = M;
+  j.N = N;
+  j.K = K;
+  j.lda = lda;
+  j.ldb = ldb;
+  // 16-byte chunks need 16-byte aligned rows
+  j.vec_a = reinterpret_cast<uintptr_t>(A) % 16 == 0 && lda % 8 == 0;
+  j.vec_b = reinterpret_cast<uintptr_t>(B) % 16 == 0 && ldb % 8 == 0;
+  j.epi = epi;
+  j.tiles_n = static_cast<int>(cdiv(N, Eng::kBN));
+  j.tiles = tiles_of(M, N, Eng::kBM, Eng::kBN);
+  return j;
 }
 
 template <typename T>
-int bwd_impl(const void* x, const void* w0, const void* w1, const void* h,
-             const void* g, void* dx, void* dw0, void* db0, void* dw1,
-             void* db1, void* dz, void* dzc, int64_t B, int64_t din,
-             int64_t hid, int64_t dout, void* stream) {
-  if (B <= 0 || din <= 0 || hid <= 0 || dout <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const T* X = static_cast<const T*>(x);
-  const T* W0 = static_cast<const T*>(w0);
-  const T* W1 = static_cast<const T*>(w1);
-  const T* H = static_cast<const T*>(h);
-  const T* G = static_cast<const T*>(g);
-  acc_t<T>* DZ = static_cast<acc_t<T>*>(dz);
-  T* DZC = static_cast<T*>(dzc);
-  // dW1 (hid, dout) = h^T g: A = h stored (B, hid), transposed
-  cudaError_t e = Gemm<T>::template run<true, false>(
-      H, G, hid, dout, B, hid, dout,
-      EpiStore<T>{static_cast<T*>(dw1), dout}, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = colsum(G, B, dout, static_cast<T*>(db1), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // dz (B, hid) = (g W1^T) * (1 - h^2): B = W1 stored (hid, dout), transposed
-  e = Gemm<T>::template run<false, true>(
-      G, W1, B, hid, dout, dout, dout, EpiDz<T>{H, DZ, DZC, hid}, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  e = colsum(static_cast<const acc_t<T>*>(DZ), B, hid, static_cast<T*>(db0), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // dW0 (din, hid) = x^T dz: A = x stored (B, din), transposed
-  e = Gemm<T>::template run<true, false>(
-      X, DZC, din, hid, B, din, hid,
-      EpiStore<T>{static_cast<T*>(dw0), hid}, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // dx (B, din) = dz W0^T: B = W0 stored (din, hid), transposed
-  e = Gemm<T>::template run<false, true>(
-      DZC, W0, B, din, hid, hid, hid,
-      EpiStore<T>{static_cast<T*>(dx), din}, s);
-  return static_cast<int>(e);
+ColPartials<T> make_partials(const T* src, int64_t rows, int64_t cols, acc_t<T>* part) {
+  return {src, rows, cols, part,
+          static_cast<int>(cdiv(rows, ColPartials<T>::kRows) *
+                           cdiv(cols, ColPartials<T>::kCols))};
+}
+
+template <class Eng, typename T>
+ColFinals<T> make_finals(typename ColFinals<T>::Sum s0, typename ColFinals<T>::Sum s1) {
+  const int b0 = static_cast<int>(cdiv(s0.cols, Eng::kThreads));
+  return {s0, s1, b0, b0 + static_cast<int>(cdiv(s1.cols, Eng::kThreads))};
+}
+
+// -- TMA tensor maps -------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the driver's encoder through the runtime, looked up once: no -lcuda
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = []() -> EncodeTiled {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+// a packed row-major (rows, cols) bfloat16 matrix, read in boxes of 64
+// columns (128 bytes) by box_rows rows with the 128-byte swizzle; reads past
+// an edge fill zeros
+cudaError_t encode(CUtensorMap* map, const bf16* base, int64_t rows, int64_t cols,
+                   int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorSymbolNotFound;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<bf16*>(base), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+template <class Eng, bool TA, bool TB, typename Epi>
+cudaError_t make_wg_job(WgJob<TA, TB, Epi>& j, const bf16* A, const bf16* B,
+                        int64_t M, int64_t N, int64_t K, Epi epi) {
+  // A: (K, M) when TA (64-row boxes), else (M, K) (kBM-row boxes); B: (N, K)
+  // when TB (kBN-row boxes), else (K, N) (64-row boxes)
+  cudaError_t e = TA ? encode(&j.ma, A, K, M, 64) : encode(&j.ma, A, M, K, Eng::kBM);
+  if (e != cudaSuccess) return e;
+  e = TB ? encode(&j.mb, B, N, K, Eng::kBN) : encode(&j.mb, B, K, N, 64);
+  if (e != cudaSuccess) return e;
+  j.M = M;
+  j.N = N;
+  j.K = K;
+  j.epi = epi;
+  j.tiles_n = static_cast<int>(cdiv(N, Eng::kBN));
+  j.tiles = tiles_of(M, N, Eng::kBM, Eng::kBN);
+  return cudaSuccess;
+}
+
+int sm_count() {
+  static std::atomic<int> cache[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  std::atomic<int>& slot = cache[dev & 63];
+  int n = slot.load();
+  if (n == 0 && cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) == cudaSuccess)
+    slot.store(n);
+  return n;
+}
+
+// 128x64 tiles when their grid (count(128, 64) blocks) still covers 9/10 of
+// the SMs, else 64x64; run(Wg<...>{}) launches with it
+template <class Count, class Run>
+cudaError_t with_wg_tile(Count count, Run run) {
+  if (int64_t(count(128, 64)) * 10 >= 9 * int64_t(sm_count())) return run(Wg<2>{});
+  return run(Wg<1>{});
+}
+
+// -- the entry points' bodies ------------------------------------------------------
+
+template <typename T>
+struct Args {
+  const T *x, *w0, *b0, *w1, *b1, *h, *g;
+  T *y, *hout, *dx, *dw0, *db0, *dw1, *db1, *dzc;
+  acc_t<T>* part;  // cdiv(B, 64) rows of hid, then cdiv(B, 64) rows of dout
+  int64_t B, din, hid, dout;
+  cudaStream_t s;
+};
+
+template <typename T, class Eng>  // simt, wmma
+cudaError_t fwd_tiles(const Args<T>& a) {
+  cudaError_t e = launch<Eng>(
+      make_job<Eng, false, false>(a.x, a.w0, a.B, a.hid, a.din, a.din, a.hid,
+                                  EpiBiasTanh<T>{a.b0, a.hout, a.hid}),
+      NoJob{0}, NoTail{0}, a.s);
+  if (e != cudaSuccess) return e;
+  return launch<Eng>(
+      make_job<Eng, false, false>(const_cast<const T*>(a.hout), a.w1, a.B, a.dout,
+                                  a.hid, a.hid, a.dout,
+                                  EpiBias<T>{a.b1, a.y, a.dout}),
+      NoJob{0}, NoTail{0}, a.s);
+}
+
+template <typename T, class Eng>  // simt, wmma
+cudaError_t bwd_tiles(const Args<T>& a) {
+  using Acc = acc_t<T>;
+  Acc* p0 = a.part;                                     // dz: one row per row tile
+  Acc* p1 = a.part + cdiv(a.B, 64) * a.hid;             // g: one row per 64 rows
+  // 1: dW1 (hid, dout) = h^T g and dz (B, hid) = (g W1^T)(1 - h^2); g's sums
+  cudaError_t e = launch<Eng>(
+      make_job<Eng, true, false>(a.h, a.g, a.hid, a.dout, a.B, a.hid, a.dout,
+                                 EpiStore<T>{a.dw1, a.dout}),
+      make_job<Eng, false, true>(a.g, a.w1, a.B, a.hid, a.dout, a.dout, a.dout,
+                                 EpiDz<T>{a.h, a.dzc, a.hid, p0}),
+      make_partials(a.g, a.B, a.dout, p1), a.s);
+  if (e != cudaSuccess) return e;
+  // 2: dx (B, din) = dzc W0^T and dW0 (din, hid) = x^T dzc; db0, db1
+  const T* dzc = a.dzc;
+  return launch<Eng>(
+      make_job<Eng, false, true>(dzc, a.w0, a.B, a.din, a.hid, a.hid, a.hid,
+                                 EpiStore<T>{a.dx, a.din}),
+      make_job<Eng, true, false>(a.x, dzc, a.din, a.hid, a.B, a.din, a.hid,
+                                 EpiStore<T>{a.dw0, a.hid}),
+      make_finals<Eng, T>({p0, cdiv(a.B, Eng::kBM), a.hid, a.db0},
+                          {p1, cdiv(a.B, 64), a.dout, a.db1}),
+      a.s);
+}
+
+cudaError_t fwd_wgmma(const Args<bf16>& a) {
+  cudaError_t e = with_wg_tile(
+      [&](int bm, int bn) { return tiles_of(a.B, a.hid, bm, bn); },
+      [&](auto eng) {
+        using Eng = decltype(eng);
+        WgJob<false, false, EpiBiasTanh<bf16>> j;
+        const cudaError_t err = make_wg_job<Eng>(j, a.x, a.w0, a.B, a.hid, a.din,
+                                         EpiBiasTanh<bf16>{a.b0, a.hout, a.hid});
+        return err != cudaSuccess ? err : launch<Eng>(j, NoJob{0}, NoTail{0}, a.s);
+      });
+  if (e != cudaSuccess) return e;
+  return with_wg_tile(
+      [&](int bm, int bn) { return tiles_of(a.B, a.dout, bm, bn); },
+      [&](auto eng) {
+        using Eng = decltype(eng);
+        WgJob<false, false, EpiBias<bf16>> j;
+        const cudaError_t err = make_wg_job<Eng>(j, a.hout, a.w1, a.B, a.dout, a.hid,
+                                         EpiBias<bf16>{a.b1, a.y, a.dout});
+        return err != cudaSuccess ? err : launch<Eng>(j, NoJob{0}, NoTail{0}, a.s);
+      });
+}
+
+cudaError_t bwd_wgmma(const Args<bf16>& a) {
+  float* p0 = a.part;
+  float* p1 = a.part + cdiv(a.B, 64) * a.hid;
+  int64_t parts0 = 0;  // row tiles of launch 1's dz
+  cudaError_t e = with_wg_tile(
+      [&](int bm, int bn) {
+        return tiles_of(a.hid, a.dout, bm, bn) + tiles_of(a.B, a.hid, bm, bn);
+      },
+      [&](auto eng) {
+        using Eng = decltype(eng);
+        parts0 = cdiv(a.B, Eng::kBM);
+        WgJob<true, false, EpiStore<bf16>> dw1;
+        WgJob<false, true, EpiDz<bf16>> dz;
+        cudaError_t err = make_wg_job<Eng>(dw1, a.h, a.g, a.hid, a.dout, a.B,
+                                         EpiStore<bf16>{a.dw1, a.dout});
+        if (err == cudaSuccess)
+          err = make_wg_job<Eng>(dz, a.g, a.w1, a.B, a.hid, a.dout,
+                               EpiDz<bf16>{a.h, a.dzc, a.hid, p0});
+        return err != cudaSuccess
+                   ? err : launch<Eng>(dw1, dz, make_partials(a.g, a.B, a.dout, p1), a.s);
+      });
+  if (e != cudaSuccess) return e;
+  return with_wg_tile(
+      [&](int bm, int bn) {
+        return tiles_of(a.B, a.din, bm, bn) + tiles_of(a.din, a.hid, bm, bn);
+      },
+      [&](auto eng) {
+        using Eng = decltype(eng);
+        WgJob<false, true, EpiStore<bf16>> dx;
+        WgJob<true, false, EpiStore<bf16>> dw0;
+        cudaError_t err = make_wg_job<Eng>(dx, a.dzc, a.w0, a.B, a.din, a.hid,
+                                         EpiStore<bf16>{a.dx, a.din});
+        if (err == cudaSuccess)
+          err = make_wg_job<Eng>(dw0, a.x, a.dzc, a.din, a.hid, a.B,
+                               EpiStore<bf16>{a.dw0, a.hid});
+        return err != cudaSuccess
+                   ? err : launch<Eng>(dx, dw0,
+                                     make_finals<Eng, bf16>({p0, parts0, a.hid, a.db0},
+                                                            {p1, cdiv(a.B, 64), a.dout, a.db1}),
+                                     a.s);
+      });
+}
+
+// the wgmma route's contract: TMA rows of a multiple of 16 bytes, 16-byte
+// aligned bases (ops/mlp.py:mlp2_route checks it before launch)
+bool wgmma_takes(const Args<bf16>& a, std::initializer_list<const void*> ptrs) {
+  if (a.din % 8 || a.hid % 8 || a.dout % 8) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+template <typename T>
+Args<T> fwd_args(const void* x, const void* w0, const void* b0, const void* w1,
+                 const void* b1, void* y, void* h, int64_t B, int64_t din,
+                 int64_t hid, int64_t dout, void* stream) {
+  Args<T> a{};
+  a.x = static_cast<const T*>(x);
+  a.w0 = static_cast<const T*>(w0);
+  a.b0 = static_cast<const T*>(b0);
+  a.w1 = static_cast<const T*>(w1);
+  a.b1 = static_cast<const T*>(b1);
+  a.y = static_cast<T*>(y);
+  a.hout = static_cast<T*>(h);
+  a.B = B;
+  a.din = din;
+  a.hid = hid;
+  a.dout = dout;
+  a.s = static_cast<cudaStream_t>(stream);
+  return a;
+}
+
+template <typename T>
+Args<T> bwd_args(const void* x, const void* w0, const void* w1, const void* h,
+                 const void* g, void* dx, void* dw0, void* db0, void* dw1,
+                 void* db1, void* dzc, void* part, int64_t B, int64_t din,
+                 int64_t hid, int64_t dout, void* stream) {
+  Args<T> a{};
+  a.x = static_cast<const T*>(x);
+  a.w0 = static_cast<const T*>(w0);
+  a.w1 = static_cast<const T*>(w1);
+  a.h = static_cast<const T*>(h);
+  a.g = static_cast<const T*>(g);
+  a.dx = static_cast<T*>(dx);
+  a.dw0 = static_cast<T*>(dw0);
+  a.db0 = static_cast<T*>(db0);
+  a.dw1 = static_cast<T*>(dw1);
+  a.db1 = static_cast<T*>(db1);
+  a.dzc = static_cast<T*>(dzc);
+  a.part = static_cast<acc_t<T>*>(part);
+  a.B = B;
+  a.din = din;
+  a.hid = hid;
+  a.dout = dout;
+  a.s = static_cast<cudaStream_t>(stream);
+  return a;
+}
+
+inline int check_widths(int64_t B, int64_t din, int64_t hid, int64_t dout) {
+  if (B <= 0 || din <= 0 || hid <= 0 || dout <= 0) return -1;  // nothing to do
+  return widths_fit(B, din, hid, dout) ? 1 : 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-#define MLP2_ENTRY_POINTS(SUFFIX, T)                                          \
-  int mlp2_fwd_##SUFFIX(const void* x, const void* w0, const void* b0,        \
-                        const void* w1, const void* b1, void* y, void* h,     \
-                        int64_t B, int64_t din, int64_t hid, int64_t dout,    \
-                        void* stream) {                                       \
-    return fwd_impl<T>(x, w0, b0, w1, b1, y, h, B, din, hid, dout, stream);   \
-  }                                                                           \
-  int mlp2_bwd_##SUFFIX(const void* x, const void* w0, const void* w1,        \
-                        const void* h, const void* g, void* dx, void* dw0,    \
-                        void* db0, void* dw1, void* db1, void* dz, void* dzc, \
-                        int64_t B, int64_t din, int64_t hid, int64_t dout,    \
-                        void* stream) {                                       \
-    return bwd_impl<T>(x, w0, w1, h, g, dx, dw0, db0, dw1, db1, dz, dzc, B,   \
-                       din, hid, dout, stream);                               \
+// K3: y (B, dout), h (B, hid). K4: dx, dW0, db0, dW1, db1, with scratch dzc
+// (B, hid) in the data type and part, cdiv(B, 64) (hid + dout) values in the
+// accumulation type. Each returns 0 or a cudaError_t.
+#define MLP2_ENTRY_POINTS(ROUTE, SUFFIX, T, FWD, BWD, TAKES_FWD, TAKES_BWD)      \
+  int mlp2_fwd_##ROUTE##_##SUFFIX(const void* x, const void* w0, const void* b0, \
+                                  const void* w1, const void* b1, void* y,       \
+                                  void* h, int64_t B, int64_t din, int64_t hid,  \
+                                  int64_t dout, void* stream) {                  \
+    const int ok = check_widths(B, din, hid, dout);                              \
+    if (ok <= 0) return ok < 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);   \
+    const Args<T> a = fwd_args<T>(x, w0, b0, w1, b1, y, h, B, din, hid, dout,    \
+                                  stream);                                       \
+    if (!(TAKES_FWD)) return static_cast<int>(cudaErrorInvalidValue);            \
+    return static_cast<int>(FWD(a));                                             \
+  }                                                                              \
+  int mlp2_bwd_##ROUTE##_##SUFFIX(                                               \
+      const void* x, const void* w0, const void* w1, const void* h,              \
+      const void* g, void* dx, void* dw0, void* db0, void* dw1, void* db1,       \
+      void* dzc, void* part, int64_t B, int64_t din, int64_t hid, int64_t dout,  \
+      void* stream) {                                                            \
+    const int ok = check_widths(B, din, hid, dout);                              \
+    if (ok <= 0) return ok < 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);   \
+    const Args<T> a = bwd_args<T>(x, w0, w1, h, g, dx, dw0, db0, dw1, db1, dzc,  \
+                                  part, B, din, hid, dout, stream);              \
+    if (!(TAKES_BWD)) return static_cast<int>(cudaErrorInvalidValue);            \
+    return static_cast<int>(BWD(a));                                             \
   }
 
-MLP2_ENTRY_POINTS(f32, float)
-MLP2_ENTRY_POINTS(f64, double)
-MLP2_ENTRY_POINTS(bf16, __nv_bfloat16)
+MLP2_ENTRY_POINTS(simt, f32, float, (fwd_tiles<float, Simt<float>>),
+                  (bwd_tiles<float, Simt<float>>), true, true)
+MLP2_ENTRY_POINTS(simt, f64, double, (fwd_tiles<double, Simt<double>>),
+                  (bwd_tiles<double, Simt<double>>), true, true)
+MLP2_ENTRY_POINTS(wmma, bf16, bf16, (fwd_tiles<bf16, Wmma>),
+                  (bwd_tiles<bf16, Wmma>), true, true)
+MLP2_ENTRY_POINTS(wgmma, bf16, bf16, fwd_wgmma, bwd_wgmma,
+                  wgmma_takes(a, {x, w0, b0, w1, b1, y, h}),
+                  wgmma_takes(a, {x, w0, w1, h, g, dx, dw0, db0, dw1, db1, dzc, part}))
 
 #undef MLP2_ENTRY_POINTS
 

@@ -19,9 +19,12 @@ before it enters dW0 and dx (db0 sums the unrounded dz).
 Each kernel sits behind a `torch.library` operator, `mlp2_fwd` (K3) and
 `mlp2_vjp` (K4). A CPU tensor goes to the plain version; a CUDA tensor
 launches the kernels of `csrc/mlp2.cu` (`mlp2_fwd_cuda`, `mlp2_vjp_cuda`) or
-raises. Each CUDA wrapper counts its launches in `.launches`. What bounds
-the kernels on an H100 and what the design does about it is noted in
-`csrc/mlp2.cu`.
+raises. `mlp2_route` picks the engine before launch: wgmma tiles fed by TMA
+for aligned bfloat16 widths, WMMA tiles for other bfloat16 shapes, CUDA-core
+tiles for float32 and float64; nothing on the card falls back to the plain
+version. Each CUDA wrapper counts its calls in `.launches` and, per route,
+in `.routes`. What bounds the kernels on an H100 and what the design does
+about it is noted in `csrc/mlp2.cu`.
 
 The JAX `fused_mlp2` sends shapes above ~12 MB of TPU VMEM back to the
 plain XLA version; that gate is a TPU workaround and is not ported: every
@@ -39,7 +42,7 @@ from .cuda_build import load_library
 
 __all__ = ["mlp2_reference", "mlp2_fwd_reference", "mlp2_vjp_reference",
            "mlp2_fwd", "mlp2_vjp", "mlp2_fwd_cuda", "mlp2_vjp_cuda",
-           "FusedMLP2", "fused_mlp2", "load_mlp2_library"]
+           "mlp2_route", "FusedMLP2", "fused_mlp2", "load_mlp2_library"]
 
 
 # -- plain versions ----------------------------------------------------------
@@ -83,28 +86,51 @@ def mlp2_vjp_reference(x, w0, w1, h, g):
 # -- CUDA wrappers -------------------------------------------------------------
 
 
+_ROUTE_DTYPES = {"wgmma": (torch.bfloat16,), "wmma": (torch.bfloat16,),
+                 "simt": (torch.float32, torch.float64)}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+_ROWS_PER_PART = 64  # rows of g (and of dz at most) per column partial
+
+
+def mlp2_route(B: int, din: int, hid: int, dout: int, dtype: torch.dtype,
+               aligned: bool) -> str:
+    """The engine of `csrc/mlp2.cu` that K3 and K4 take at this shape:
+    "wgmma" (TMA + wgmma tiles) for bfloat16 when din, hid and dout are
+    multiples of 8 and every operand is 16-byte aligned (`aligned`), since
+    TMA reads rows of a multiple of 16 bytes from aligned bases; "wmma" for
+    the other bfloat16 shapes; "simt" (CUDA cores) for float32 and float64.
+    B may be anything: TMA fills the rows past it with zeros."""
+    if dtype in _ROUTE_DTYPES["simt"]:
+        return "simt"
+    if dtype != torch.bfloat16:
+        raise TypeError(f"mlp2 kernels take float32/float64/bfloat16, got {dtype}")
+    if aligned and din % 8 == 0 and hid % 8 == 0 and dout % 8 == 0:
+        return "wgmma"
+    return "wmma"
 
 
 def load_mlp2_library() -> ctypes.CDLL:
-    """Build (first use only) and load csrc/mlp2.cu with typed entry points."""
+    """Build (first use only) and load csrc/mlp2.cu with typed entry points,
+    one pair per route and dtype."""
     lib = load_library("mlp2")
     if not getattr(lib, "_mlp2_typed", False):
         ptr, i64 = ctypes.c_void_p, ctypes.c_int64
-        for suffix in _SUFFIX.values():
-            fn = getattr(lib, f"mlp2_fwd_{suffix}")
-            fn.argtypes = [ptr] * 7 + [i64] * 4 + [ptr]
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, f"mlp2_bwd_{suffix}")
-            fn.argtypes = [ptr] * 12 + [i64] * 4 + [ptr]
-            fn.restype = ctypes.c_int
+        for route, dtypes in _ROUTE_DTYPES.items():
+            for dtype in dtypes:
+                fn = getattr(lib, f"mlp2_fwd_{route}_{_SUFFIX[dtype]}")
+                fn.argtypes = [ptr] * 7 + [i64] * 4 + [ptr]
+                fn.restype = ctypes.c_int
+                fn = getattr(lib, f"mlp2_bwd_{route}_{_SUFFIX[dtype]}")
+                fn.argtypes = [ptr] * 12 + [i64] * 4 + [ptr]
+                fn.restype = ctypes.c_int
         lib._mlp2_typed = True
     return lib
 
 
-def _check_cuda_args(x, w0, b0, w1, b1, h=None, g=None):
-    if not x.is_cuda:
-        raise ValueError(f"expected a CUDA tensor, got {x.device}")
+def _check_args(x, w0, b0, w1, b1, h=None, g=None, route=None):
+    """(B, din, hid, dout, route) of a kernel call; raises, before any
+    launch, on a dtype, shape, layout or device the kernels do not take, and
+    on a forced `route` that cannot take this call."""
     if x.dtype not in _SUFFIX:
         raise TypeError(f"mlp2 kernels take float32/float64/bfloat16, got "
                         f"{x.dtype}")
@@ -119,6 +145,7 @@ def _check_cuda_args(x, w0, b0, w1, b1, h=None, g=None):
     if b0 is not None:
         want.update(b0=(hid,), b1=(dout,))
     named = {"x": x, "W0": w0, "b0": b0, "W1": w1, "b1": b1, "h": h, "g": g}
+    given = [t for t in named.values() if t is not None]
     for name, t in named.items():
         if t is None:
             continue
@@ -130,13 +157,31 @@ def _check_cuda_args(x, w0, b0, w1, b1, h=None, g=None):
                              f"{x.device}/{x.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    return B, din, hid, dout
+    aligned = all(t.data_ptr() % 16 == 0 for t in given)
+    natural = mlp2_route(B, din, hid, dout, x.dtype, aligned)
+    if route is None:
+        route = natural
+    elif route not in _ROUTE_DTYPES:
+        raise ValueError(f"unknown route {route!r}; the routes are "
+                         f"{sorted(_ROUTE_DTYPES)}")
+    elif x.dtype not in _ROUTE_DTYPES[route] or (route == "wgmma"
+                                                 and natural != "wgmma"):
+        raise ValueError(
+            f"route {route!r} cannot take {x.dtype} at (B, din, hid, dout) = "
+            f"{(B, din, hid, dout)} with 16-byte aligned operands {aligned}; "
+            f"mlp2_route gives {natural!r}")
+    if not x.is_cuda:
+        raise ValueError(f"expected a CUDA tensor, got {x.device}")
+    return B, din, hid, dout, route
 
 
-def mlp2_fwd_cuda(x, w0, b0, w1, b1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 on the current stream: (y, h)."""
-    B, din, hid, dout = _check_cuda_args(x, w0, b0, w1, b1)
-    launch = getattr(load_mlp2_library(), f"mlp2_fwd_{_SUFFIX[x.dtype]}")
+def mlp2_fwd_cuda(x, w0, b0, w1, b1, *, route=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on the current stream: (y, h), two launches. `route` (private:
+    tests and chip_smoke.py) forces an engine that can take the call."""
+    B, din, hid, dout, route = _check_args(x, w0, b0, w1, b1, route=route)
+    launch = getattr(load_mlp2_library(),
+                     f"mlp2_fwd_{route}_{_SUFFIX[x.dtype]}")
     y = x.new_empty((B, dout))
     h = x.new_empty((B, hid))
     with torch.cuda.device(x.device):
@@ -145,39 +190,48 @@ def mlp2_fwd_cuda(x, w0, b0, w1, b1) -> Tuple[torch.Tensor, torch.Tensor]:
                     b1.data_ptr(), y.data_ptr(), h.data_ptr(),
                     B, din, hid, dout, stream)
     if rc != 0:
-        raise RuntimeError(f"mlp2_fwd launch failed: cudaError {rc}")
+        raise RuntimeError(f"mlp2_fwd ({route}) launch failed: cudaError {rc}")
     mlp2_fwd_cuda.launches += 1
+    mlp2_fwd_cuda.routes[route] += 1
     return y, h
 
 
 mlp2_fwd_cuda.launches = 0
+mlp2_fwd_cuda.routes = dict.fromkeys(_ROUTE_DTYPES, 0)
 
 
-def mlp2_vjp_cuda(x, w0, w1, h, g):
-    """K4 on the current stream: (dx, dW0, db0, dW1, db1); six passes, no
-    atomics, so two calls give the same bits."""
-    B, din, hid, dout = _check_cuda_args(x, w0, None, w1, None, h, g)
-    launch = getattr(load_mlp2_library(), f"mlp2_bwd_{_SUFFIX[x.dtype]}")
+def mlp2_vjp_cuda(x, w0, w1, h, g, *, route=None):
+    """K4 on the current stream: (dx, dW0, db0, dW1, db1) in two launches,
+    no atomics, so two calls give the same bits. `route` as for
+    `mlp2_fwd_cuda`."""
+    B, din, hid, dout, route = _check_args(x, w0, None, w1, None, h, g,
+                                           route=route)
+    launch = getattr(load_mlp2_library(),
+                     f"mlp2_bwd_{route}_{_SUFFIX[x.dtype]}")
     dx = torch.empty_like(x)
     dw0 = torch.empty_like(w0)
     db0 = x.new_empty((hid,))
     dw1 = torch.empty_like(w1)
     db1 = x.new_empty((dout,))
-    dz = torch.empty((B, hid), dtype=_acc_dtype(x.dtype), device=x.device)
     dzc = torch.empty_like(h)
+    # column partials of dz (db0) and of g (db1), one row per 64 rows
+    part = torch.empty(-(-B // _ROWS_PER_PART) * (hid + dout),
+                       dtype=_acc_dtype(x.dtype), device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(x.data_ptr(), w0.data_ptr(), w1.data_ptr(), h.data_ptr(),
                     g.data_ptr(), dx.data_ptr(), dw0.data_ptr(),
                     db0.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-                    dz.data_ptr(), dzc.data_ptr(), B, din, hid, dout, stream)
+                    dzc.data_ptr(), part.data_ptr(), B, din, hid, dout, stream)
     if rc != 0:
-        raise RuntimeError(f"mlp2_vjp launch failed: cudaError {rc}")
+        raise RuntimeError(f"mlp2_vjp ({route}) launch failed: cudaError {rc}")
     mlp2_vjp_cuda.launches += 1
+    mlp2_vjp_cuda.routes[route] += 1
     return dx, dw0, db0, dw1, db1
 
 
 mlp2_vjp_cuda.launches = 0
+mlp2_vjp_cuda.routes = dict.fromkeys(_ROUTE_DTYPES, 0)
 
 
 # -- operators: CPU -> plain version, CUDA -> kernel ----------------------------

@@ -115,6 +115,45 @@ def test_mlp_kernels_match_plain_versions(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(again, grads))
 
 
+@pytest.mark.parametrize("route,shape", [
+    ("wgmma", (1024, 512, 2048, 512)),  # S4, the batched field
+    ("wgmma", (1000, 264, 1032, 136)),  # partial tiles in every dimension
+    ("wmma", (37, 5, 67, 3)),           # ragged widths: WMMA's own shape
+    ("wmma", (1024, 512, 2048, 512)),   # S4 forced onto WMMA
+], ids=["wgmma-S4", "wgmma-ragged", "wmma-ragged", "wmma-forced-S4"])
+def test_mlp_routes_match_plain_versions(cuda, route, shape):
+    """bfloat16 K3 and K4 on each tensor-core route against their plain
+    versions (MLP_TOL, relative to max|.| of each output: every K4 output
+    comes from one product, so a wrong operand layout shows in its own
+    output); K4 returns the same bits twice; the per-route counters move as
+    mlp2_route says, or as the forced route says."""
+    B, din, hid, dout = shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    make = lambda *s, scale=1.0: (scale * torch.randn(
+        *s, generator=gen, device=cuda)).to(torch.bfloat16)
+    x, w0, b0 = make(B, din), make(din, hid, scale=din ** -0.5), make(hid)
+    w1, b1, g = make(hid, dout, scale=hid ** -0.5), make(dout), make(B, dout)
+    natural = mlp.mlp2_route(B, din, hid, dout, torch.bfloat16, True)
+    forced = None if route == natural else route
+    before = (dict(mlp.mlp2_fwd_cuda.routes), dict(mlp.mlp2_vjp_cuda.routes))
+    y, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1, route=forced)
+    grads = mlp.mlp2_vjp_cuda(x, w0, w1, h, g, route=forced)
+    again = mlp.mlp2_vjp_cuda(x, w0, w1, h, g, route=forced)
+    torch.cuda.synchronize()
+    refs = (mlp.mlp2_fwd_reference(x, w0, b0, w1, b1)
+            + mlp.mlp2_vjp_reference(x, w0, w1, h, g))
+    for name, got, ref in zip(("y", "h", "dx", "dW0", "db0", "dW1", "db1"),
+                              (y, h) + tuple(grads), refs):
+        assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
+        err = float((got.double() - ref.double()).abs().max()
+                    / ref.double().abs().max())
+        assert err <= MLP_TOL[torch.bfloat16], (name, err)
+    assert all(torch.equal(a, b) for a, b in zip(again, grads))
+    moved = [{k: v - b[k] for k, v in now.items() if v != b[k]} for now, b in
+             zip((mlp.mlp2_fwd_cuda.routes, mlp.mlp2_vjp_cuda.routes), before)]
+    assert moved == [{route: 1}, {route: 2}]
+
+
 def test_spiral_gradient_on_card_matches_cpu(cuda):
     """S1, the spiral on a fixed grid with the fused field (DirectAdjoint),
     float64: the card through K3 and K4 against the port's CPU run through
