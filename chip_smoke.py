@@ -72,6 +72,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -414,6 +415,35 @@ def mega_run(P, u0, p, steps, grad, remat=False, block=None):
         return torch.autograd.grad(torch.sum(u ** 2), (uu, pp))
 
 
+def ptxas_rows(log):
+    """(kernel, registers, spill store bytes, spill load bytes) of each
+    kernel in an `nvcc -Xptxas -v` log of csrc/rd1d_rk4.cu, the kernel
+    named with its template arguments (float or double, then any
+    integers)."""
+    rows, entry, spills = [], None, (None, None)
+    for line in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            name = re.search(r"(rd1d_rk4_(?:fwd|bwd|bwd_reduce)_kernel)I([fd])"
+                             r"((?:Li\d+E)*)EEv", m.group(1))
+            entry = m.group(1)
+            if name:
+                args = ["float" if name.group(2) == "f" else "double"]
+                args += re.findall(r"Li(\d+)E", name.group(3))
+                entry = f"{name.group(1)}<{', '.join(args)}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            rows.append((entry, int(m.group(1))) + spills)
+            entry = None
+    return rows
+
+
 def rk4_bound_ms(name, n, S, dtype):
     """(bound in ms, what bounds it) of one K5 / K6 call at (n, S): the
     operations of S steps over the non-tensor-core peak, against each input
@@ -458,6 +488,13 @@ def main() -> int:
           f"{time.perf_counter() - t:.2f} s "
           f"({' '.join(cuda_build.NVCC_FLAGS)}); allow_tf32 False")
     for name in sources:
+        if name == "rd1d_rk4":
+            # one line per K5 / K6 instantiation; K5's integer template
+            # arguments are R, its most threads and its blocks per SM
+            for kernel, regs, st, ld in ptxas_rows(cuda_build.build_log(name)):
+                print(f"[setup] ptxas rd1d_rk4: {kernel}: {regs} registers, "
+                      f"spill stores {st} B, spill loads {ld} B")
+            continue
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[setup] ptxas {name}: {line.strip()}")
@@ -546,6 +583,16 @@ def main() -> int:
               f"{label}: K3/K4 launched {counts} kernels per call, not 2")
 
     for dtype in (torch.float64, torch.float32):
+        n, S, chunk, bwd_chunk = RK4_GEOMS["flagship"]
+        tiles = []
+        for which, tile in (("fwd", chunk), ("bwd", bwd_chunk)):
+            C, H, W, G = rd1d._chunk_geometry(n, S, tile)
+            R, threads, smem, most = rd1d.rd1d_rk4_tile(which, W, S, dtype)
+            tiles.append(f"{'K5' if which == 'fwd' else 'K6'} tile {C} "
+                         f"(window {W} cells, {G} blocks): R = {R} cells per "
+                         f"thread, {threads} threads (at most {most}), "
+                         f"{smem} B of dynamic shared memory")
+        print(f"[kernels] {str(dtype)[6:]} flagship launch: " + "; ".join(tiles))
         for label, (n, S, chunk, bwd_chunk) in RK4_GEOMS.items():
             u, lam, p, inv_dx2, h = rk4_check_inputs(n, dtype, dev)
             y = rd1d.rd1d_rk4_fwd_cuda(u, p, inv_dx2, h, S, chunk)

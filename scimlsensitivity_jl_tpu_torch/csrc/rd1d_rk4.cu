@@ -12,22 +12,34 @@
 // own edges, as the TPU kernels do: the wrong values this puts next to an
 // inner window edge travel at most 4 cells per RK4 step, so after S steps
 // they stay in the halo, and the block writes only its C interior cells, at
-// window offset i*C - start. The window lives in dynamic shared memory
-// through every stage (above 48 KB after cudaFuncSetAttribute). Each stage
-// is one loop of the block over the window's cells and one __syncthreads():
-// the stage reads its input's stencil and writes the next stage's input to
-// another buffer, so no cell is overwritten while a neighbour reads it.
+// window offset i*C - start.
+//
+// Register tile. Thread t of a block owns the R consecutive window cells
+// [t*R, t*R + R) and keeps every stage value of its cells in registers; the
+// block has ceil(W / R) threads rounded up to whole warps, and the cells past
+// W (the last thread's padding) compute values that no window cell reads. A
+// stencil needs, per thread, only its left neighbour's last cell and its right
+// neighbour's first: inside a warp they come by __shfl_up_sync /
+// __shfl_down_sync, across warps through a shared array of each warp's two
+// edge values (double-buffered, so one __syncthreads() per exchange). Thread
+// 0's left neighbour is its own first cell (the window's left ghost); the
+// window's last cell W - 1 takes its own value as its right neighbour, by a
+// select on the cell index (K5 runs a second copy of each stage, without
+// the select, on the warps that do not hold that cell). No window-wide array
+// lives in shared memory except K6's entry-state cache.
 //
 // K5 rd1d_rk4_fwd_kernel replaces the Pallas kernel
 //    scimlsensitivity_jl_tpu/ops/pallas_pde.py:_rk4_fwd_kernel_factory (via
-//    make_rd1d_rk4_block -> _block_fwd). No window gather pass and no 3-way
-//    slice switch: the block reads and writes by offset. Five window arrays
-//    (state, two ping-pong stage inputs, k1, k2 + k3). Bound by operations
-//    on this card: 44 flops per cell per step against 8 bytes per float32
-//    cell per launch (u read, u written), so at S = 16 about 16*44/8 = 88
-//    flops per byte, above the H100's 67e12 / 3.35e12 = 20. The design
-//    keeps all 4*S stages out of device memory; the shared-memory traffic of
-//    the stencils is what a later, register-blocked version would cut.
+//    make_rd1d_rk4_block -> _block_fwd). The window is read once from device
+//    memory and the interior written once; all 4*S stages run in registers
+//    (state, stage input, k1, k2 + k3), 4 exchanges per step. Bound by
+//    operations on this card: 44 flops per cell per step against 8 bytes per
+//    float32 cell per launch (u read, u written), so at S = 16 about
+//    16*44/8 = 88 flops per byte, above the H100's 67e12 / 3.35e12 = 20.
+//    R = 8 (16 for windows above 4608 float32 or 4096 float64 cells): the
+//    per-stage exchange (two shuffles, two shared-memory edge values per
+//    warp, one barrier) is paid once per 8 cells, and the flagship window of
+//    4232 cells makes 17 warps per block, two blocks per SM.
 //
 // K6 rd1d_rk4_bwd_kernel + rd1d_rk4_bwd_reduce_kernel replace
 //    scimlsensitivity_jl_tpu/ops/pallas_pde.py:_rk4_bwd_kernel_factory (via
@@ -45,60 +57,177 @@
 //    window edge, and the reverse sweep reaches them in 2S + 2 stencil hops.
 //    The stage cache: the TPU kernel keeps all 4*S*W stage states in VMEM,
 //    4.2 MB per program at its tile, which no block of this card can hold.
-//    This kernel keeps only the S step-entry states (S*W values): it re-steps
-//    the window once from u to fill them, and the reverse sweep recomputes
-//    the stage states u2, u3, u4 of step s from its entry state (three
-//    field evaluations) when it reaches s. With 4 stage buffers, the sum
-//    s4 + s3 + s2 and lam, that is (S + 6)*W values: W = 1160 (a tile of
-//    1024 at S = 16) is 102 KB in float32 and 204 KB in float64. Keeping
-//    all 4 stages instead would leave W ~ 800 (20% of the cells halo), and
-//    a cache in device memory would move ~270 MB per launch at n = 2^20.
-//    Bound by operations: the function's own work is 44 flops per cell per
-//    step for the stage states and 74 for the reverse sweep, against 12
-//    bytes per float32 cell (u, lam read, du written); the recomputation
-//    (S - 1 re-steps plus 3 field evaluations per reverse step) is the
-//    design's, paid in arithmetic to stay in shared memory. dD and dk are
-//    summed per thread over the interior cells, then per block in a fixed
-//    tree, and a second one-block pass sums the per-block partials in a
-//    fixed order: no atomics, the same bits every run.
+//    This kernel keeps only the S step-entry states in shared memory, laid
+//    out [step][r][thread] so that a warp's accesses fall on 32 banks: it
+//    re-steps the window once from u to fill them (S - 1 register steps),
+//    and the reverse sweep recomputes the stage states u2, u3, u4 of step s
+//    from its entry state when it reaches s. Each thread writes and reads
+//    back only its own cells, so the cache needs no barrier. lam, the entry
+//    state, u2, u3, the current w and the running s4 + s3 + s2 stay in
+//    registers: 7 exchanges per reverse step in 6 barriers (lam goes with
+//    u3). At a tile of 1024 and S = 16 (W = 1160, R = 4, 320 threads) the
+//    cache is 80 KB in float32 and 160 KB in float64. Bound by operations:
+//    the function's own work is 44 flops per cell per step for the stage
+//    states and 74 for the reverse sweep, against 12 bytes per float32 cell
+//    (u, lam read, du written); the recomputation (S - 1 re-steps plus 3
+//    field evaluations per reverse step) is the design's, paid in arithmetic
+//    to stay on chip. dD and dk are summed per thread over the interior
+//    cells, then per block in a fixed tree, and a second one-block pass sums
+//    the per-block partials in a fixed order: no atomics, the same bits
+//    every run.
 //
 // Both kernels read D and k from the device vector p, take h and inv_dx2 as
 // arguments, launch on the caller's stream, never synchronise, allocate
 // nothing, and the launchers return cudaGetLastError() (or
-// cudaErrorInvalidValue for a window larger than the card's shared memory,
-// which the Python wrapper checks first).
+// cudaErrorInvalidValue for a window larger than the register tile or, for
+// K6, than the card's shared memory, which the Python wrapper checks first).
+// K6's opt-in to more than 48 KB of shared memory, and the card's limit, are
+// set and read once per process per instantiation and device.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 512;         // threads per block of both kernels
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kReduceThreads = 1024;  // threads of the one-block reduction
-constexpr int kFwdArrays = 5;         // K5: window arrays in shared memory
-constexpr int kBwdExtraArrays = 6;    // K6: arrays beside the S entry states
+constexpr int kMaxDevices = 64;
 
-// Window-local Laplacian with the edge-copy ghost at the window's edges.
+// K5's tiles: R = 8 cells per thread while the window fits kMax8 threads,
+// else R = 16 up to kMax16. K6's: R = 4 up to kMaxThreads. The most threads
+// of a block, times the blocks that should share an SM, set the register
+// budget (65536 / (threads x blocks) per thread): K5 keeps about 5R live
+// values per thread, K6 about 7R. Two float32 K5 blocks of R = 8 share an SM,
+// which the flagship window (4232 cells, 544 threads) needs to fill it.
 template <typename T>
-__device__ __forceinline__ T lap_w(const T* x, int j, int W) {
-  const T xl = x[j > 0 ? j - 1 : 0];
-  const T xr = x[j + 1 < W ? j + 1 : W - 1];
-  return (xl - T(2) * x[j]) + xr;
+struct FwdTiles {
+  static constexpr int kMax8 = sizeof(T) == 4 ? 576 : 512;
+  static constexpr int kBlocks8 = sizeof(T) == 4 ? 2 : 1;
+  static constexpr int kMax16 = sizeof(T) == 4 ? 640 : 384;
+};
+
+template <typename T>
+struct BwdTile {
+  static constexpr int R = 4;
+  static constexpr int kMaxThreads = sizeof(T) == 4 ? 640 : 512;
+};
+
+constexpr int kMaxWarps = 32;  // 1024 threads
+constexpr int kParity = 4 * (kMaxWarps + 1);  // stride of the edge buffers
+
+// Bytes of a K6 block's static shared memory (edge values and the per-warp
+// sums) are at most this; the rest of the card's limit is its dynamic cache.
+constexpr int64_t kBwdStaticSmem = 4096;
+
+// The two edge values of a thread's neighbours: the last cell of the thread
+// to the left, the first cell of the thread to the right.
+template <typename T>
+struct Nb {
+  T l, r;
+};
+
+// The block's neighbour exchange through a shared buffer of [2 parities]
+// [kMaxWarps + 1][4] values: slots 0 and 1 of a warp hold its first and last
+// cell of one array, 2 and 3 of a second, and the last 4 take the stores of
+// the lanes that post nothing. Lane 0 posts its first cell and reads the
+// left warp's last (warp 0 its own first, the window's left ghost); lane 31
+// posts its last cell and reads the right warp's first (the last warp its
+// own last, which no window cell reads). Every lane stores and loads once
+// per array, so the exchange has no branch. Two exchanges in a row use the
+// two buffers (parities) in turn, so that no warp overwrites values another
+// still reads; the parity is fixed at each call site, since an RK4 step
+// makes 4 exchanges and K6's reverse step 6.
+template <typename T>
+struct Exchange {
+  T* buf;
+  int put, get;  // this lane's slots
+  bool first_lane, last_lane;
+};
+
+template <typename T>
+__device__ __forceinline__ Exchange<T> exchange_of(T* buf) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int left = warp > 0 ? 4 * (warp - 1) + 1 : 0;
+  const int right = warp + 1 < nwarps ? 4 * (warp + 1) : 4 * warp + 1;
+  return {buf,
+          lane == 0 ? 4 * warp : (lane == 31 ? 4 * warp + 1 : 4 * kMaxWarps),
+          lane == 31 ? right : left, lane == 0, lane == 31};
 }
 
-template <typename T>
-__device__ __forceinline__ T field_at(const T* x, int j, int W, T Dc, T k) {
-  const T xj = x[j];
-  return Dc * lap_w(x, j, W) + k * xj * (T(1) - xj);
+template <int P, int Slot, typename T, int R>
+__device__ __forceinline__ void post(const Exchange<T>& e, const T (&x)[R]) {
+  e.buf[P * kParity + 2 * Slot + e.put] = e.first_lane ? x[0] : x[R - 1];
 }
 
-// L(c * x)_j, with c * x formed at each of the three cells as the TPU kernel
-// forms w4 = h/6 lam before its Laplacian.
-template <typename T>
-__device__ __forceinline__ T lap_scaled(const T* x, T c, int j, int W) {
-  const T xl = c * x[j > 0 ? j - 1 : 0];
-  const T xr = c * x[j + 1 < W ? j + 1 : W - 1];
-  return (xl - T(2) * (c * x[j])) + xr;
+template <int P, int Slot, typename T, int R>
+__device__ __forceinline__ Nb<T> fetch(const Exchange<T>& e, const T (&x)[R]) {
+  const T got = e.buf[P * kParity + 2 * Slot + e.get];
+  const T l = __shfl_up_sync(kFull, x[R - 1], 1);
+  const T r = __shfl_down_sync(kFull, x[0], 1);
+  return {e.first_lane ? got : l, e.last_lane ? got : r};
+}
+
+// Every thread's neighbours of x, after one barrier, through parity P.
+template <int P, typename T, int R>
+__device__ __forceinline__ Nb<T> neighbours(const Exchange<T>& e,
+                                            const T (&x)[R]) {
+  post<P, 0>(e, x);
+  __syncthreads();
+  return fetch<P, 0>(e, x);
+}
+
+// ... of two arrays, after one barrier.
+template <int P, typename T, int R>
+__device__ __forceinline__ void neighbours2(const Exchange<T>& e,
+                                            const T (&x)[R], const T (&y)[R],
+                                            Nb<T>& nx, Nb<T>& ny) {
+  post<P, 0>(e, x);
+  post<P, 1>(e, y);
+  __syncthreads();
+  nx = fetch<P, 0>(e, x);
+  ny = fetch<P, 1>(e, y);
+}
+
+// L(x) at the thread's cell r; hi is the index in the thread of the window's
+// last cell, whose right neighbour is its own value.
+template <typename T, int R>
+__device__ __forceinline__ T lap_r(const T (&x)[R], Nb<T> nb, int r, int hi) {
+  const T xl = r == 0 ? nb.l : x[r - 1];
+  const T xr = r == hi ? x[r] : (r + 1 < R ? x[r + 1] : nb.r);
+  return (xl - T(2) * x[r]) + xr;
+}
+
+template <typename T, int R>
+__device__ __forceinline__ T field_r(const T (&x)[R], Nb<T> nb, int r, int hi,
+                                     T Dc, T k) {
+  return Dc * lap_r(x, nb, r, hi) + k * x[r] * (T(1) - x[r]);
+}
+
+// L(c * x) at cell r, with c * x formed at each of the three cells as the
+// TPU kernel forms w4 = h/6 lam before its Laplacian.
+template <typename T, int R>
+__device__ __forceinline__ T lap_scaled_r(const T (&x)[R], Nb<T> nb, T c,
+                                          int r, int hi) {
+  const T xl = c * (r == 0 ? nb.l : x[r - 1]);
+  const T xr = c * (r == hi ? x[r] : (r + 1 < R ? x[r + 1] : nb.r));
+  return (xl - T(2) * (c * x[r])) + xr;
+}
+
+// Runs f on a thread's cells. Most warps do not hold the window's last cell:
+// for them f gets std::true_type, under which it folds its per-cell test
+// away (the last cell's index becomes -1); the others get std::false_type
+// and test each cell. The branch is uniform in each warp and holds no
+// barrier.
+template <typename F>
+__device__ __forceinline__ void over_cells(bool plain, F&& f) {
+  if (plain) {
+    f(std::true_type{});
+  } else {
+    f(std::false_type{});
+  }
 }
 
 struct Coeffs {
@@ -107,35 +236,57 @@ struct Coeffs {
 
 Coeffs coeffs(double h) { return {h, 0.5 * h, h / 6.0, 2.0 * h / 6.0}; }
 
-// One RK4 step of the window: uo = step(ui). uo may be ui. xa, xb, k1s, k23
-// are scratch. Every thread may read ui on entry and uo on exit.
-template <typename T>
-__device__ void rk4_step(const T* ui, T* uo, T* xa, T* xb, T* k1s, T* k23,
-                         int W, T Dc, T k, T h, T hh, T h6) {
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const T k1 = field_at(ui, j, W, Dc, k);
-    k1s[j] = k1;
-    xa[j] = ui[j] + hh * k1;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const T k2 = field_at(xa, j, W, Dc, k);
-    k23[j] = k2;
-    xb[j] = ui[j] + hh * k2;
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const T k3 = field_at(xb, j, W, Dc, k);
-    k23[j] = k23[j] + k3;
-    xa[j] = ui[j] + h * k3;  // xa's stage-2 readers are past the barrier
-  }
-  __syncthreads();
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const T k4 = field_at(xa, j, W, Dc, k);
-    // only this thread reads ui[j] in this stage, so uo may alias ui
-    uo[j] = ui[j] + h6 * (k1s[j] + T(2) * k23[j] + k4);
-  }
-  __syncthreads();
+// One RK4 step of the thread's cells u, in place, in 4 exchanges; plain:
+// the warp does not hold the window's last cell, whose index among this
+// thread's cells is hi.
+template <typename T, int R>
+__device__ __forceinline__ void rk4_step(const Exchange<T>& e, T (&u)[R],
+                                         bool plain, int hi, T Dc, T k, T h,
+                                         T hh, T h6) {
+  T k1[R], k23[R], xa[R], xb[R];
+  Nb<T> nb = neighbours<0>(e, u);
+  over_cells(plain, [&](auto fold) {
+    const int last = decltype(fold)::value ? -1 : hi;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      k1[r] = field_r(u, nb, r, last, Dc, k);
+      xa[r] = u[r] + hh * k1[r];
+    }
+  });
+  nb = neighbours<1>(e, xa);
+  over_cells(plain, [&](auto fold) {
+    const int last = decltype(fold)::value ? -1 : hi;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      k23[r] = field_r(xa, nb, r, last, Dc, k);
+      xb[r] = u[r] + hh * k23[r];
+    }
+  });
+  nb = neighbours<0>(e, xb);
+  over_cells(plain, [&](auto fold) {
+    const int last = decltype(fold)::value ? -1 : hi;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T k3 = field_r(xb, nb, r, last, Dc, k);
+      k23[r] = k23[r] + k3;
+      xa[r] = u[r] + h * k3;
+    }
+  });
+  nb = neighbours<1>(e, xa);
+  over_cells(plain, [&](auto fold) {
+    const int last = decltype(fold)::value ? -1 : hi;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T k4 = field_r(xa, nb, r, last, Dc, k);
+      u[r] = u[r] + h6 * (k1[r] + T(2) * k23[r] + k4);
+    }
+  });
+}
+
+// Whether the warp's cells [warp * 32R, (warp + 1) * 32R) miss cell W - 1.
+template <int R>
+__device__ __forceinline__ bool misses_last(int W) {
+  return (W - 1) / (32 * R) != static_cast<int>(threadIdx.x >> 5);
 }
 
 __device__ __forceinline__ int64_t window_start(int64_t i, int64_t n, int C,
@@ -146,29 +297,29 @@ __device__ __forceinline__ int64_t window_start(int64_t i, int64_t n, int C,
   return start;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int R, int kMaxThreads, int kBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kBlocks)
 rd1d_rk4_fwd_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     T inv_dx2, T h, T hh, T h6, T* __restrict__ out,
                     int64_t n, int S, int C, int H, int W) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* su = reinterpret_cast<T*>(smem_raw);
-  T* xa = su + W;
-  T* xb = xa + W;
-  T* k1s = xb + W;
-  T* k23 = k1s + W;
+  __shared__ T edge_buf[2 * kParity];
   const int64_t i = blockIdx.x;
   const int64_t start = window_start(i, n, C, H, W);
   const int off = static_cast<int>(i * C - start);
   const T Dc = p[0] * inv_dx2;
   const T k = p[1];
-  for (int j = threadIdx.x; j < W; j += blockDim.x) su[j] = u[start + j];
-  __syncthreads();
-  for (int s = 0; s < S; ++s) {
-    rk4_step(su, su, xa, xb, k1s, k23, W, Dc, k, h, hh, h6);
-  }
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    out[i * C + c] = su[off + c];
+  const int base = threadIdx.x * R;
+  const int hi = W - 1 - base;
+  const Exchange<T> e = exchange_of(edge_buf);
+  T x[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) x[r] = u[start + min(base + r, W - 1)];
+  const bool plain = misses_last<R>(W);
+  for (int s = 0; s < S; ++s) rk4_step(e, x, plain, hi, Dc, k, h, hh, h6);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int c = base + r - off;
+    if (c >= 0 && c < C) out[i * C + c] = x[r];
   }
 }
 
@@ -176,7 +327,7 @@ rd1d_rk4_fwd_kernel(const T* __restrict__ u, const T* __restrict__ p,
 // valid in thread 0. red holds one value per warp.
 template <typename T>
 __device__ __forceinline__ T block_sum(T v, T* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(kFull, v, o);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   if (lane == 0) red[warp] = v;
@@ -190,100 +341,121 @@ __device__ __forceinline__ T block_sum(T v, T* red) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(BwdTile<T>::kMaxThreads)
 rd1d_rk4_bwd_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ lam, T inv_dx2, T h, T hh, T h6,
                     T h26, T* __restrict__ du, T* __restrict__ partials,
                     int64_t n, int S, int C, int H, int W) {
+  constexpr int R = BwdTile<T>::R;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red[kThreads / 32];
-  T* ust = reinterpret_cast<T*>(smem_raw);  // S entry states of W cells
-  T* lm = ust + static_cast<int64_t>(S) * W;
-  T* A = lm + W;   // u2 (stages a..e)
-  T* B = A + W;    // u3 (b..d), then w1 (e..f)
-  T* Cc = B + W;   // w3 (c..d)
-  T* Dd = Cc + W;  // w2 (d..e)
-  T* ss = Dd + W;  // s4 + s3 + s2, one cell per thread
+  __shared__ T edge_buf[2 * kParity];
+  __shared__ T red[kMaxWarps];
+  static_assert(sizeof(edge_buf) + sizeof(red) <= kBwdStaticSmem,
+                "static shared memory above its reserve");
   const int64_t i = blockIdx.x;
   const int64_t start = window_start(i, n, C, H, W);
   const int off = static_cast<int>(i * C - start);
   const T Dc = p[0] * inv_dx2;
   const T k = p[1];
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    ust[j] = u[start + j];
-    lm[j] = lam[start + j];
+  const int nt = blockDim.x;
+  const int base = threadIdx.x * R;
+  const int hi = W - 1 - base;
+  const int lo = off - base;    // the thread's interior cells: lo <= r < hc
+  const int hc = off + C - base;
+  const Exchange<T> e = exchange_of(edge_buf);
+  // the entry-state cache, [S][R][nt]: this thread's cell r of step s is
+  // mine[(s * R + r) * nt]
+  T* mine = reinterpret_cast<T*>(smem_raw) + threadIdx.x;
+  T U[R];   // the entry state of the current step
+  T lm[R];  // lam
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int j = base + r;
+    U[r] = u[start + min(j, W - 1)];
+    lm[r] = j < W ? lam[start + j] : T(0);
   }
-  __syncthreads();
-  for (int s = 0; s + 1 < S; ++s) {
-    rk4_step(ust + static_cast<int64_t>(s) * W,
-             ust + static_cast<int64_t>(s + 1) * W, A, B, Cc, Dd, W, Dc, k,
-             h, hh, h6);
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) mine[(s * R + r) * nt] = U[r];
+    // every warp tests each cell (plain = false): K5's second, test-free
+    // copy for the warps away from the window's last cell made K6 slower on
+    // the card, its loops being twice as long
+    if (s + 1 < S) rk4_step(e, U, false, hi, Dc, k, h, hh, h6);
   }
   T tD = T(0);  // this thread's share of sum (L w_i) u_i over interior cells
   T tk = T(0);  // ... of sum w_i u_i (1 - u_i)
   for (int s = S - 1; s >= 0; --s) {
-    const T* U = ust + static_cast<int64_t>(s) * W;
-    for (int j = threadIdx.x; j < W; j += blockDim.x) {  // (a) u2
-      A[j] = U[j] + hh * field_at(U, j, W, Dc, k);
+    if (s + 1 < S) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) U[r] = mine[(s * R + r) * nt];
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < W; j += blockDim.x) {  // (b) u3
-      B[j] = U[j] + hh * field_at(A, j, W, Dc, k);
+    T u2[R], u3[R], w[R], wn[R], ss[R];
+    Nb<T> nb = neighbours<0>(e, U);  // (a) u2
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      u2[r] = U[r] + hh * field_r(U, nb, r, hi, Dc, k);
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < W; j += blockDim.x) {  // (c) u4, s4, w3
-      const T u4 = U[j] + h * field_at(B, j, W, Dc, k);
-      const T w4 = h6 * lm[j];
-      const T lw4 = lap_scaled(lm, h6, j, W);
+    nb = neighbours<1>(e, u2);  // (b) u3
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      u3[r] = U[r] + hh * field_r(u2, nb, r, hi, Dc, k);
+    }
+    Nb<T> nl;
+    neighbours2<0>(e, u3, lm, nb, nl);  // (c) u4, s4, w3
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T u4 = U[r] + h * field_r(u3, nb, r, hi, Dc, k);
+      const T w4 = h6 * lm[r];
+      const T lw4 = lap_scaled_r(lm, nl, h6, r, hi);
       const T s4 = Dc * lw4 + k * (T(1) - T(2) * u4) * w4;
-      Cc[j] = h26 * lm[j] + h * s4;
-      ss[j] = s4;
-      if (j >= off && j < off + C) {
+      w[r] = h26 * lm[r] + h * s4;
+      ss[r] = s4;
+      if (r >= lo && r < hc) {
         tD += lw4 * u4;
         tk += w4 * u4 * (T(1) - u4);
       }
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < W; j += blockDim.x) {  // (d) s3, w2
-      const T u3 = B[j];
-      const T w3 = Cc[j];
-      const T lw3 = lap_w(Cc, j, W);
-      const T s3 = Dc * lw3 + k * (T(1) - T(2) * u3) * w3;
-      Dd[j] = h26 * lm[j] + hh * s3;
-      ss[j] = ss[j] + s3;
-      if (j >= off && j < off + C) {
-        tD += lw3 * u3;
-        tk += w3 * u3 * (T(1) - u3);
+    nb = neighbours<1>(e, w);  // (d) s3, w2
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T lw3 = lap_r(w, nb, r, hi);
+      const T s3 = Dc * lw3 + k * (T(1) - T(2) * u3[r]) * w[r];
+      wn[r] = h26 * lm[r] + hh * s3;
+      ss[r] = ss[r] + s3;
+      if (r >= lo && r < hc) {
+        tD += lw3 * u3[r];
+        tk += w[r] * u3[r] * (T(1) - u3[r]);
       }
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < W; j += blockDim.x) {  // (e) s2, w1
-      const T u2 = A[j];
-      const T w2 = Dd[j];
-      const T lw2 = lap_w(Dd, j, W);
-      const T s2 = Dc * lw2 + k * (T(1) - T(2) * u2) * w2;
-      B[j] = h6 * lm[j] + hh * s2;  // u3's last reader was stage (d)
-      ss[j] = ss[j] + s2;
-      if (j >= off && j < off + C) {
-        tD += lw2 * u2;
-        tk += w2 * u2 * (T(1) - u2);
+    nb = neighbours<0>(e, wn);  // (e) s2, w1
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T lw2 = lap_r(wn, nb, r, hi);
+      const T s2 = Dc * lw2 + k * (T(1) - T(2) * u2[r]) * wn[r];
+      w[r] = h6 * lm[r] + hh * s2;
+      ss[r] = ss[r] + s2;
+      if (r >= lo && r < hc) {
+        tD += lw2 * u2[r];
+        tk += wn[r] * u2[r] * (T(1) - u2[r]);
       }
     }
-    __syncthreads();
-    for (int j = threadIdx.x; j < W; j += blockDim.x) {  // (f) s1, lam
-      const T u1 = U[j];
-      const T w1 = B[j];
-      const T lw1 = lap_w(B, j, W);
-      const T s1 = Dc * lw1 + k * (T(1) - T(2) * u1) * w1;
-      lm[j] = (lm[j] + s1) + ss[j];  // lam is read by neighbours only in (c)
-      if (j >= off && j < off + C) {
-        tD += lw1 * u1;
-        tk += w1 * u1 * (T(1) - u1);
+    nb = neighbours<1>(e, w);  // (f) s1, lam
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const T lw1 = lap_r(w, nb, r, hi);
+      const T s1 = Dc * lw1 + k * (T(1) - T(2) * U[r]) * w[r];
+      lm[r] = (lm[r] + s1) + ss[r];  // lam's neighbours are read only in (c)
+      if (r >= lo && r < hc) {
+        tD += lw1 * U[r];
+        tk += w[r] * U[r] * (T(1) - U[r]);
       }
     }
-    __syncthreads();
   }
-  for (int c = threadIdx.x; c < C; c += blockDim.x) du[i * C + c] = lm[off + c];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int c = base + r - off;
+    if (c >= 0 && c < C) du[i * C + c] = lm[r];
+  }
   const T sD = block_sum(tD, red);
   const T sk = block_sum(tk, red);
   if (threadIdx.x == 0) {
@@ -320,23 +492,47 @@ __global__ void rd1d_rk4_bwd_reduce_kernel(const T* __restrict__ partials,
   }
 }
 
-int64_t fwd_smem(int W, int elt) {
-  return static_cast<int64_t>(kFwdArrays) * W * elt;
+// A launch's tile: cells per thread, threads per block (whole warps), bytes
+// of dynamic shared memory, and the most threads the kernel takes.
+struct Tile {
+  int R, threads;
+  int64_t smem;
+  int max_threads;
+};
+
+int warps_for(int W, int R) { return ((W + R - 1) / R + 31) / 32; }
+
+template <typename T>
+Tile fwd_tile(int W) {
+  using F = FwdTiles<T>;
+  const int threads8 = 32 * warps_for(W, 8);
+  if (threads8 <= F::kMax8) return {8, threads8, 0, F::kMax8};
+  return {16, 32 * warps_for(W, 16), 0, F::kMax16};
 }
 
-int64_t bwd_smem(int W, int S, int elt) {
-  return (static_cast<int64_t>(S) + kBwdExtraArrays) * W * elt;
+template <typename T>
+Tile bwd_tile(int W, int S) {
+  using B = BwdTile<T>;
+  const int threads = 32 * warps_for(W, B::R);
+  const int64_t smem = static_cast<int64_t>(S) * B::R * threads * sizeof(T);
+  return {B::R, threads, smem, B::kMaxThreads};
 }
 
-int64_t smem_limit() {
-  int dev = 0;
-  int limit = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
-  if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             dev) != cudaSuccess) {
-    return 0;
+// The dynamic shared memory a K6 block of device dev may take: the opt-in
+// limit per block less kBwdStaticSmem, read once per device (0 if it cannot
+// be read).
+int64_t smem_limit(int dev) {
+  static int64_t known[kMaxDevices] = {};
+  if (dev < 0 || dev >= kMaxDevices) return 0;
+  if (known[dev] == 0) {
+    int limit = 0;
+    if (cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev) != cudaSuccess) {
+      return 0;
+    }
+    known[dev] = limit - kBwdStaticSmem;
   }
-  return limit;
+  return known[dev];
 }
 
 int64_t num_tiles(int64_t n, int C) { return (n + C - 1) / C; }
@@ -346,16 +542,16 @@ int launch_fwd(const void* u, const void* p, double inv_dx2, double h,
                void* out, int64_t n, int S, int C, int H, int W,
                void* stream) {
   if (n <= 0) return 0;
-  const int64_t smem = fwd_smem(W, sizeof(T));
-  if (smem > smem_limit()) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      rd1d_rk4_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const Tile t = fwd_tile<T>(W);
+  if (t.threads > t.max_threads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Coeffs c = coeffs(h);
-  rd1d_rk4_fwd_kernel<T><<<static_cast<unsigned>(num_tiles(n, C)), kThreads,
-                           static_cast<size_t>(smem),
-                           static_cast<cudaStream_t>(stream)>>>(
+  using F = FwdTiles<T>;
+  auto kernel = t.R == 8 ? rd1d_rk4_fwd_kernel<T, 8, F::kMax8, F::kBlocks8>
+                         : rd1d_rk4_fwd_kernel<T, 16, F::kMax16, 1>;
+  kernel<<<static_cast<unsigned>(num_tiles(n, C)), t.threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(u), static_cast<const T*>(p),
       static_cast<T>(inv_dx2), static_cast<T>(c.h), static_cast<T>(c.hh),
       static_cast<T>(c.h6), static_cast<T*>(out), n, S, C, H, W);
@@ -367,17 +563,27 @@ int launch_bwd(const void* u, const void* p, const void* lam, double inv_dx2,
                double h, void* du, void* partials, void* dp, int64_t n, int S,
                int C, int H, int W, void* stream) {
   if (n <= 0) return 0;
-  const int64_t smem = bwd_smem(W, S, sizeof(T));
-  if (smem > smem_limit()) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      rd1d_rk4_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static bool opted_in[kMaxDevices] = {};  // per instantiation and device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const Tile t = bwd_tile<T>(W, S);
+  const int64_t limit = smem_limit(dev);
+  if (t.threads > t.max_threads || t.smem > limit) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!opted_in[dev]) {
+    err = cudaFuncSetAttribute(rd1d_rk4_bwd_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(limit));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    opted_in[dev] = true;
+  }
   const Coeffs c = coeffs(h);
   const int64_t tiles = num_tiles(n, C);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rd1d_rk4_bwd_kernel<T><<<static_cast<unsigned>(tiles), kThreads,
-                           static_cast<size_t>(smem), s>>>(
+  rd1d_rk4_bwd_kernel<T><<<static_cast<unsigned>(tiles), t.threads,
+                           static_cast<size_t>(t.smem), s>>>(
       static_cast<const T*>(u), static_cast<const T*>(p),
       static_cast<const T*>(lam), static_cast<T>(inv_dx2),
       static_cast<T>(c.h), static_cast<T>(c.hh), static_cast<T>(c.h6),
@@ -395,18 +601,27 @@ int launch_bwd(const void* u, const void* p, const void* lam, double inv_dx2,
 
 extern "C" {
 
-// Dynamic shared memory of one K5 / K6 block for a window of W cells.
-int64_t rd1d_rk4_fwd_smem_bytes(int W, int S, int elt) {
-  (void)S;
-  return fwd_smem(W, elt);
+// The tile of K5 (which = 0) or K6 (which = 1) for a window of W cells at S
+// steps with values of elt bytes (4 or 8): cells per thread, threads per
+// block, dynamic shared memory in bytes, and the most threads a block of
+// that kernel takes. Returns 0, or 1 for another which or elt.
+int rd1d_rk4_tile(int which, int W, int S, int elt, int* R, int* threads,
+                  int64_t* smem, int* max_threads) {
+  Tile t{};
+  if (which == 0 && elt == 4) t = fwd_tile<float>(W);
+  else if (which == 0 && elt == 8) t = fwd_tile<double>(W);
+  else if (which == 1 && elt == 4) t = bwd_tile<float>(W, S);
+  else if (which == 1 && elt == 8) t = bwd_tile<double>(W, S);
+  else return 1;
+  *R = t.R;
+  *threads = t.threads;
+  *smem = t.smem;
+  *max_threads = t.max_threads;
+  return 0;
 }
 
-int64_t rd1d_rk4_bwd_smem_bytes(int W, int S, int elt) {
-  return bwd_smem(W, S, elt);
-}
-
-// The current device's opt-in limit of dynamic shared memory per block.
-int64_t rd1d_rk4_smem_limit(void) { return smem_limit(); }
+// The dynamic shared memory a K6 block of device dev may take.
+int64_t rd1d_rk4_smem_limit(int dev) { return smem_limit(dev); }
 
 int rd1d_rk4_fwd_f32(const void* u, const void* p, double inv_dx2, double h,
                      void* out, int64_t n, int S, int C, int H, int W,

@@ -55,7 +55,7 @@ __all__ = ["rd1d_reference", "rd1d_vjp_reference", "rd1d_fwd", "rd1d_vjp",
            "rd1d_rk4_scan_reference", "rd1d_rk4_block_vjp_reference",
            "rd1d_rk4_fwd", "rd1d_rk4_vjp", "rd1d_rk4_fwd_cuda",
            "rd1d_rk4_vjp_cuda", "RD1DRK4Block", "make_rd1d_rk4_block",
-           "load_rd1d_rk4_library"]
+           "load_rd1d_rk4_library", "rd1d_rk4_tile"]
 
 
 # -- plain versions ----------------------------------------------------------
@@ -346,31 +346,63 @@ def load_rd1d_rk4_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, ptr, f64, f64, ptr, ptr, ptr] + geometry
             fn.restype = ctypes.c_int
-        for name in ("rd1d_rk4_fwd_smem_bytes", "rd1d_rk4_bwd_smem_bytes"):
-            fn = getattr(lib, name)
-            fn.argtypes = [i32, i32, i32]  # W, S, bytes per value
-            fn.restype = i64
-        lib.rd1d_rk4_smem_limit.argtypes = []
+        # which (0 K5, 1 K6), W, S, bytes per value -> R, threads, smem, max
+        lib.rd1d_rk4_tile.argtypes = [i32, i32, i32, i32, ptr, ptr, ptr, ptr]
+        lib.rd1d_rk4_tile.restype = ctypes.c_int
+        lib.rd1d_rk4_smem_limit.argtypes = [i32]
         lib.rd1d_rk4_smem_limit.restype = i64
         lib._rd1d_rk4_typed = True
     return lib
 
 
-def _rk4_launch_args(u, S: int, chunk: int, which: str):
-    """The library, the geometry and a check that the window fits the
-    card's shared memory, for K5 (`which="fwd"`) or K6 (`"bwd"`)."""
+def rd1d_rk4_tile(which: str, W: int, S: int, dtype: torch.dtype):
+    """(R, threads, smem bytes, most threads) of a K5 (`which="fwd"`) or K6
+    (`"bwd"`) block over a window of W cells at S steps: each thread holds R
+    consecutive cells in registers; K6 adds its entry-state cache in shared
+    memory."""
     lib = load_rd1d_rk4_library()
+    R, threads, max_threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem = ctypes.c_int64()
+    elt = torch.tensor([], dtype=dtype).element_size()
+    rc = lib.rd1d_rk4_tile(0 if which == "fwd" else 1, W, S, elt,
+                           ctypes.byref(R), ctypes.byref(threads),
+                           ctypes.byref(smem), ctypes.byref(max_threads))
+    if rc != 0:
+        raise ValueError(f"no rd1d RK4 {which} kernel for {dtype}")
+    return R.value, threads.value, smem.value, max_threads.value
+
+
+# (which, n, S, chunk, dtype, device index) -> (geometry, tiles): the checks
+# below run once per geometry, kernel, type and device
+_RK4_CHECKED = {}
+
+
+def _rk4_launch_args(u, S: int, chunk: int, which: str):
+    """The geometry and a check that the window fits the kernel's register
+    tile and, for K6, the card's shared memory, for K5 (`which="fwd"`) or K6
+    (`"bwd"`)."""
     n = u.numel()
+    key = (which, n, S, chunk, u.dtype, u.device.index)
+    hit = _RK4_CHECKED.get(key)
+    if hit is not None:
+        return hit
     C, H, W, G = _chunk_geometry(n, S, chunk)
-    need = getattr(lib, f"rd1d_rk4_{which}_smem_bytes")(W, S, u.element_size())
-    with torch.cuda.device(u.device):
-        limit = lib.rd1d_rk4_smem_limit()
+    R, threads, need, max_threads = rd1d_rk4_tile(which, W, S, u.dtype)
+    knob = "chunk" if which == "fwd" else "bwd_chunk"
+    limit = load_rd1d_rk4_library().rd1d_rk4_smem_limit(u.device.index)
     if need > limit:
         raise ValueError(
             f"rd1d RK4 {which} kernel: a window of {W} cells at S={S} needs "
             f"{need} bytes of shared memory, the card allows {limit}; lower "
-            f"the {'chunk' if which == 'fwd' else 'bwd_chunk'} or S")
-    return lib, (n, S, C, H, W), G
+            f"the {knob} or S")
+    if threads > max_threads:
+        raise ValueError(
+            f"rd1d RK4 {which} kernel: a window of {W} cells needs {threads} "
+            f"threads of {R} cells, and its register tile holds at most "
+            f"{max_threads} threads ({max_threads * R} cells); lower the "
+            f"{knob}")
+    _RK4_CHECKED[key] = hit = ((n, S, C, H, W), G)
+    return hit
 
 
 def rd1d_rk4_fwd_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
@@ -378,8 +410,9 @@ def rd1d_rk4_fwd_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
     """K5 on the current stream: u after S RK4 steps, one block per
     interior tile of `chunk` cells."""
     _check_cuda_args(u, p)
-    lib, geometry, _ = _rk4_launch_args(u, S, chunk, "fwd")
-    launch = getattr(lib, f"rd1d_rk4_fwd_{_SUFFIX[u.dtype]}")
+    geometry, _ = _rk4_launch_args(u, S, chunk, "fwd")
+    launch = getattr(load_rd1d_rk4_library(),
+                     f"rd1d_rk4_fwd_{_SUFFIX[u.dtype]}")
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -401,8 +434,9 @@ def rd1d_rk4_vjp_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
     block per interior tile of `chunk` cells, then a one-block pass that
     sums the per-tile (D̄, k̄) partials in a fixed order (no atomics)."""
     _check_cuda_args(u, p, lam)
-    lib, geometry, G = _rk4_launch_args(u, S, chunk, "bwd")
-    launch = getattr(lib, f"rd1d_rk4_bwd_{_SUFFIX[u.dtype]}")
+    geometry, G = _rk4_launch_args(u, S, chunk, "bwd")
+    launch = getattr(load_rd1d_rk4_library(),
+                     f"rd1d_rk4_bwd_{_SUFFIX[u.dtype]}")
     du = torch.empty_like(u)
     partials = torch.empty(2 * G, dtype=u.dtype, device=u.device)
     dp = torch.empty(2, dtype=u.dtype, device=u.device)
@@ -476,12 +510,16 @@ def make_rd1d_rk4_block(n: int, S: int, chunk: int = 4096,
 
     On a card, `chunk` is K5's interior tile and `bwd_chunk` K6's: each
     CUDA block advances one tile of that many cells from a window of
-    tile + 2·4(S+1) cells held in shared memory. The defaults differ from
-    the JAX package's (chunk=65536, bwd_chunk=chunk//2), whose windows do
-    not fit a block's 227 KB: 4096 keeps K5's five window arrays at 85 KB
-    (float32) and 169 KB (float64) at S = 16; 1024 keeps K6's S + 6 window
-    arrays at 102 KB and 204 KB. Both contracts of `_chunk_geometry` are
-    checked here, as in JAX; a window that does not fit raises at launch.
+    tile + 2·4(S+1) cells, R consecutive cells per thread in registers
+    (`rd1d_rk4_tile`). The defaults differ from the JAX package's
+    (chunk=65536, bwd_chunk=chunk//2), whose windows no block holds: a K5
+    thread holds 8 cells (16 in windows above 4608 float32 or 4096 float64
+    cells), a block at most 640 threads of 16 in float32 (384 in float64),
+    so windows up to 10,240 (6,144) cells; K6 keeps the S step-entry states
+    of its window in shared memory, 80 KB (float32) and 160 KB (float64) at
+    1024 and S = 16, two blocks per SM in float32. Both contracts of
+    `_chunk_geometry` are checked here, as in JAX; a window that a kernel
+    does not take raises at launch.
     On the CPU the block runs the plain versions over the whole grid."""
     C, _, _, _ = _chunk_geometry(n, S, chunk)
     Cb, _, _, _ = _chunk_geometry(n, S, bwd_chunk)

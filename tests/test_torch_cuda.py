@@ -212,10 +212,15 @@ def _rk4_inputs(n, dtype, device, h=1e-3):
     (65536, 16, 4096, 1024),  # the flagship tiles, G = 16 and 64
     (3072, 8, 1024, 512),     # few tiles: both grid edges next to each other
     (1024, 4, 1024, 1024),    # one tile, no halo
+    (5000, 7, 1000, 500),     # windows of 1064 and 564: no multiple of
+                              # threads x R
+    (240, 2, 40, 24),         # windows of 64 and 48: under one warp's 32·R
+    (4096, 1, 512, 256),      # S = 1
+    (20480, 16, 5120, 1024),  # a K5 window of 5256: R = 16
 ])
 def test_rk4_kernels_match_plain_versions(cuda, dtype, n, S, chunk, bwd_chunk):
-    """K5 and K6 against the whole-grid plain versions; K6 gives the same
-    bits twice."""
+    """K5 and K6 against the whole-grid plain versions, at geometries that
+    stress each thread's register tile; K6 gives the same bits twice."""
     u, lam, p, inv_dx2, h = _rk4_inputs(n, dtype, cuda)
     tol, dp_tol = RK4_TOL[dtype]
     y = rd1d.rd1d_rk4_fwd_cuda(u, p, inv_dx2, h, S, chunk)
@@ -232,8 +237,9 @@ def test_rk4_kernels_match_plain_versions(cuda, dtype, n, S, chunk, bwd_chunk):
 
 
 def test_rk4_wrappers_refuse_bad_geometry(cuda):
-    """Both contracts of _chunk_geometry, and a window larger than a
-    block's shared memory, raise before any launch."""
+    """Both contracts of _chunk_geometry, a K5 window larger than its
+    register tile and a K6 window whose entry-state cache exceeds a block's
+    shared memory raise before any launch."""
     u, _, p, inv_dx2, h = _rk4_inputs(4096, torch.float32, cuda)
     before = rd1d.rd1d_rk4_fwd_cuda.launches
     with pytest.raises(ValueError, match="divisible"):
@@ -241,7 +247,7 @@ def test_rk4_wrappers_refuse_bad_geometry(cuda):
     with pytest.raises(ValueError, match="halo width"):
         rd1d.rd1d_rk4_fwd_cuda(u, p, inv_dx2, h, 16, 64)
     big = torch.zeros(1 << 20, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="register tile"):
         rd1d.rd1d_rk4_fwd_cuda(big, p, inv_dx2, h, 16, 1 << 16)
     with pytest.raises(ValueError, match="shared memory"):
         rd1d.rd1d_rk4_vjp_cuda(big, p, inv_dx2, h, 16, 4096, big)
