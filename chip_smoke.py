@@ -36,7 +36,10 @@ Phases, each printed before the last line:
      limit as nvidia-smi reports them;
   2. build of the CUDA kernels from the repository's sources, one nvcc per
      source, started together (set-up time), with the ptxas lines;
-  3. each kernel against its plain PyTorch version on the card (K3, K4 in
+  3. each kernel against its plain PyTorch version on the card (K1, K2 in
+     float64 and float32 at the PDE's n, a ragged n, n = 1, 2, 3, 5, 33,
+     u and λ off 16-byte alignment and λ off u's alignment, with 1 kernel
+     and no memset per call in a profiler trace; K3, K4 in
      float64, float32 and bfloat16 at the spiral's, a ragged and S4's
      shape, bfloat16 also at an aligned ragged shape, each on the route
      mlp2_route picks and S4 also forced onto WMMA, with the per-route
@@ -56,7 +59,8 @@ Phases, each printed before the last line:
      the card's float64;
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
-     kernel device time against its bound and its plain version; K3/K4
+     kernel device time against its bound and its plain version (K1, K2
+     also cold: each call on other inputs, 128 MiB of them in turn); K3/K4
      at S4 bf16 on the wgmma and the WMMA route in turns, per kernel, and
      the cuBLAS products as a yardstick; the megakernel against the plain
      RK4 loop (64 steps) and against the plain loop with per-step
@@ -70,6 +74,7 @@ last is a JSON summary of the kernels; the last line is
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -152,6 +157,18 @@ RK4_FLOPS = {"K5": 44, "K6": 44 + 74}
 RK4_BYTES = {"K5": 2, "K6": 3}  # values per cell read or written once
 
 
+# K1/K2 checks: (n, u's offset, λ's offset) in values into a larger buffer:
+# the PDE's n, a ragged n, tiny n (no whole 16-byte vector, or one and a
+# tail), u and λ both off 16-byte alignment (a scalar head before the
+# vectors) and λ off u's alignment (K2 on single cells)
+RD1D_CASES = [(262144, 0, 0), (262147, 0, 0), (1, 0, 0), (2, 0, 0), (3, 0, 0),
+              (5, 0, 0), (33, 0, 0), (1048576, 0, 0), (262144, 1, 1),
+              (262144, 0, 1)]
+# K1/K2 cold timing: one call on each input set of a rotation this large,
+# so that no call finds its operands in the 50 MB L2
+COLD_BYTES = 128 << 20
+
+
 def check(ok: bool, what: str):
     if not ok:
         raise AssertionError(what)
@@ -160,6 +177,15 @@ def check(ok: bool, what: str):
 def rel_l2(a, b) -> float:
     a, b = a.double().cpu(), b.double().cpu()
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def rd1d_case(n, u_off, lam_off, dtype, device):
+    """Seeded u ∈ [0, 1) and λ ~ N(0, 1), each a contiguous view at the given
+    offset (in values) into a buffer of n + 1."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    u = torch.rand(n + 1, generator=gen, device=device, dtype=dtype)
+    lam = torch.randn(n + 1, generator=gen, device=device, dtype=dtype)
+    return u[u_off:u_off + n], lam[lam_off:lam_off + n]
 
 
 def flagship_inputs(n, dtype, device):
@@ -222,8 +248,8 @@ def profiled_ms(fn, calls=1, kernels=None):
 
 
 def kernels_per_call(fn):
-    """Device kernels in a torch.profiler trace of one call of fn; a trace
-    without device activity is taken again, twice at most (see
+    """(device kernels, memsets) in a torch.profiler trace of one call of
+    fn; a trace without a kernel is taken again, twice at most (see
     profiled_ms)."""
     fn()
     torch.cuda.synchronize()
@@ -231,13 +257,15 @@ def kernels_per_call(fn):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        count = sum(e.count for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and "memcpy" not in e.key.lower()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        memsets = sum(e.count for e in events if "memset" in e.key.lower())
+        count = sum(e.count for e in events
+                    if "memcpy" not in e.key.lower()
                     and "memset" not in e.key.lower())
         if count:
-            return count
-    return 0
+            return count, memsets
+    return 0, 0
 
 
 def interleaved_ms(fns, rounds=TIMING_REPS):
@@ -502,31 +530,61 @@ def main() -> int:
     # -- 3. kernels vs plain versions on the card --------------------------
     max_abs = {}
     for dtype in (torch.float64, torch.float32):
-        for n in (262144, 262147):
-            gen = torch.Generator(device=dev).manual_seed(SEED)
-            u = torch.rand(n, generator=gen, device=dev, dtype=dtype)
-            lam = torch.randn(n, generator=gen, device=dev, dtype=dtype)
+        for n, u_off, lam_off in RD1D_CASES:
+            u, lam = rd1d_case(n, u_off, lam_off, dtype, dev)
             p = torch.tensor(P_FLAGSHIP, device=dev, dtype=dtype)
             inv_dx2 = float(n) * float(n)
             f = rd1d.rd1d_fwd_cuda(u, p, inv_dx2)
             du, dp = rd1d.rd1d_vjp_cuda(u, p, inv_dx2, lam)
+            du2, dp2 = rd1d.rd1d_vjp_cuda(u, p, inv_dx2, lam)
             torch.cuda.synchronize()
             f_ref = rd1d.rd1d_reference(u, p, inv_dx2)
-            du_ref, dp_ref = rd1d.rd1d_vjp_reference(u, p, inv_dx2, lam)
+            du_ref, _ = rd1d.rd1d_vjp_reference(u, p, inv_dx2, lam)
+            # D̄, k̄ against the plain version in float64 on the same inputs:
+            # the sums cancel, and at n = 2^20 the float32 plain version's
+            # own sum is off by up to ~1e-5 of k̄
+            _, dp_ref = rd1d.rd1d_vjp_reference(u.double(), p.double(),
+                                                inv_dx2, lam.double())
             e_f = float((f - f_ref).abs().max() / f_ref.abs().max())
             e_du = float((du - du_ref).abs().max() / du_ref.abs().max())
-            e_dp = ((dp - dp_ref).abs() / dp_ref.abs()).tolist()
-            print(f"[kernels] {str(dtype)[6:]} n={n}: K1 max|f-f_ref|/max|f|="
-                  f"{e_f:.3e} (tol {K_TOL[dtype]:g}); K2 max|ū-ū_ref|/max|ū|="
-                  f"{e_du:.3e} (tol {K_TOL[dtype]:g}), D̄ rel {e_dp[0]:.3e}, "
-                  f"k̄ rel {e_dp[1]:.3e} (tol {KP_TOL[dtype]:g})")
+            # D̄ is exactly 0 at n = 1 (L(u) = 0): compared absolutely there
+            diff = (dp.double() - dp_ref).abs()
+            e_dp = torch.where(dp_ref != 0, diff / dp_ref.abs(), diff).tolist()
+            same = torch.equal(du, du2) and torch.equal(dp, dp2)
+            print(f"[kernels] {str(dtype)[6:]} n={n} (u at +{u_off}, λ at "
+                  f"+{lam_off} values): K1 max|f-f_ref|/max|f|={e_f:.3e} (tol "
+                  f"{K_TOL[dtype]:g}); K2 max|ū-ū_ref|/max|ū|={e_du:.3e} (tol "
+                  f"{K_TOL[dtype]:g}), D̄ rel {e_dp[0]:.3e}, k̄ rel "
+                  f"{e_dp[1]:.3e} to the float64 plain version (tol "
+                  f"{KP_TOL[dtype]:g}); K2 same bits "
+                  f"twice: {same}")
+            check(f.shape == du.shape == (n,), f"K1/K2 shapes at n={n}")
             check(e_f <= K_TOL[dtype], f"K1 disagrees: {e_f}")
             check(e_du <= K_TOL[dtype], f"K2 ū disagrees: {e_du}")
             check(max(e_dp) <= KP_TOL[dtype], f"K2 dp disagrees: {e_dp}")
-            if dtype == torch.float32 and n == 262144:
+            check(same, "K2 gave other bits on a second call")
+            if dtype == torch.float32 and (n, u_off, lam_off) == (262144, 0, 0):
                 max_abs["K1"] = float((f - f_ref).abs().max())
                 # K2's D̄, k̄ are O(1e13) and O(1) and reported relative above
                 max_abs["K2"] = float((du - du_ref).abs().max())
+    # one kernel per K1 and per K2 call and no memset (K2's workspace is
+    # made by the first call on a stream, outside the trace)
+    k12_counts = {}  # n -> {"K1": (kernels, memsets), "K2": ...}, aligned
+    for n, u_off, lam_off in ((SIZES[0], 0, 0), (SIZES[1], 0, 0),
+                              (SIZES[0], 1, 1), (SIZES[0], 0, 1)):
+        u, lam = rd1d_case(n, u_off, lam_off, torch.float32, dev)
+        p = torch.tensor(P_FLAGSHIP, device=dev)
+        counts = {"K1": kernels_per_call(
+                      lambda: rd1d.rd1d_fwd_cuda(u, p, float(n) ** 2)),
+                  "K2": kernels_per_call(
+                      lambda: rd1d.rd1d_vjp_cuda(u, p, float(n) ** 2, lam))}
+        print(f"[kernels] float32 n={n} (u at +{u_off}, λ at +{lam_off}): "
+              f"(kernels, memsets) per call in the profiler trace: {counts}")
+        check(counts == {"K1": (1, 0), "K2": (1, 0)},
+              f"K1/K2 launched {counts} (kernels, memsets) per call, not 1, 0")
+        if u_off == lam_off == 0:
+            k12_counts[n] = counts
+    del u, lam, f, du, du2, f_ref, du_ref
 
     for dtype, label, forced in MLP_CHECKS:
         shape = MLP_SHAPES[label]
@@ -573,9 +631,9 @@ def main() -> int:
         _, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
         route = mlp.mlp2_route(*x.shape, *w1.shape, dtype, True)
         counts = {"K3": kernels_per_call(lambda: mlp.mlp2_fwd_cuda(
-                      x, w0, b0, w1, b1)),
+                      x, w0, b0, w1, b1))[0],
                   "K4": kernels_per_call(lambda: mlp.mlp2_vjp_cuda(
-                      x, w0, w1, h, g))}
+                      x, w0, w1, h, g))[0]}
         print(f"[kernels] {label} {str(dtype)[6:]} route {route}: kernels per "
               f"call in the profiler trace: K3 {counts['K3']}, K4 "
               f"{counts['K4']}")
@@ -956,25 +1014,52 @@ def main() -> int:
                   f"{busy:.3f} ms of {wall:.3f} ms wall, device idle "
                   f"{100 * (1 - busy / wall):.1f}%")
 
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        u = torch.rand(n, generator=gen, device=dev, dtype=torch.float32)
-        lam = torch.randn(n, generator=gen, device=dev, dtype=torch.float32)
+        u, lam = rd1d_case(n, 0, 0, torch.float32, dev)
         inv_dx2 = float(n) * float(n)
         versions = {
-            "K1": lambda: rd1d.rd1d_fwd_cuda(u, p, inv_dx2),
-            "K1_plain": lambda: rd1d.rd1d_reference(u, p, inv_dx2),
-            "K2": lambda: rd1d.rd1d_vjp_cuda(u, p, inv_dx2, lam),
-            "K2_plain": lambda: rd1d.rd1d_vjp_reference(u, p, inv_dx2, lam),
+            "K1": lambda u, lam: rd1d.rd1d_fwd_cuda(u, p, inv_dx2),
+            "K1_plain": lambda u, lam: rd1d.rd1d_reference(u, p, inv_dx2),
+            "K2": lambda u, lam: rd1d.rd1d_vjp_cuda(u, p, inv_dx2, lam),
+            "K2_plain": lambda u, lam: rd1d.rd1d_vjp_reference(u, p, inv_dx2,
+                                                               lam),
         }
+        sets = -(-COLD_BYTES // (4 * n))  # K1 reads u: 4n bytes per call
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        U = torch.rand(sets, n, generator=gen, device=dev)
+        L = torch.randn(sets, n, generator=gen, device=dev)
         timing[n] = {}
         for name, fn in versions.items():
-            busy, wall = profiled_ms(fn, calls=100)
+            # K1 and K2 launch one kernel per call (phase 3): their mean
+            # holds where a trace lost some launches
+            kern = None if "_" in name else 1
+            busy, wall = profiled_ms(lambda: fn(u, lam), calls=100,
+                                     kernels=kern)
             timing[n][name] = busy
             cells = 8 if name.startswith("K1") else 12
-            print(f"[time] {card}: n={n} f32 {name}: device {busy * 1e3:.2f} "
-                  f"us per call ({cells * n / (busy * 1e-3) / 1e9:.0f} GB/s of "
-                  f"{cells} B/cell), host-paced {wall * 1e3:.2f} us per call; "
-                  "profiler over 100 calls")
+            bound = cells * n / HBM_BYTES_PER_S * 1e3
+            line = (f"[time] {card}: n={n} f32 {name}: device {busy * 1e3:.2f} "
+                    f"us per call warm ({cells * n / (busy * 1e-3) / 1e9:.0f} "
+                    f"GB/s of {cells} B/cell, {100 * bound / busy:.1f}% of "
+                    "the HBM bound), "
+                    f"host-paced {wall * 1e3:.2f} us per call; profiler over "
+                    "100 calls")
+            if "_" not in name:
+                # cold: each call on another (u, λ) of a rotation of at
+                # least COLD_BYTES of inputs; the profiler's mean per call
+                k_sets = sets if name == "K1" else -(-sets // 2)
+                pairs = itertools.cycle(list(zip(U[:k_sets], L[:k_sets])))
+                cold_ms, _ = profiled_ms(lambda: fn(*next(pairs)),
+                                         calls=k_sets, kernels=kern)
+                timing[n][f"{name}_cold"] = cold_ms
+                kernels, memsets = k12_counts[n][name]
+                line += (f"; cold {cold_ms * 1e3:.2f} us per call "
+                         f"({100 * bound / cold_ms:.1f}% of the bound; "
+                         f"profiler over {k_sets} calls on {k_sets} input "
+                         f"sets, {k_sets * (cells - 4) * n >> 20} MiB of "
+                         f"inputs); {kernels} kernel and {memsets} memsets "
+                         "per call (phase 3's trace)")
+            print(line)
+        del U, L
 
     # -- 6c. neural-ODE timings ------------------------------------------------
     setup32 = spiral_setup(P, torch.float32, dev, data64)
@@ -1106,12 +1191,16 @@ def main() -> int:
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:58",
          "launches": launches["K1"], "max_abs_err": max_abs["K1"],
          "ms": timing[n]["K1"], "plain_ms": timing[n]["K1_plain"],
+         "cold_ms": timing[n]["K1_cold"],
+         "kernels_per_call": k12_counts[n]["K1"][0],
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "rd1d_vjp (K2)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:66",
          "launches": launches["K2"], "max_abs_err": max_abs["K2"],
          "ms": timing[n]["K2"], "plain_ms": timing[n]["K2_plain"],
+         "cold_ms": timing[n]["K2_cold"],
+         "kernels_per_call": k12_counts[n]["K2"][0],
          "bound_ms": k2_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "mlp2_fwd (K3)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",

@@ -43,6 +43,7 @@ tensor launches the kernel over haloed windows or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -89,17 +90,21 @@ def load_rd1d_library() -> ctypes.CDLL:
     """Build (first use only) and load csrc/rd1d.cu with typed entry points."""
     lib = load_library("rd1d")
     if not getattr(lib, "_rd1d_typed", False):
-        ptr, i64, f64 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+        ptr, i64, i32, f64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                              ctypes.c_double)
         for name in ("rd1d_fwd_f32", "rd1d_fwd_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, f64, ptr, i64, ptr]
             fn.restype = ctypes.c_int
         for name in ("rd1d_bwd_f32", "rd1d_bwd_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, ptr, f64, ptr, ptr, ptr, i64, ptr]
+            # u, p, lam, inv_dx2, du, slots, dp, n, vec, stream
+            fn.argtypes = [ptr, ptr, ptr, f64, ptr, ptr, ptr, i64, i32, ptr]
             fn.restype = ctypes.c_int
-        lib.rd1d_bwd_num_partials.argtypes = [i64]
-        lib.rd1d_bwd_num_partials.restype = i64
+        lib.rd1d_bwd_blocks.argtypes = [i64, i32, i32]
+        lib.rd1d_bwd_blocks.restype = i64
+        lib.rd1d_bwd_empty_slot.argtypes = []
+        lib.rd1d_bwd_empty_slot.restype = i64
         lib._rd1d_typed = True
     return lib
 
@@ -127,11 +132,21 @@ def _check_cuda_args(u, p, *same_as_u):
             raise ValueError(f"shape {tuple(x.shape)} != {tuple(u.shape)}")
 
 
+def _like(u: torch.Tensor) -> torch.Tensor:
+    """An empty tensor of u's shape and type whose address matches u's
+    modulo 16 bytes, as the kernels' 16-byte vector layout needs: a view
+    into a buffer a few elements longer when u is not 16-byte aligned."""
+    off = u.data_ptr() % 16 // u.element_size()
+    if off == 0:
+        return torch.empty_like(u)
+    return torch.empty(u.numel() + off, dtype=u.dtype, device=u.device)[off:]
+
+
 def rd1d_fwd_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float):
-    """K1 on the current stream: f = field(u; p)."""
+    """K1 on the current stream: f = field(u; p), one launch."""
     _check_cuda_args(u, p)
     launch = getattr(load_rd1d_library(), f"rd1d_fwd_{_SUFFIX[u.dtype]}")
-    f = torch.empty_like(u)
+    f = _like(u)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(u.data_ptr(), p.data_ptr(), float(inv_dx2), f.data_ptr(),
@@ -144,22 +159,47 @@ def rd1d_fwd_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float):
 
 rd1d_fwd_cuda.launches = 0
 
+# (device index, stream, dtype, blocks) -> K2's slots: a 64-bit word per
+# block and sum for the block's float64 (D̄, k̄) partial, empty before and
+# after every launch on that stream
+_K2_WORKSPACE = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_blocks(n: int, elt: int, vec: bool) -> int:
+    return load_rd1d_library().rd1d_bwd_blocks(n, elt, int(vec))
+
 
 def rd1d_vjp_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
                   lam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 on the current stream: (ū, [D̄, k̄]); two passes, no atomics."""
+    """K2 on the current stream: (ū, [D̄, k̄]) in one launch; the grid's
+    last block sums the blocks' partials in block order (the same bits every
+    call). On 16-byte vectors when lam's address matches u's modulo 16, else
+    on single cells."""
     _check_cuda_args(u, p, lam)
-    lib = load_rd1d_library()
-    launch = getattr(lib, f"rd1d_bwd_{_SUFFIX[u.dtype]}")
-    du = torch.empty_like(u)
-    partials = torch.empty(2 * lib.rd1d_bwd_num_partials(u.numel()),
-                           dtype=u.dtype, device=u.device)
+    launch = getattr(load_rd1d_library(), f"rd1d_bwd_{_SUFFIX[u.dtype]}")
+    vec = (u.data_ptr() - lam.data_ptr()) % 16 == 0
+    blocks = _k2_blocks(u.numel(), u.element_size(), vec)
+    du = _like(u)
     dp = torch.empty(2, dtype=u.dtype, device=u.device)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
+        key = (u.device.index, stream, u.dtype, blocks)
+        slots = _K2_WORKSPACE.get(key)
+        if slots is None:
+            # under capture torch.full is only recorded, so the slots would
+            # not be empty when an eager launch first reads them
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "rd1d_vjp: K2's workspace for this stream is made by an "
+                    "eager call; call rd1d_vjp once on the capturing stream "
+                    "before CUDA graph capture")
+            slots = _K2_WORKSPACE[key] = torch.full(
+                (2 * blocks,), load_rd1d_library().rd1d_bwd_empty_slot(),
+                dtype=torch.int64, device=u.device)
         rc = launch(u.data_ptr(), p.data_ptr(), lam.data_ptr(),
-                    float(inv_dx2), du.data_ptr(), partials.data_ptr(),
-                    dp.data_ptr(), u.numel(), stream)
+                    float(inv_dx2), du.data_ptr(), slots.data_ptr(),
+                    dp.data_ptr(), u.numel(), int(vec), stream)
     if rc != 0:
         raise RuntimeError(f"rd1d_vjp launch failed: cudaError {rc}")
     rd1d_vjp_cuda.launches += 1

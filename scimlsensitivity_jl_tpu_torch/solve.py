@@ -139,6 +139,15 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
         fixed_dt=(dt if fixed_grid_continuous else None),
     )
 
+    # deliberate divergence on either fixed-grid path: JAX's discrete march
+    # (solve.py:544) takes one step of t1 - t0 when dt points away from t1,
+    # and its continuous one marches by |dt| toward t1 (ROADMAP §3)
+    if not adaptive and dt is not None and (
+            (float(t1) - float(t0)) * float(dt) < 0):
+        raise ValueError(
+            f"adaptive=False: dt={dt} points away from t1 on the span "
+            f"({t0}, {t1}); give dt the sign of t1 - t0")
+
     if adaptive and unroll and not isinstance(sensealg, DirectAdjoint):
         raise NotImplementedError(
             "unroll=True with adaptive=True (the unrolled masked-scan "
@@ -154,7 +163,7 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
                 "the loop integrators")
         # size the forward to the grid; interior saveat/tstops each split
         # one step. The adaptive reverse keeps the caller's step budget.
-        n_grid = max(int(round(abs(float(t1) - float(t0)) / float(dt))), 1)
+        n_grid = max(int(round((float(t1) - float(t0)) / float(dt))), 1)
         n_extra = saveat.shape[0] + (0 if tstops is None
                                      else int(np.asarray(tstops).shape[0]))
         opts = dataclasses.replace(

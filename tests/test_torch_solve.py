@@ -114,6 +114,34 @@ def test_solve_default_dispatch_picks_backsolve_at_16384():
     assert_close(sp.ys, sj.ys, atol=1e-12)
 
 
+def test_reversed_span_fixed_grid_dt_sign():
+    """u' = -u from u(1) = 1 back to t = 0 on a fixed grid. With dt = 0.1
+    pointing away from t1, JAX's discrete march takes one Tsit5 step of -1
+    (2.71809888); the port raises instead, on the discrete and on the
+    continuous (BacksolveAdjoint) fixed-grid path alike (a deliberate
+    divergence). With dt = -0.1 both packages reach e on both paths, in the
+    same steps: 10 on the discrete march; the continuous one's controller
+    adds a last sliver of roundoff (11)."""
+    kw = dict(adaptive=False)
+    with jax.disable_jit():
+        jprob = J.ODEProblem(lambda u, p, t: -u, jnp.ones(1), (1.0, 0.0))
+        sj = J.solve(jprob, J.Tsit5(), dt=0.1, **kw)
+        sj_neg = {sa: J.solve(jprob, J.Tsit5(), dt=-0.1, sensealg=sa, **kw)
+                  for sa in (None, J.BacksolveAdjoint())}
+    assert int(sj.stats.n_accepted) == 1
+    assert int(sj_neg[None].stats.n_accepted) == 10
+    np.testing.assert_allclose(np.asarray(sj.u_final), [2.71809888], atol=1e-8)
+    pprob = P.ODEProblem(lambda u, p, t: -u, to_port(np.ones(1)), (1.0, 0.0))
+    for sa_j, sa_p in zip(sj_neg, (None, P.BacksolveAdjoint())):
+        with pytest.raises(ValueError, match="points away from t1"):
+            P.solve(pprob, P.Tsit5(), dt=0.1, sensealg=sa_p, **kw)
+        sp_neg = P.solve(pprob, P.Tsit5(), dt=-0.1, sensealg=sa_p, **kw)
+        assert sp_neg.stats.n_accepted == int(sj_neg[sa_j].stats.n_accepted)
+        np.testing.assert_allclose(np.asarray(sj_neg[sa_j].u_final), [np.e],
+                                   rtol=1e-8)
+        assert_close(sp_neg.u_final, sj_neg[sa_j].u_final, atol=1e-12)
+
+
 def test_unported_paths_raise():
     """What the port does not have yet fails loudly, naming the ROADMAP
     item, instead of returning a silent zero gradient."""
