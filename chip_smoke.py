@@ -6,8 +6,8 @@ Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It drives three paths of the port through its entry points, each with the
-kernel launch counters set to 0 just before it and read just after:
+It drives the port's paths through its entry points, each with the kernel
+launch counters set to 0 just before it and read just after:
 
   * the flagship 1-D reaction-diffusion PDE: the gradient of
     Σ solve(...).ys[-1]² with respect to u0 and p (Tsit5, 64 fixed steps of
@@ -28,7 +28,16 @@ kernel launch counters set to 0 just before it and read just after:
   * the RK4 block megakernel (bench.py:838-954, bench_pde_megakernel):
     make_rd1d_rk4_block(n = 1,048,576, S = 16) chained 4 and 32 times (64
     and 512 RK4 steps of h = 1e-9, p = [1e-7, 1.5], the flagship u0); the
-    gradient of Σ u²; kernels K5, K6 (csrc/rd1d_rk4.cu).
+    gradient of Σ u²; kernels K5, K6 (csrc/rd1d_rk4.cu);
+  * the forward-mode rules and QuadratureAdjoint: Lotka–Volterra at the
+    setting of the JAX package's tests/test_forward.py (tspan (0, 10), 11
+    save times, rtol 1e-10, atol 1e-12, loss Σ(ys - 1)² in u0 and p) under
+    sensealg=None (ForwardDiffSensitivity), ForwardDiffSensitivity with
+    chunk_size 2, ForwardSensitivity, QuadratureAdjoint and GaussAdjoint,
+    and ODEForwardSensitivityProblem with extract_local_sensitivities (no
+    kernel: forward mode through a kernel field is refused, which the
+    phase checks); S2q, the spiral at S2's setting under QuadratureAdjoint
+    (K3, K4); PDE (c), the flagship PDE under QuadratureAdjoint (K1, K2).
 
 Phases, each printed before the last line:
 
@@ -57,6 +66,12 @@ Phases, each printed before the last line:
      wgmma for bfloat16); the megakernel's 64-step float64 gradient,
      card against CPU, and its float32 gradient at 64 and 512 steps against
      the card's float64;
+  5d. [fwd f64]: the Lotka–Volterra gradients of every rule and the direct
+     forward API, the card against the port's CPU run, the rules against
+     one another; S2q and PDE (c) in float64, card against CPU, with their
+     K3/K4 and K1/K2 launches, and PDE (c) in float32 against the card's
+     float64 at both n; ForwardDiffSensitivity through the kernel field
+     raising ForwardModeUnsupported on the card;
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
      kernel device time against its bound and its plain version (K1, K2
@@ -65,7 +80,8 @@ Phases, each printed before the last line:
      the cuBLAS products as a yardstick; the megakernel against the plain
      RK4 loop (64 steps) and against the plain loop with per-step
      torch.utils.checkpoint (512 steps), with the peak device memory of
-     each.
+     each; the Lotka–Volterra gradient of each rule against its forward,
+     S2q against S1's forward and PDE (c) against the PDE forward.
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -139,6 +155,18 @@ S4_F32_TOL = 1e-4
 # 2^-9 of |u| against increments of ~|u|/64), which compounds over 385
 # stages to a few percent; an O(1) error is a wrong result
 S4_BF16_TOL = 0.25
+
+# the forward-mode and quadrature phase: Lotka–Volterra at the setting of
+# the JAX package's tests/test_forward.py
+LV_T1, LV_NT = 10.0, 11
+LV_TOL = dict(rtol=1e-10, atol=1e-12)
+LV_RULE_TOL = 1e-6    # the rules against one another, as in that test
+# the device trace for the idle share covers [0, 0.5] (~40 of the 779 steps):
+# a trace of the whole horizon holds ~10^6 launches, takes minutes to read
+# back, and leaves later traces of the process losing events
+LV_TRACE_T1 = 0.5
+LV_RULES = ("ForwardDiffSensitivity (sensealg=None)", "ForwardSensitivity",
+            "QuadratureAdjoint", "GaussAdjoint")
 
 # the RK4 block megakernel (bench.py:838-954)
 MEGA_N, MEGA_S, MEGA_H = 1048576, 16, 1e-9
@@ -221,12 +249,14 @@ def profiled_ms(fn, calls=1, kernels=None):
     device activity is traced: with host operators traced as well, the
     traces of one process lost device events after some forty of them.
     With `kernels`, fn launches that many distinct kernels once each per
-    call, and the time per call is the sum of their mean times, which a
-    trace that lost some events still gives. A trace without device
-    activity (or without one of the kernels) is taken again, twice at most."""
+    call, and the time per call is the sum of the mean times of the
+    trace's `kernels` most launched kernels, which a trace that lost some
+    launches, or that holds a stray event of earlier work, still gives.
+    A trace without device activity (or with fewer kernels) is taken again,
+    four times at most, each retry printing what the trace held."""
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
             for _ in range(calls):
@@ -238,12 +268,13 @@ def profiled_ms(fn, calls=1, kernels=None):
         if kernels is None:
             busy = sum(e.self_device_time_total for e in events) / 1e3 / calls
         else:
-            busy = (sum(e.self_device_time_total / e.count for e in events) / 1e3
-                    if len(events) == kernels else 0.0)
+            ours = sorted(events, key=lambda e: e.count)[-kernels:]
+            busy = (sum(e.self_device_time_total / e.count for e in ours) / 1e3
+                    if len(ours) == kernels else 0.0)
         if busy > 0:
             return busy, wall
-        print(f"[time] trace {attempt + 1} recorded no (or not every) kernel; "
-              "again")
+        print(f"[time] trace {attempt + 1} recorded no (or not every) kernel "
+              f"({[(e.key[:40], e.count) for e in events]}); again")
     raise AssertionError("the profiler recorded no device time")
 
 
@@ -266,6 +297,19 @@ def kernels_per_call(fn):
         if count:
             return count, memsets
     return 0, 0
+
+
+def event_ms(fn):
+    """(fn's result, CUDA-event ms) of one call: for calls of seconds, where
+    the run whose result is checked is also the timed one."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def interleaved_ms(fns, rounds=TIMING_REPS):
@@ -393,6 +437,37 @@ def s4_forward(P, setup):
         return s4_solve(P, setup, setup[0]).ys[-1]
 
 
+def lv_solve(P, device, sensealg, grad, t1=LV_T1):
+    """Lotka–Volterra (u0 = [1, 1], p = [1.5, 1, 3, 1]) on [0, t1] with 11
+    save times; with grad, (d/d[u0, p] of Σ(ys - 1)², solution), else the
+    solution."""
+    prob = P.lotka_volterra_problem((0.0, t1), device=device)
+    u0 = prob.u0.clone().requires_grad_(grad)
+    p = prob.p.clone().requires_grad_(grad)
+    ts = torch.linspace(0.0, t1, LV_NT, dtype=torch.float64).tolist()
+    with torch.set_grad_enabled(grad):
+        sol = P.solve(P.ODEProblem(prob.f, u0, prob.tspan, p), P.Tsit5(),
+                      saveat=ts, sensealg=sensealg, **LV_TOL)
+        if not grad:
+            return sol
+        gu, gp = torch.autograd.grad(torch.sum((sol.ys - 1.0) ** 2), (u0, p))
+    return torch.cat([gu, gp]), sol
+
+
+def lv_sensitivities(P, device):
+    """(u, S) of the direct forward API on the same problem."""
+    prob = P.lotka_volterra_problem((0.0, LV_T1), device=device)
+    ts = torch.linspace(0.0, LV_T1, LV_NT, dtype=torch.float64).tolist()
+    sprob = P.ODEForwardSensitivityProblem(prob.f, prob.u0, prob.tspan, prob.p)
+    sol = P.solve(sprob, P.Tsit5(), saveat=ts, **LV_TOL)
+    return P.extract_local_sensitivities(sol), sol
+
+
+def max_rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(((a - b).abs() / b.abs()).max())
+
+
 def leaf_errors(got, ref):
     return {k: rel_l2(got[k], ref[k]) for k in ref}
 
@@ -483,6 +558,11 @@ def rk4_bound_ms(name, n, S, dtype):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
+
+    def elapsed(phase):
+        print(f"[elapsed] {phase} done at {time.perf_counter() - t_start:.0f} s")
+
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; "
@@ -681,6 +761,8 @@ def main() -> int:
                 max_abs["K6"] = float((du - du_ref).abs().max())
             del y, du, du2, y_ref, du_ref
 
+    elapsed("phase 3 (kernels against plain versions)")
+
     # -- 4. main path, float64: card vs the port's CPU run -----------------
     n = SIZES[0]
     field = rd1d.make_rd1d_field(n, 1.0 / n)
@@ -747,6 +829,8 @@ def main() -> int:
             check(sol.retcode == 0 and rc == 0, f"f32 ({arm}) n={n} retcode")
             check(e_u <= F32_U0_TOL and e_dk <= F32_DK_TOL,
                   f"f32 ({arm}) n={n} gradient off the f64 one")
+
+    elapsed("phases 4-5 (PDE)")
 
     # -- 5b. neural-ODE paths, float64: card vs the port's CPU run ---------
     data64 = spiral_data64(P)
@@ -859,6 +943,9 @@ def main() -> int:
         del setup, g, sol
     del s4_grads
     print(f"[node] K3/K4 launches over S1-S5's card runs: {node_launches}")
+    s1_s5_launches = dict(node_launches)
+
+    elapsed("phase 5b (neural ODE)")
 
     # -- 5c. the RK4 block megakernel: f64 card vs CPU, f32 vs card f64 ------
     mega = P.make_rd1d_rk4_block(MEGA_N, MEGA_S)
@@ -928,6 +1015,141 @@ def main() -> int:
           f"{attempts} reverse step attempts (one error-norm read each, plus "
           "the initial-step norms, the weight count and the drift guard)")
 
+    elapsed("phase 5c and the sync checks")
+
+    # -- 5d. forward mode and QuadratureAdjoint, float64: card vs CPU ---------
+    from scimlsensitivity_jl_tpu_torch.ops.vjp import ForwardModeUnsupported
+
+    lv_rules = dict(zip(LV_RULES, (None, P.ForwardSensitivity(),
+                                   P.QuadratureAdjoint(), P.GaussAdjoint())))
+    lv_runs = dict(lv_rules, **{
+        "ForwardDiffSensitivity(chunk_size=2)":
+            P.ForwardDiffSensitivity(chunk_size=2)})
+    lv_grads, lv_times = {}, {}
+    t = time.perf_counter()
+    for name, sensealg in lv_runs.items():
+        # the CPU run first, so that the timed card run finds the host side
+        # warm (each takes seconds: one timed run, read in phase 6d)
+        g_cpu, _ = lv_solve(P, "cpu", sensealg, grad=True)
+        (g_card, sol), lv_times[name] = event_ms(
+            lambda: lv_solve(P, dev, sensealg, grad=True))
+        lv_grads[name] = g_card
+        err = rel_l2(g_card, g_cpu)
+        rev = sol.adjoint.stats if sol.adjoint is not None else "none"
+        print(f"[fwd f64] Lotka-Volterra {name}: dispatched to "
+              f"{type(sol.sensealg).__name__}; forward {sol.stats}; reverse "
+              f"{rev}; card vs CPU rel L2 {err:.3e} (tol {F64_GRAD_TOL:g}); "
+              f"grad [u0, p] {g_card.tolist()}")
+        check(sol.retcode == 0, f"LV {name}: retcode {sol.retcode}")
+        check(err <= F64_GRAD_TOL, f"LV {name}: card gradient off the CPU's")
+        if sensealg is None:
+            check(type(sol.sensealg) is P.ForwardDiffSensitivity,
+                  f"LV sensealg=None dispatched to {sol.sensealg!r}")
+    ref = lv_grads[LV_RULES[0]]
+    errs = {k: max_rel(v, ref) for k, v in lv_grads.items()}
+    print(f"[fwd f64] Lotka-Volterra rules against ForwardDiffSensitivity, "
+          f"max relative difference per entry: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol {LV_RULE_TOL:g})")
+    check(max(errs.values()) <= LV_RULE_TOL, "LV: the rules disagree")
+    (u_card, S_card), sol = lv_sensitivities(P, dev)
+    (u_cpu, S_cpu), _ = lv_sensitivities(P, "cpu")
+    e_u, e_S = rel_l2(u_card, u_cpu), rel_l2(S_card, S_cpu)
+    print(f"[fwd f64] ODEForwardSensitivityProblem + "
+          f"extract_local_sensitivities: u {tuple(u_card.shape)}, S "
+          f"{tuple(S_card.shape)}, forward {sol.stats}; card vs CPU rel L2 "
+          f"u {e_u:.3e}, S {e_S:.3e} (tol {F64_GRAD_TOL:g}); card and CPU "
+          f"runs {time.perf_counter() - t:.1f} s")
+    check(tuple(S_card.shape) == (LV_NT, 4, 2) and tuple(u_card.shape)
+          == (LV_NT, 2), "forward sensitivity shapes")
+    check(max(e_u, e_S) <= F64_GRAD_TOL, "forward sensitivities: card off CPU")
+
+    # the spiral (S2's setting) under QuadratureAdjoint: K3 in the forward
+    # and in every pullback's recomputation, K4 at every λ stage and node
+    s2q = dict(SPIRAL_ADAPTIVE, sensealg=P.QuadratureAdjoint())
+    (g_card, sol), s2q_launches = count_path(
+        lambda: spiral_gradient(P, setup_card, s2q))
+    g_cpu, _ = spiral_gradient(P, setup_cpu, s2q)
+    errs = leaf_errors(g_card, g_cpu)
+    print(f"[fwd f64] S2q spiral adaptive QuadratureAdjoint: forward "
+          f"{sol.stats}; reverse {sol.adjoint.stats}; K3 {s2q_launches[0]} "
+          f"and K4 {s2q_launches[1]} launches; card vs CPU rel L2 "
+          f"{fmt_errors(errs)} (tol {NODE_F64_TOL:g})")
+    check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0, "S2q retcode")
+    check(max(errs.values()) <= NODE_F64_TOL, "S2q card gradient off the CPU's")
+
+    # PDE (c): QuadratureAdjoint on the flagship field, K1 in the forward,
+    # K2 at every λ stage and Gauss–Kronrod node
+    n = SIZES[0]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    rd1d.rd1d_fwd_cuda.launches = 0
+    rd1d.rd1d_vjp_cuda.launches = 0
+    u0, p = flagship_inputs(n, torch.float64, dev)
+    gu, gp, sol = flagship_gradient(P, field, n, u0, p, P.QuadratureAdjoint())
+    torch.cuda.synchronize()
+    pde_c_launches = {"K1": rd1d.rd1d_fwd_cuda.launches,
+                      "K2": rd1d.rd1d_vjp_cuda.launches}
+    u0c, pc = flagship_inputs(n, torch.float64, "cpu")
+    gu_c, gp_c, _ = flagship_gradient(P, field, n, u0c, pc,
+                                      P.QuadratureAdjoint())
+    e_u = rel_l2(gu, gu_c)
+    e_p = ((gp.cpu() - gp_c).abs() / gp_c.abs()).tolist()
+    print(f"[fwd f64] PDE (c) n={n} QuadratureAdjoint: forward {sol.stats}; "
+          f"reverse {sol.adjoint.stats}; K1 {pde_c_launches['K1']} and K2 "
+          f"{pde_c_launches['K2']} launches; card vs CPU u0-grad rel L2 "
+          f"{e_u:.3e}, dD rel {e_p[0]:.3e}, dk rel {e_p[1]:.3e} (tol "
+          f"{F64_GRAD_TOL:g}); p-grad {gp.tolist()}")
+    check(pde_c_launches["K1"] > 0 and pde_c_launches["K2"] > 0,
+          f"PDE (c) did not launch K1 and K2: {pde_c_launches}")
+    check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0,
+          "PDE (c) retcode")
+    check(e_u <= F64_GRAD_TOL and max(e_p) <= F64_GRAD_TOL,
+          "PDE (c) f64 card gradient off the CPU run")
+    del u0c, pc, gu_c, gp_c
+    for n in SIZES:
+        field = rd1d.make_rd1d_field(n, 1.0 / n)
+        u0, p = flagship_inputs(n, torch.float64, dev)
+        gu64, gp64, _ = flagship_gradient(P, field, n, u0, p,
+                                          P.QuadratureAdjoint())
+        u0, p = flagship_inputs(n, torch.float32, dev)
+        gu, gp, sol = flagship_gradient(P, field, n, u0, p,
+                                        P.QuadratureAdjoint())
+        e_u = rel_l2(gu, gu64)
+        e_dD = abs(float(gp[0]) - float(gp64[0])) / abs(float(gp64[0]))
+        e_dk = abs(float(gp[1]) - float(gp64[1])) / abs(float(gp64[1]))
+        print(f"[fwd f32] PDE (c) n={n} vs card f64: u0-grad rel L2 {e_u:.3e} "
+              f"(tol {F32_U0_TOL:g}), dk rel {e_dk:.3e} (tol {F32_DK_TOL:g}), "
+              f"dD rel {e_dD:.3e} (not gated, as in (a)); forward "
+              f"{sol.stats}, reverse {sol.adjoint.stats}")
+        check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0,
+              f"PDE (c) f32 n={n} retcode")
+        check(e_u <= F32_U0_TOL and e_dk <= F32_DK_TOL,
+              f"PDE (c) f32 n={n} gradient off the f64 one")
+    del u0, p, gu, gp, gu64, gp64
+
+    # forward mode through a kernel field is refused on the card as well
+    n = 4096
+    small = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0, p = flagship_inputs(n, torch.float64, dev)
+    pp = p.clone().requires_grad_()
+    sol = P.solve(P.ODEProblem(small, u0, (0.0, 4 * DT), pp), P.Tsit5(),
+                  saveat=[0.0, 4 * DT], dt=DT, adaptive=False,
+                  sensealg=P.ForwardDiffSensitivity())
+    try:
+        torch.autograd.grad(torch.sum(sol.ys[-1] ** 2), pp)
+    except ForwardModeUnsupported as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("ForwardDiffSensitivity through FusedRD1D ran")
+    print(f"[fwd f64] ForwardDiffSensitivity through the kernel field "
+          f"(n={n}, on the card) raised ForwardModeUnsupported: "
+          f"{refusal[:90]}...")
+    check("FusedRD1D" in refusal and "custom_vjp" in refusal,
+          f"the refusal does not name the Function: {refusal}")
+    del u0, p, pp, sol
+
+    elapsed("phase 5d (forward mode and QuadratureAdjoint)")
+
     # -- 6. timings: the megakernel path first ---------------------------------
     u0, p = flagship_inputs(MEGA_N, torch.float32, dev)
     arms = {
@@ -979,7 +1201,11 @@ def main() -> int:
     rk4_timing = {}
     for name, fn in versions.items():
         calls = 20 if name in ("K5", "K6") else 3
-        busy, wall = profiled_ms(fn, calls=calls)
+        # K5 is one launch per call, K6 two (the window pass and the
+        # one-block reduction): their mean times hold where a trace lost
+        # launches, which a trace's sum over the calls does not
+        busy, wall = profiled_ms(fn, calls=calls, kernels={
+            "K5": 1, "K6": 2}.get(name))
         rk4_timing[name] = busy
         kname = name[:2]
         bound, by = rk4_bound_ms(kname, MEGA_N, MEGA_S, torch.float32)
@@ -991,6 +1217,8 @@ def main() -> int:
               f" host-paced {wall * 1e3:.2f} us per call; profiler over "
               f"{calls} calls")
     del u0, p, lam
+
+    elapsed("phase 6 (megakernel timings)")
 
     # -- 6b. PDE timings --------------------------------------------------------
     timing = {}
@@ -1060,6 +1288,8 @@ def main() -> int:
                          "per call (phase 3's trace)")
             print(line)
         del U, L
+
+    elapsed("phase 6b (PDE timings)")
 
     # -- 6c. neural-ODE timings ------------------------------------------------
     setup32 = spiral_setup(P, torch.float32, dev, data64)
@@ -1181,6 +1411,53 @@ def main() -> int:
           "call (no epilogues, no column sums); profiler over 20 calls")
     mlp_timing[("S4", torch.bfloat16)]["cublas"] = lib
 
+    elapsed("phase 6c (neural-ODE timings)")
+
+    # -- 6d. forward mode and QuadratureAdjoint timings -------------------------
+    for _ in range(2):  # the second forward is the one kept
+        _, lv_times["forward"] = event_ms(
+            lambda: lv_solve(P, dev, None, grad=False))
+    setup32 = spiral_setup(P, torch.float32, dev, data64)
+    arms = {"S1 forward": lambda: spiral_forward(
+                P, setup32, spiral_arms["S1 fixed grid, unroll -> DirectAdjoint"]),
+            "S2q gradient": lambda: spiral_gradient(P, setup32, s2q)}
+    med = interleaved_ms(arms, rounds=5)
+    for name, fn in arms.items():
+        busy, wall = profiled_ms(fn)
+        print(f"[time] {card}: spiral f32 {name} (QuadratureAdjoint): "
+              f"{med[name]:.3f} ms ({med[name] / med['S1 forward']:.2f}x S1 "
+              f"forward; CUDA events, median of 5 interleaved); profiled run: "
+              f"kernels {busy:.3f} ms of {wall:.3f} ms wall, device idle "
+              f"{100 * (1 - busy / wall):.1f}%")
+    for n in SIZES:
+        field = rd1d.make_rd1d_field(n, 1.0 / n)
+        u0, p = flagship_inputs(n, torch.float32, dev)
+        arms = {"forward": lambda: flagship_forward(P, field, u0, p),
+                "(c) QuadratureAdjoint": lambda: flagship_gradient(
+                    P, field, n, u0, p, P.QuadratureAdjoint())}
+        med = interleaved_ms(arms)
+        for name, fn in arms.items():
+            busy, wall = profiled_ms(fn)
+            print(f"[time] {card}: n={n} f32 {name}: {med[name]:.3f} ms "
+                  f"({med[name] / med['forward']:.2f}x forward; CUDA events, "
+                  f"median of {TIMING_REPS} interleaved); profiled run: "
+                  f"kernels {busy:.3f} ms of {wall:.3f} ms wall, device idle "
+                  f"{100 * (1 - busy / wall):.1f}%")
+    del u0, p
+
+    # Lotka-Volterra last: its traces hold the most launches of any
+    for name, sensealg in [("forward", None)] + list(lv_runs.items()):
+        ms = lv_times[name]
+        busy, wall = profiled_ms(lambda: lv_solve(
+            P, dev, sensealg, grad=name != "forward", t1=LV_TRACE_T1))
+        print(f"[time] {card}: Lotka-Volterra f64 (11 saves, rtol 1e-10) "
+              f"{name}{'' if name == 'forward' else ' gradient'}: {ms:.3f} ms "
+              f"({ms / lv_times['forward']:.2f}x the forward; CUDA events "
+              f"around one run, phase 5d's for a gradient); profiled run on "
+              f"[0, {LV_TRACE_T1}]: kernels {busy:.3f} ms of {wall:.3f} ms "
+              f"wall, device idle {100 * (1 - busy / wall):.1f}%")
+    elapsed("phase 6d")
+
     n = SIZES[0]
     k1_bound = 8 * n / HBM_BYTES_PER_S * 1e3
     k2_bound = 12 * n / HBM_BYTES_PER_S * 1e3
@@ -1189,7 +1466,10 @@ def main() -> int:
         {"name": "rd1d_fwd (K1)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:58",
-         "launches": launches["K1"], "max_abs_err": max_abs["K1"],
+         "launches": launches["K1"] + pde_c_launches["K1"],
+         "paths": {"PDE (a)+(b)": launches["K1"],
+                   "PDE (c) QuadratureAdjoint": pde_c_launches["K1"]},
+         "max_abs_err": max_abs["K1"],
          "ms": timing[n]["K1"], "plain_ms": timing[n]["K1_plain"],
          "cold_ms": timing[n]["K1_cold"],
          "kernels_per_call": k12_counts[n]["K1"][0],
@@ -1197,7 +1477,10 @@ def main() -> int:
         {"name": "rd1d_vjp (K2)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:66",
-         "launches": launches["K2"], "max_abs_err": max_abs["K2"],
+         "launches": launches["K2"] + pde_c_launches["K2"],
+         "paths": {"PDE (a)+(b)": launches["K2"],
+                   "PDE (c) QuadratureAdjoint": pde_c_launches["K2"]},
+         "max_abs_err": max_abs["K2"],
          "ms": timing[n]["K2"], "plain_ms": timing[n]["K2_plain"],
          "cold_ms": timing[n]["K2_cold"],
          "kernels_per_call": k12_counts[n]["K2"][0],
@@ -1205,14 +1488,20 @@ def main() -> int:
         {"name": "mlp2_fwd (K3)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:53",
-         "launches": node_launches["K3"], "max_abs_err": max_abs["K3"],
+         "launches": s1_s5_launches["K3"] + s2q_launches[0],
+         "paths": {"S1-S5": s1_s5_launches["K3"],
+                   "S2q QuadratureAdjoint": s2q_launches[0]},
+         "max_abs_err": max_abs["K3"],
          "ms": s4["K3"], "plain_ms": s4["K3_plain"],
          "bound_ms": s4["bound"]["K3"][0], "bound_by": s4["bound"]["K3"][1],
          "library_ms": None},
         {"name": "mlp2_vjp (K4)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:68",
-         "launches": node_launches["K4"], "max_abs_err": max_abs["K4"],
+         "launches": s1_s5_launches["K4"] + s2q_launches[1],
+         "paths": {"S1-S5": s1_s5_launches["K4"],
+                   "S2q QuadratureAdjoint": s2q_launches[1]},
+         "max_abs_err": max_abs["K4"],
          "ms": s4["K4"], "plain_ms": s4["K4_plain"],
          "bound_ms": s4["bound"]["K4"][0], "bound_by": s4["bound"]["K4"][1],
          "library_ms": None},
@@ -1224,7 +1513,9 @@ def main() -> int:
             {"name": f"{label} ({name})", "route": "cuda",
              "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d_rk4.cu",
              "replaces": f"scimlsensitivity_jl_tpu/ops/pallas_pde.py:{line}",
-             "launches": mega_launches[name], "max_abs_err": max_abs[name],
+             "launches": mega_launches[name],
+             "paths": {"megakernel 64 steps": mega_launches[name]},
+             "max_abs_err": max_abs[name],
              "ms": rk4_timing[name], "plain_ms": rk4_timing[f"{name}_plain"],
              "bound_ms": bound, "bound_by": by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))

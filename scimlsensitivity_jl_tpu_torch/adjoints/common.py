@@ -1,9 +1,10 @@
 """Shared adjoint machinery (PyTorch port).
 
 Counterpart of `scimlsensitivity_jl_tpu/adjoints/common.py`:
-`forward_saveat_solve` (:430) with `save_hook_factory` (:407),
-`reverse_joined_solve` (:185) with loss-cotangent jumps, checkpoint snaps
-and the per-accepted-step hook (event arguments wait for ROADMAP M8), and
+`forward_saveat_solve` (:430) with `save_hook_factory` (:407) and its
+`extra_hook`, `reverse_joined_solve` (:185) with loss-cotangent jumps,
+checkpoint snaps, the per-accepted-step hook and the reverse dense output
+(`collect_dense`; event arguments wait for ROADMAP M8), and
 `match_cotangents` (:551).
 
 Save times, jump times and snap times are host values, so matching them
@@ -19,12 +20,16 @@ import torch
 
 from ..ops.interp import DenseOutput
 from ..solvers.integrate import Stats, integrate, time_dtype
+from ..utils.pytree import ravel_pytree
 
 __all__ = [
     "ForwardResult",
     "forward_saveat_solve",
     "reverse_joined_solve",
     "save_hook_factory",
+    "save_carry0",
+    "saved_rows",
+    "augmented_fvec",
     "match_cotangents",
 ]
 
@@ -68,6 +73,29 @@ def save_hook_factory(saveat: np.ndarray, tdir):
     return hook
 
 
+def save_carry0(saveat: np.ndarray, t0, tdir, u0vec: torch.Tensor):
+    """The save hook's first carry: save times at or before t0 (normally
+    just saveat[0] == t0) hold u0."""
+    kind = saveat.dtype.type
+    tol0 = _match_tol(kind, t0)
+    rows: List[Optional[torch.Tensor]] = [None] * saveat.shape[0]
+    k0 = 0
+    for i in range(saveat.shape[0]):
+        if kind(kind(saveat[i] - t0) * tdir) <= tol0:
+            rows[i] = u0vec
+            k0 += 1
+    return rows, k0
+
+
+def saved_rows(carry, u_final: torch.Tensor) -> torch.Tensor:
+    """(nt, n) rows from the save hook's last carry. Save times never
+    reached (MaxIters/DtMin truncation) hold the final state, as the dense
+    output clamps; the retcode flags the failure."""
+    rows, k = carry
+    return torch.stack([rows[i] if i < k else u_final
+                        for i in range(len(rows))])
+
+
 def forward_saveat_solve(
     stepper,
     fvec: Callable,
@@ -85,39 +113,37 @@ def forward_saveat_solve(
     dtmax=None,
     fixed_dt=None,
     fixed_trip: bool = False,
+    extra_hook: Optional[Callable] = None,
 ) -> ForwardResult:
     """Forward solve capturing the saveat states exactly; `fixed_trip` as in
-    `integrate`."""
+    `integrate`. `extra_hook(step_record)` runs on every accepted step
+    (the JAX function threads a carry through it; a Python closure keeps
+    its own state)."""
     kind = time_dtype(u0vec.dtype)
     t0, t1 = kind(t0), kind(t1)
     saveat = np.asarray(saveat, dtype=kind)
     tdir = kind(1.0) if t1 >= t0 else kind(-1.0)
-    nt = saveat.shape[0]
 
     all_stops = saveat if tstops is None else np.sort(
         np.concatenate([saveat, np.asarray(tstops, dtype=kind)]))
 
-    # save times at/before t0 (normally just saveat[0] == t0) are captured now
-    tol0 = _match_tol(kind, t0)
-    rows: List[Optional[torch.Tensor]] = [None] * nt
-    k0 = 0
-    for i in range(nt):
-        if kind(kind(saveat[i] - t0) * tdir) <= tol0:
-            rows[i] = u0vec
-            k0 += 1
+    hook = save_hook_factory(saveat, tdir)
+    if extra_hook is not None:
+        save_hook = hook
+
+        def hook(rec, carry):
+            extra_hook(rec)
+            return save_hook(rec, carry)
 
     res = integrate(
         stepper, fvec, t0, t1, u0vec,
         rtol=rtol, atol=atol, dt0=dt0, max_steps=max_steps,
-        tstops=all_stops, hook=save_hook_factory(saveat, tdir),
-        hook_carry=(rows, k0), store_dense=store_dense, dtmax=dtmax,
-        fixed_dt=fixed_dt, fixed_trip=fixed_trip,
+        tstops=all_stops, hook=hook,
+        hook_carry=save_carry0(saveat, t0, tdir, u0vec),
+        store_dense=store_dense, dtmax=dtmax, fixed_dt=fixed_dt,
+        fixed_trip=fixed_trip,
     )
-    rows, k = res.hook_carry
-    # save times never reached (MaxIters/DtMin truncation) hold the final
-    # state, as the dense output clamps; the retcode flags the failure
-    ys_save = torch.stack([rows[i] if i < k else res.u_final
-                           for i in range(nt)])
+    ys_save = saved_rows(res.hook_carry, res.u_final)
     return ForwardResult(ys_save=ys_save, dense=res.dense,
                          t_final=res.t_final, u_final=res.u_final,
                          stats=res.stats)
@@ -138,9 +164,11 @@ def reverse_joined_solve(
     hook_carry: Any = None,
     snap_values: Optional[torch.Tensor] = None,
     snap_start: Optional[int] = None,
+    on_snap: Optional[Callable] = None,
     err_weights=None,
     t_span=None,
-) -> Tuple[torch.Tensor, Any, Stats]:
+    collect_dense: bool = False,
+) -> Tuple[torch.Tensor, Any, Stats, Optional[DenseOutput]]:
     """ONE adaptive reverse solve over [t_hi -> t_lo], adding the loss
     cotangents `lam_jumps[k]` into z[:n_lam] exactly when the integrator lands
     on times[k] (the ReverseLossCallback jumps, applied through the integrator's
@@ -148,7 +176,9 @@ def reverse_joined_solve(
 
     times: ascending host times, shape (m,); lam_jumps (m, n_lam).
     snap_values (m, s) with snap_start: overwrite z[snap_start:] with
-    snap_values[j] at times[j] (Backsolve's checkpoint snap).
+    snap_values[j] at times[j] (Backsolve's checkpoint snap);
+    `on_snap(z[snap_start:], snap_values[j])` sees each segment's end state
+    just before it is overwritten (Backsolve's drift guard).
     hook: `(step_record, carry) -> carry` on every accepted reverse step,
     before the jumps at its end fire (GaussAdjoint's quadrature), with
     step_record = (t_old, t_new, z0, f0, z1, f1) as in `integrate`.
@@ -156,10 +186,14 @@ def reverse_joined_solve(
     unrolls a fixed three checks (`jump_unroll`), which covers every stop
     `times` can hold.
 
-    Returns (z at t_lo after all jumps, the hook's carry, reverse Stats).
-    The JAX function returns the retcode where this returns the Stats that
-    hold it (the eager integrator counts the reverse steps for free); its
-    dense collection waits for the rules that use it (ROADMAP M4).
+    collect_dense: keep the reverse solve's dense output over z (every
+    accepted step, and a zero-width row with the post-jump state at each
+    stop where a jump fired), as QuadratureAdjoint's λ interpolant.
+
+    Returns (z at t_lo after all jumps, the hook's carry, reverse Stats,
+    the dense output or None). The JAX function returns the retcode where
+    this returns the Stats that hold it (the eager integrator counts the
+    reverse steps for free).
     """
     kind = time_dtype(z_init.dtype)
     times = np.asarray(times, dtype=kind)
@@ -172,6 +206,8 @@ def reverse_joined_solve(
     def add_row(z, k):
         z[:n_lam] += lam_jumps[k]
         if snap_values is not None:
+            if on_snap is not None:
+                on_snap(z[snap_start:], snap_values[k])
             z[snap_start:] = snap_values[k]
 
     # every jump row at or above t_hi fires now (the t1 row and a save
@@ -204,10 +240,41 @@ def reverse_joined_solve(
         stepper, aug_rhs, t_hi, t_lo, z0,
         rtol=rtol, atol=atol, max_steps=max_steps + m + 4, tstops=times,
         hook=wrapped_hook, hook_carry=(hook_carry, k0),
-        stop_transform=stop_transform, store_dense=False,
+        stop_transform=stop_transform, store_dense=collect_dense,
         err_weights=err_weights,
     )
-    return res.u_final, res.hook_carry[0], res.stats
+    return res.u_final, res.hook_carry[0], res.stats, res.dense
+
+
+def augmented_fvec(kern, p, n: int, seeds_p: torch.Tensor):
+    """Tangent field over z = [u; S.flatten()], S of shape (k, n): row j of S
+    moves as Ṡⱼ = ∂f/∂u·Sⱼ + ∂f/∂p·seeds_p[j], one `kern.jvp` per row,
+    vmapped over the rows (JAX `adjoints/forward.py:_augmented_fvec`, which
+    takes the row counts and builds the seeds). seeds_p: (k, npf), the
+    parameter direction of each row (zeros for a u0-direction).
+
+    The first evaluation also takes one row's jvp outside vmap: a kernel
+    Function then raises its own forward-mode refusal
+    (`ops.vjp.ForwardModeUnsupported`), where under vmap torch's complaint
+    about the Function's missing vmap rule would come first."""
+    _, unravel_p = ravel_pytree(p)
+    k = seeds_p.shape[0]
+    probed = []
+
+    def aug(z, t):
+        u = z[:n]
+
+        def row(sj, ej):
+            return kern.jvp(u, p, t, sj, None if p is None else unravel_p(ej))[1]
+
+        S = z[n:].reshape(k, n)
+        if k and not probed:
+            row(S[0], seeds_p[0])
+            probed.append(True)
+        dS = torch.func.vmap(row)(S, seeds_p) if k else S
+        return torch.cat([kern.fvec(u, p, t), dS.reshape(-1)])
+
+    return aug
 
 
 def match_cotangents(du0, dp, primals):

@@ -39,6 +39,7 @@ from typing import Dict, Tuple
 import torch
 
 from .cuda_build import load_library
+from .vjp import refuse_forward_mode
 
 __all__ = ["mlp2_reference", "mlp2_fwd_reference", "mlp2_vjp_reference",
            "mlp2_fwd", "mlp2_vjp", "mlp2_fwd_cuda", "mlp2_vjp_cuda",
@@ -284,6 +285,10 @@ class FusedMLP2(torch.autograd.Function):
     def backward(ctx, gy, _gh):
         x, w0, w1, h = ctx.saved_tensors
         return mlp2_vjp(x, w0, w1, h, gy.contiguous())
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise refuse_forward_mode("FusedMLP2 (K3/K4)")
 
 
 def fused_mlp2(params: Dict[str, torch.Tensor], x: torch.Tensor):

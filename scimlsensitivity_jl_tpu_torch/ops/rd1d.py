@@ -49,6 +49,7 @@ from typing import Tuple
 import torch
 
 from .cuda_build import load_library
+from .vjp import refuse_forward_mode
 
 __all__ = ["rd1d_reference", "rd1d_vjp_reference", "rd1d_fwd", "rd1d_vjp",
            "rd1d_fwd_cuda", "rd1d_vjp_cuda", "fused_rd1d", "FusedRD1D",
@@ -253,6 +254,10 @@ class FusedRD1D(torch.autograd.Function):
         u, p = ctx.saved_tensors
         du, dp = rd1d_vjp(u, p, ctx.inv_dx2, lam.contiguous())
         return du, dp, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise refuse_forward_mode("FusedRD1D (K1/K2)")
 
 
 def fused_rd1d(u: torch.Tensor, p: torch.Tensor, inv_dx2: float):
@@ -539,6 +544,10 @@ class RD1DRK4Block(torch.autograd.Function):
         inv_dx2, h, S, bwd_chunk = ctx.args
         du, dp = rd1d_rk4_vjp(u, p, inv_dx2, h, S, bwd_chunk, lam.contiguous())
         return du, dp, None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise refuse_forward_mode("RD1DRK4Block (K5/K6)")
 
 
 def make_rd1d_rk4_block(n: int, S: int, chunk: int = 4096,

@@ -26,8 +26,11 @@ class ODEProblem:
     u0: tensor or tree of tensors; its device and dtype are the solve's.
     tspan: (t0, t1) as Python floats.
     p: tensor or tree of tensors (may be None).
-    mass_matrix, jac, vjp, paramjac: kept for parity with the JAX problem;
-        `solve` raises NotImplementedError when any is set (ROADMAP M2, M9).
+    mass_matrix: kept for parity with the JAX problem; `solve` raises
+        NotImplementedError when it is set (ROADMAP M9).
+    jac(u, p, t) -> (n, n) ∂f/∂u, vjp(λ, u, p, t) -> λᵀ∂f/∂u,
+    paramjac(λ, u, p, t) -> λᵀ∂f/∂p: hooks that the continuous adjoint rules
+        use in place of autograd (`ops.vjp.make_vjp_kernels`).
     """
 
     f: Callable

@@ -111,7 +111,10 @@ class BacksolveAdjoint(AbstractAdjointSensealg):
     dissipative dynamics. The reverse ends at t0, where the true u0 is
     known; if the reconstructed u(t0) drifts by more than `recon_guard`
     relative (‖u_rec−u0‖/(1+‖u0‖)), the gradient is NaN and the adjoint
-    retcode is 3. None disables the check."""
+    retcode is 6 (BacksolveReconstructionDrift; the JAX package reports 3).
+    With `checkpointing`, the same check runs on every segment: u as
+    reconstructed at each save time against the stored forward value,
+    before the snap overwrites it. None disables the check."""
 
     autojacvec: VJPChoice = AutoVJP()
     checkpointing: bool = True

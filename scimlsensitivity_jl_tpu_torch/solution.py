@@ -1,7 +1,9 @@
 """Solution object (PyTorch port).
 
 Counterpart of `scimlsensitivity_jl_tpu/solution.py:ODESolution` and
-`RETCODE_NAMES`, with the same retcodes.
+`RETCODE_NAMES`, with the same retcodes and one more: 6 names
+BacksolveAdjoint's reconstruction drift, which the JAX package reports as
+3, the code of a DDE lag violation (a deliberate divergence, ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ __all__ = ["ODESolution", "RETCODE_NAMES"]
 
 RETCODE_NAMES = {0: "Success", 1: "MaxIters", 2: "DtLessThanMin",
                  3: "DDELagViolation", 4: "EventRecordOverflow",
-                 5: "Terminated"}
+                 5: "Terminated", 6: "BacksolveReconstructionDrift"}
 
 
 @dataclass

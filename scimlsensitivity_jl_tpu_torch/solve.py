@@ -2,9 +2,11 @@
 
 Counterpart of `scimlsensitivity_jl_tpu/solve.py:solve` -> `_solve_ode` for
 plain ODEs: saveat validation, the default-sensealg dispatch (solve.py:
-404-431, with its `fixed_grid_continuous` rule) and the fixed-grid branch
-(solve.py:538-547), and adaptive DirectAdjoint (solve.py:611-619).
-Gradients follow `sensealg` through torch.autograd.
+404-431, with its `fixed_grid_continuous` rule), the fixed-grid branch
+(solve.py:538-547), the continuous rules with the problem's jac / vjp /
+paramjac hooks (solve.py:577-581), ForwardSensitivity (solve.py:606-609)
+and adaptive DirectAdjoint (solve.py:611-619). Gradients follow
+`sensealg` through torch.autograd.
 Other problem types, callbacks, mass matrices and the sensealgs whose rules
 are not ported raise NotImplementedError naming the ROADMAP item.
 """
@@ -76,8 +78,6 @@ def solve(
         raise NotImplementedError("callbacks and events: ROADMAP M8")
     if prob.mass_matrix is not None:
         raise NotImplementedError("mass matrices and DAEs: ROADMAP M9")
-    if prob.jac is not None or prob.vjp is not None or prob.paramjac is not None:
-        raise NotImplementedError("user jac / vjp / paramjac hooks: ROADMAP M2")
     if rtol is None:
         rtol = 1e-7
     if atol is None:
@@ -186,6 +186,8 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
         if getattr(sensealg, "checkpoints", None) is not None:
             raise NotImplementedError("checkpoints=...: ROADMAP M4")
         fn = make_ode_solve_fn(prob.f, solver, sensealg, opts, t0, t1,
+                               user_jac=prob.jac, user_vjp=prob.vjp,
+                               user_paramjac=prob.paramjac,
                                bwd_solver=bwd_solver)
         ys, aux = fn(prob.u0, prob.p, saveat)
     elif isinstance(sensealg, DirectAdjoint):
@@ -195,7 +197,11 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
                                   unroll=unroll)
         ys, aux = fn(prob.u0, prob.p, saveat)
     elif isinstance(sensealg, ForwardSensitivity):
-        raise NotImplementedError("ForwardSensitivity: ROADMAP M7")
+        from .adjoints.forward import make_forward_sensitivity_solve_fn
+
+        fn = make_forward_sensitivity_solve_fn(prob.f, solver, sensealg, opts,
+                                               t0, t1)
+        ys, aux = fn(prob.u0, prob.p, saveat)
     else:
         raise NotImplementedError(
             f"sensealg {sensealg!r}: not ported (ROADMAP M4 onward)")

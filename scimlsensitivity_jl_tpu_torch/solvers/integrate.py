@@ -47,8 +47,8 @@ __all__ = [
 RETCODE_SUCCESS = 0
 RETCODE_MAXITERS = 1
 RETCODE_DTMIN = 2
-# 3: BacksolveAdjoint reconstruction drift (adjoints/continuous.py), the code
-#    the JAX package shares with DDE lag violations.
+# 3 (DDE lag violations) and 4 (event record overflow) wait for ROADMAP M8,
+# M13; 6: BacksolveAdjoint reconstruction drift (adjoints/continuous.py).
 RETCODE_TERMINATED = 5
 
 # step-size controller constants of the JAX integrator's defaults: PI

@@ -188,6 +188,53 @@ def test_gradient_on_card_matches_cpu(cuda, sensealg):
     assert float(((gp_card - gp_cpu).abs() / gp_cpu.abs()).max()) <= 1e-9
 
 
+def test_forwarddiff_gradient_on_card_matches_cpu(cuda):
+    """Lotka–Volterra's gradient under sensealg=None, which is
+    ForwardDiffSensitivity (no kernel: forward mode through the tangent
+    replay), float64 on [0, 2]: the card against the port's CPU run."""
+    grads = []
+    for device in (cuda, "cpu"):
+        prob = P.lotka_volterra_problem((0.0, 2.0), device=device)
+        u0 = prob.u0.clone().requires_grad_()
+        p = prob.p.clone().requires_grad_()
+        sol = P.solve(P.ODEProblem(prob.f, u0, prob.tspan, p), P.Tsit5(),
+                      saveat=[0.0, 0.5, 1.0, 1.5, 2.0], rtol=1e-8, atol=1e-10)
+        assert type(sol.sensealg) is P.ForwardDiffSensitivity
+        grads.append(torch.cat(torch.autograd.grad(
+            torch.sum((sol.ys - 1.0) ** 2), (u0, p))).cpu())
+    rel = torch.linalg.vector_norm(grads[0] - grads[1]) / torch.linalg.vector_norm(grads[1])
+    assert float(rel) <= 1e-9
+
+
+def test_quadrature_gradient_on_card_matches_cpu(cuda):
+    """The flagship gradient under QuadratureAdjoint at n = 16384, 16 fixed
+    steps, float64: the card (K1 in the forward, K2 at every λ stage and
+    Gauss–Kronrod node) against the port's CPU run."""
+    n, dt, t1 = 16384, 1e-9, 16e-9
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    grads = []
+    for device in (cuda, "cpu"):
+        x = torch.arange(n, dtype=torch.float64, device=device) / n
+        u0 = torch.exp(-((x - 0.5) ** 2) * 100.0).requires_grad_()
+        p = torch.tensor([1e-7, 1.5], dtype=torch.float64,
+                         device=device).requires_grad_()
+        before = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+        sol = P.solve(P.ODEProblem(field, u0, (0.0, t1), p), P.Tsit5(),
+                      saveat=[0.0, t1], dt=dt, adaptive=False,
+                      sensealg=P.QuadratureAdjoint(), adj_rtol=1e-3,
+                      adj_atol=1e-8)
+        grads.append([g.cpu() for g in torch.autograd.grad(
+            torch.sum(sol.ys[-1] ** 2), (u0, p))])
+        after = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+        assert sol.retcode == 0 and sol.adjoint.stats.retcode == 0
+        if device != "cpu":
+            assert all(a > b for a, b in zip(after, before))
+    (gu_card, gp_card), (gu_cpu, gp_cpu) = grads
+    rel = torch.linalg.vector_norm(gu_card - gu_cpu) / torch.linalg.vector_norm(gu_cpu)
+    assert float(rel) <= 1e-9
+    assert float(((gp_card - gp_cpu).abs() / gp_cpu.abs()).max()) <= 1e-9
+
+
 # relative to max|.| of each output: float64 and float32 sum in another order
 # than the plain version; bfloat16 outputs keep 8 bits, and a sum in another
 # order can flip one rounding of h, dz or an output (2^-8 ~ 3.9e-3 each)

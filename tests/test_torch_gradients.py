@@ -2,7 +2,8 @@
 float64 on the CPU: the flagship reaction–diffusion gradient (n = 1024, 16
 fixed Tsit5 steps) under BacksolveAdjoint (fixed-grid forward, adaptive
 reverse at adj_rtol) and DirectAdjoint, and the Backsolve reconstruction
-guard."""
+guard with its two deliberate divergences (its own retcode, and a check
+before every checkpoint snap)."""
 
 import jax
 import jax.numpy as jnp
@@ -10,11 +11,12 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import rd1d_u0, to_numpy, to_port
+from torch_parity import jax_o0, rd1d_u0, to_numpy, to_port
 
 import scimlsensitivity_jl_tpu as J
 import scimlsensitivity_jl_tpu_torch as P
 from scimlsensitivity_jl_tpu.ops.pallas_pde import make_rd1d_field as jax_field
+from scimlsensitivity_jl_tpu_torch.adjoints.continuous import RETCODE_RECON_DRIFT
 from scimlsensitivity_jl_tpu_torch.ops.rd1d import make_rd1d_field as port_field
 
 N, DT, STEPS = 1024, 1e-9, 16
@@ -72,8 +74,11 @@ def _heat(n):
 def test_backsolve_recon_guard_poisons_in_both_packages(capfd):
     """Backward re-integration of the heat equation over ~45 e-folds of its
     fastest mode amplifies roundoff far past recon_guard: both packages
-    return NaN gradients with adjoint retcode 3 (tests/test_adjoints.py:
-    test_backsolve_recon_guard); a benign horizon stays finite and equal."""
+    return NaN gradients (tests/test_adjoints.py:
+    test_backsolve_recon_guard); a benign horizon stays finite and equal.
+    Deliberate divergence in the retcode: JAX reports 3, the code it names
+    DDELagViolation; the port gives the drift its own, 6,
+    BacksolveReconstructionDrift."""
     n = 32
     h = 1.0 / n
     u0 = np.exp(-40.0 * (np.arange(n) * h - 0.5) ** 2)
@@ -104,8 +109,49 @@ def test_backsolve_recon_guard_poisons_in_both_packages(capfd):
     capfd.readouterr()
     g_j, g_p, rc = grads(45.0 / (4.0 / h**2))
     assert np.isnan(g_j).all() and np.isnan(g_p).all()
-    assert rc == 3
-    assert "non-success retcode 3" in capfd.readouterr().out
+    assert "non-success retcode 3" in capfd.readouterr().out  # JAX's code
+    assert J.solution.RETCODE_NAMES[3] == "DDELagViolation"
+    assert rc == RETCODE_RECON_DRIFT == 6
+    assert P.RETCODE_NAMES[rc] == "BacksolveReconstructionDrift"
+
+
+def test_backsolve_drift_checked_before_every_snap():
+    """Deliberate divergence: with checkpointing, JAX checks the drift only
+    at t0, after the t0 snap has put the stored u0 back, so the check
+    never trips; the port compares the reconstruction with the stored
+    forward value before every snap. Over 2 x 45 e-folds of the heat
+    equation's fastest mode, with a save time between, each segment's
+    reconstruction drifts far past recon_guard: JAX returns a finite
+    gradient taken on a drifted trajectory and retcode 0, the port NaN and
+    retcode 6 (a benign horizon passes the port's check)."""
+    n = 32
+    h = 1.0 / n
+    u0 = np.exp(-40.0 * (np.arange(n) * h - 0.5) ** 2)
+    jax_f, port_f = _heat(n)
+    kw = dict(rtol=1e-8, atol=1e-10, max_steps=4096, adj_max_steps=4096)
+
+    def port_grads(T):
+        pp = to_port(np.ones(1)).requires_grad_()
+        sol = P.solve(P.ODEProblem(port_f, to_port(u0), (0.0, T), pp),
+                      P.Tsit5(), saveat=[0.0, T / 2, T],
+                      sensealg=P.BacksolveAdjoint(), **kw)
+        torch.sum(sol.ys[-1] ** 2).backward()
+        return to_numpy(pp.grad), sol.adjoint.stats.retcode
+
+    g_p, rc = port_grads(0.001)
+    assert rc == 0 and np.isfinite(g_p).all()
+    T = 90.0 / (4.0 / h**2)
+
+    def loss_jax(pp):
+        sol = J.solve(J.ODEProblem(jax_f, jnp.asarray(u0), (0.0, T), pp),
+                      J.Tsit5(), saveat=jnp.array([0.0, T / 2, T]),
+                      sensealg=J.BacksolveAdjoint(), **kw)
+        return jnp.sum(sol.ys[-1] ** 2)
+
+    assert np.isfinite(np.asarray(jax_o0(jax.grad(loss_jax),
+                                         jnp.ones(1)))).all()
+    g_p, rc = port_grads(T)
+    assert np.isnan(g_p).all() and rc == RETCODE_RECON_DRIFT
 
 
 def test_dict_parameters_carry_across_and_differentiate():

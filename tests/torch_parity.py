@@ -9,6 +9,7 @@ as the package's own tests run it (Pallas kernels in interpret mode).
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -34,6 +35,16 @@ def to_numpy(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def jax_o0(fn, *args):
+    """fn(*args) compiled as one XLA program at backend optimization level
+    0. Its float rounding is then op by op (no contracted multiply-adds),
+    as under `jax.disable_jit()`, so adaptive solves take the port's steps,
+    while one compile costs far less than running the loops op by op."""
+    compiled = jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_backend_optimization_level": 0})
+    return compiled(*args)
 
 
 def rd1d_u0(n: int) -> np.ndarray:
