@@ -37,7 +37,17 @@ launch counters set to 0 just before it and read just after:
     and ODEForwardSensitivityProblem with extract_local_sensitivities (no
     kernel: forward mode through a kernel field is refused, which the
     phase checks); S2q, the spiral at S2's setting under QuadratureAdjoint
-    (K3, K4); PDE (c), the flagship PDE under QuadratureAdjoint (K1, K2).
+    (K3, K4); PDE (c), the flagship PDE under QuadratureAdjoint (K1, K2);
+  * InterpolatingAdjoint, GaussKronrodAdjoint and Gauss checkpointed or
+    pinned: the flagship PDE under (d) InterpolatingAdjoint() (auto-pinned
+    to the forward's 64 steps), (d-) the same with pinned_reverse=False,
+    (e) InterpolatingAdjoint(checkpointing=True) with a checkpoint every 8
+    steps (8 intervals solved again), (f) GaussKronrodAdjoint() (K1, K2);
+    the spiral at S2's setting under InterpolatingAdjoint() (S2i),
+    GaussKronrodAdjoint() (S2k), GaussAdjoint(checkpointing=True) (S2c)
+    and GaussAdjoint(pinned_reverse=True) (S2p) (K3, K4); Lotka–Volterra
+    under InterpolatingAdjoint and GaussKronrodAdjoint, and the auto-pinned
+    against the unpinned InterpolatingAdjoint on [0, 0.5].
 
 Phases, each printed before the last line:
 
@@ -72,6 +82,14 @@ Phases, each printed before the last line:
      K3/K4 and K1/K2 launches, and PDE (c) in float32 against the card's
      float64 at both n; ForwardDiffSensitivity through the kernel field
      raising ForwardModeUnsupported on the card;
+  5e. [interp f64]: PDE (d)-(f) at n = 262,144, the card against the port's
+     CPU run, each arm with the reverse that ran checked ((d) pinned, one
+     reverse step on each of the 64 intervals, which its K2 launches
+     count; (e) 8 intervals solved again), its K1/K2 launches, then
+     float32 against the card's float64 at both n; S2i, S2k, S2c and S2p,
+     card against CPU, with their K3/K4 launches; the Lotka–Volterra rules
+     on the card against ForwardDiffSensitivity, and the auto-pinned
+     against the unpinned reverse on [0, 0.5], gradients and times;
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
      kernel device time against its bound and its plain version (K1, K2
@@ -81,7 +99,10 @@ Phases, each printed before the last line:
      RK4 loop (64 steps) and against the plain loop with per-step
      torch.utils.checkpoint (512 steps), with the peak device memory of
      each; the Lotka–Volterra gradient of each rule against its forward,
-     S2q against S1's forward and PDE (c) against the PDE forward.
+     S2q against S1's forward and PDE (c) against the PDE forward; PDE
+     (d)-(f) against the forward at n = 1,048,576 with the peak device
+     memory of (d) and (e); S2i, S2k, S2c, S2p and S2i- (unpinned) against
+     S1's forward, each with the reverse that ran.
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -108,6 +129,8 @@ SEED = 1234
 STEPS, DT = 64, 1e-9
 P_FLAGSHIP = (1e-7, 1.5)
 ADJ = dict(adj_rtol=1e-3, adj_atol=1e-8, adj_max_steps=128)
+# PDE (e): a checkpoint every 8 steps, 7 inside the span, 8 intervals
+PDE_CHECKPOINTS = tuple(k * 8 * DT for k in range(1, STEPS // 8))
 SIZES = (262144, 1048576)
 TIMING_REPS = 5
 
@@ -312,12 +335,15 @@ def event_ms(fn):
     return out, start.elapsed_time(end)
 
 
-def interleaved_ms(fns, rounds=TIMING_REPS):
+def interleaved_ms(fns, rounds=TIMING_REPS, outputs=None):
     """Median CUDA-event time of each fn, measured in turns (one call of
-    each per round, the order rotating) after one warm-up round."""
+    each per round, the order rotating) after one warm-up round, whose
+    results go into the dict `outputs` when one is given."""
     names = list(fns)
     for name in names:
-        fns[name]()
+        out = fns[name]()
+        if outputs is not None:
+            outputs[name] = out
     times = {name: [] for name in names}
     for r in range(rounds):
         for name in names[r % len(names):] + names[:r % len(names)]:
@@ -1150,6 +1176,187 @@ def main() -> int:
 
     elapsed("phase 5d (forward mode and QuadratureAdjoint)")
 
+    # -- 5e. [interp f64]: InterpolatingAdjoint (pinned, adaptive,
+    # checkpointed), GaussKronrodAdjoint and Gauss checkpointed or pinned --
+    # PDE (d)-(f) on the flagship field: K1 in every forward and (e)'s
+    # re-solves, K1 + K2 at every joined [λ; q] stage (f_and_vjp), K2 at
+    # every λ stage and Gauss–Kronrod node of (f)
+    pde_interp = {
+        "(d)": ("InterpolatingAdjoint() (auto: pinned)",
+                P.InterpolatingAdjoint(), "pinned"),
+        "(d-)": ("InterpolatingAdjoint(pinned_reverse=False)",
+                 P.InterpolatingAdjoint(pinned_reverse=False), "adaptive"),
+        "(e)": (f"InterpolatingAdjoint(checkpointing=True, "
+                f"{len(PDE_CHECKPOINTS)} checkpoints)",
+                P.InterpolatingAdjoint(checkpointing=True,
+                                       checkpoints=PDE_CHECKPOINTS),
+                "checkpointed"),
+        "(f)": ("GaussKronrodAdjoint()", P.GaussKronrodAdjoint(), "adaptive"),
+    }
+
+    def reverse_ran(rec):
+        extra = f", {rec.resolves} intervals re-solved" if rec.resolves else ""
+        return f"{rec.reverse} reverse{extra}"
+
+    def interp_checks(arm, sol, tag, k2=None):
+        """The reverse each arm must report: (d) rides the forward's grid,
+        one reverse step on each of its STEPS intervals, and (e) solves
+        every inter-checkpoint interval again. k2, the gradient's K2
+        launches on the card, counts (d)'s steps apart from the walk's own
+        tally: one pullback after t1's jump, 6 per step (Tsit5's stages
+        after the first, which the step before hands on) and one after
+        t0's jump. (The float32 forward ends in a 65th step narrower than
+        the time-matching tolerance, which the walk steps over.)"""
+        rec = sol.adjoint
+        check(sol.retcode == 0 and rec.stats.retcode == 0,
+              f"{tag} {arm} retcode {sol.retcode}/{rec.stats.retcode}")
+        check(rec.reverse == pde_interp[arm][2],
+              f"{tag} {arm} ran the {rec.reverse} reverse")
+        if arm == "(d)":
+            check(rec.stats.n_accepted == STEPS,
+                  f"{tag} (d) stepped {rec.stats.n_accepted} of the grid's "
+                  f"{STEPS} intervals")
+            check(k2 is None or k2 == 2 + 6 * STEPS,
+                  f"{tag} (d) launched K2 {k2} times, not 2 + 6 x {STEPS}")
+        if arm == "(e)":
+            check(rec.resolves == len(PDE_CHECKPOINTS) + 1,
+                  f"{tag} (e) re-solved {rec.resolves} intervals")
+
+    interp_launches = {}
+    n = SIZES[0]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    t = time.perf_counter()
+    for arm, (label, sensealg, _) in pde_interp.items():
+        rd1d.rd1d_fwd_cuda.launches = 0
+        rd1d.rd1d_vjp_cuda.launches = 0
+        u0, p = flagship_inputs(n, torch.float64, dev)
+        gu, gp, sol = flagship_gradient(P, field, n, u0, p, sensealg)
+        torch.cuda.synchronize()
+        got = {"K1": rd1d.rd1d_fwd_cuda.launches,
+               "K2": rd1d.rd1d_vjp_cuda.launches}
+        interp_launches[arm] = got
+        u0c, pc = flagship_inputs(n, torch.float64, "cpu")
+        gu_c, gp_c, sol_c = flagship_gradient(P, field, n, u0c, pc, sensealg)
+        e_u = rel_l2(gu, gu_c)
+        e_p = ((gp.cpu() - gp_c).abs() / gp_c.abs()).tolist()
+        rec = sol.adjoint
+        print(f"[interp f64] PDE {arm} n={n} {label}: {reverse_ran(rec)}"
+              f"; forward {sol.stats}; reverse {rec.stats}; K1 {got['K1']} and "
+              f"K2 {got['K2']} launches per gradient; card vs CPU u0-grad rel "
+              f"L2 {e_u:.3e}, dD rel {e_p[0]:.3e}, dk rel {e_p[1]:.3e} (tol "
+              f"{F64_GRAD_TOL:g}); p-grad {gp.tolist()}")
+        interp_checks(arm, sol, "card", k2=got["K2"])
+        interp_checks(arm, sol_c, "CPU")
+        check(got["K1"] > 0 and got["K2"] > 0,
+              f"PDE {arm} did not launch K1 and K2: {got}")
+        check(e_u <= F64_GRAD_TOL and max(e_p) <= F64_GRAD_TOL,
+              f"PDE {arm} f64 card gradient off the CPU run")
+    del u0c, pc, gu_c, gp_c
+    print(f"[interp f64] PDE (d)-(f) card and CPU runs: "
+          f"{time.perf_counter() - t:.1f} s")
+    for n in SIZES:
+        field = rd1d.make_rd1d_field(n, 1.0 / n)
+        for arm, (label, sensealg, _) in pde_interp.items():
+            u0, p = flagship_inputs(n, torch.float64, dev)
+            rd1d.rd1d_vjp_cuda.launches = 0
+            gu64, gp64, sol64 = flagship_gradient(P, field, n, u0, p, sensealg)
+            torch.cuda.synchronize()
+            interp_checks(arm, sol64, f"f64 n={n}",
+                          k2=rd1d.rd1d_vjp_cuda.launches)
+            u0, p = flagship_inputs(n, torch.float32, dev)
+            rd1d.rd1d_fwd_cuda.launches = 0
+            rd1d.rd1d_vjp_cuda.launches = 0
+            gu, gp, sol = flagship_gradient(P, field, n, u0, p, sensealg)
+            torch.cuda.synchronize()
+            got = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+            e_u = rel_l2(gu, gu64)
+            e_dD = abs(float(gp[0]) - float(gp64[0])) / abs(float(gp64[0]))
+            e_dk = abs(float(gp[1]) - float(gp64[1])) / abs(float(gp64[1]))
+            print(f"[interp f32] PDE {arm} n={n} vs card f64: u0-grad rel L2 "
+                  f"{e_u:.3e} (tol {F32_U0_TOL:g}), dk rel {e_dk:.3e} (tol "
+                  f"{F32_DK_TOL:g}), dD rel {e_dD:.3e} (not gated, as in "
+                  f"(a)); {sol.adjoint.reverse} reverse, forward {sol.stats}, "
+                  f"reverse {sol.adjoint.stats}; K1 {got[0]} and K2 {got[1]} "
+                  "launches")
+            interp_checks(arm, sol, f"f32 n={n}", k2=got[1])
+            check(min(got) > 0, f"f32 PDE {arm} n={n} launched K1, K2 {got}")
+            check(e_u <= F32_U0_TOL and e_dk <= F32_DK_TOL,
+                  f"PDE {arm} f32 n={n} gradient off the f64 one")
+    del u0, p, gu, gp, gu64, gp64
+
+    # the spiral at S2's setting: K3 in the forward and wherever a pullback
+    # runs the field again, K4 at every reverse stage and quadrature node
+    spiral_interp = {
+        "S2i InterpolatingAdjoint()": dict(
+            SPIRAL_ADAPTIVE, sensealg=P.InterpolatingAdjoint()),
+        "S2k GaussKronrodAdjoint()": dict(
+            SPIRAL_ADAPTIVE, sensealg=P.GaussKronrodAdjoint()),
+        "S2c GaussAdjoint(checkpointing=True)": dict(
+            SPIRAL_ADAPTIVE, sensealg=P.GaussAdjoint(checkpointing=True)),
+        "S2p GaussAdjoint(pinned_reverse=True)": dict(
+            SPIRAL_ADAPTIVE, sensealg=P.GaussAdjoint(pinned_reverse=True)),
+    }
+    interp_node_launches = {}
+    for arm, kw in spiral_interp.items():
+        (g_card, sol), got = count_path(
+            lambda: spiral_gradient(P, setup_card, kw))
+        g_cpu, _ = spiral_gradient(P, setup_cpu, kw)
+        errs = leaf_errors(g_card, g_cpu)
+        interp_node_launches[arm.split(" ")[0]] = got
+        print(f"[interp f64] {arm}: {reverse_ran(sol.adjoint)}"
+              f"; forward {sol.stats}; reverse {sol.adjoint.stats}; K3 "
+              f"{got[0]} and K4 {got[1]} launches per gradient; card vs CPU "
+              f"rel L2 {fmt_errors(errs)} (tol {NODE_F64_TOL:g})")
+        check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0,
+              f"{arm} retcode")
+        check(max(errs.values()) <= NODE_F64_TOL,
+              f"{arm}: f64 card gradient off the CPU run")
+
+    # Lotka–Volterra at phase 5d's setting, on the card, against the
+    # ForwardDiffSensitivity gradient (JAX tests/test_forward.py's oracle)
+    lv_interp = {"InterpolatingAdjoint": P.InterpolatingAdjoint(),
+                 "GaussKronrodAdjoint": P.GaussKronrodAdjoint()}
+    for name, sensealg in lv_interp.items():
+        (g_card, sol), lv_times[name] = event_ms(
+            lambda: lv_solve(P, dev, sensealg, grad=True))
+        err = max_rel(g_card, lv_grads[LV_RULES[0]])
+        print(f"[interp f64] Lotka-Volterra {name}: {sol.adjoint.reverse} "
+              f"reverse; forward {sol.stats}; reverse {sol.adjoint.stats}; "
+              f"against ForwardDiffSensitivity max relative difference per "
+              f"entry {err:.2e} (tol {LV_RULE_TOL:g}); {lv_times[name]:.1f} "
+              f"ms; grad [u0, p] {g_card.tolist()}")
+        check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0,
+              f"LV {name} retcode")
+        check(err <= LV_RULE_TOL, f"LV {name} off ForwardDiffSensitivity")
+    lv_runs.update(lv_interp)
+
+    # the auto-pinned against the unpinned reverse on [0, LV_TRACE_T1] (~40
+    # of the 779 steps), in turns: whether pinning pays here (ROADMAP M5)
+    lv_pin = {
+        "pinned": P.InterpolatingAdjoint(),
+        "adaptive": P.InterpolatingAdjoint(pinned_reverse=False)}
+    lv_pin_fns = {name: (lambda s=s: lv_solve(P, dev, s, grad=True,
+                                              t1=LV_TRACE_T1))
+                  for name, s in lv_pin.items()}
+    lv_pin_out = {}
+    med = interleaved_ms(lv_pin_fns, rounds=3, outputs=lv_pin_out)
+    err = max_rel(lv_pin_out["adaptive"][0], lv_pin_out["pinned"][0])
+    for name, (_, sol) in lv_pin_out.items():
+        print(f"[time] {card}: Lotka-Volterra f64 on [0, {LV_TRACE_T1}] "
+              f"InterpolatingAdjoint, {sol.adjoint.reverse} reverse: "
+              f"{med[name]:.3f} ms (CUDA events, median of 3 interleaved); "
+              f"forward {sol.stats}; reverse {sol.adjoint.stats}")
+        check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0
+              and sol.adjoint.reverse == name, f"LV [0, {LV_TRACE_T1}] "
+              f"{name}: {sol.adjoint.reverse} reverse, retcode")
+    print(f"[interp f64] Lotka-Volterra on [0, {LV_TRACE_T1}]: adaptive "
+          f"against pinned max relative difference per entry {err:.2e} (tol "
+          f"{LV_RULE_TOL:g}); pinned {med['adaptive'] / med['pinned']:.2f}x "
+          "faster")
+    check(err <= LV_RULE_TOL, "LV adaptive reverse off the pinned one")
+
+    elapsed("phase 5e [interp f64]")
+
     # -- 6. timings: the megakernel path first ---------------------------------
     u0, p = flagship_inputs(MEGA_N, torch.float32, dev)
     arms = {
@@ -1445,6 +1652,60 @@ def main() -> int:
                   f"{100 * (1 - busy / wall):.1f}%")
     del u0, p
 
+    # -- 6e. [interp] timings: PDE (d)-(f) at n = 1,048,576, the spiral arms
+    n = SIZES[1]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0, p = flagship_inputs(n, torch.float32, dev)
+    arms = {"forward": lambda: flagship_forward(P, field, u0, p)}
+    for arm, (_, sensealg, _) in pde_interp.items():
+        arms[arm] = (lambda sensealg=sensealg: flagship_gradient(
+            P, field, n, u0, p, sensealg))
+    med = interleaved_ms(arms, rounds=3)
+    for arm, fn in arms.items():
+        busy, wall = profiled_ms(fn)
+        label = arm if arm == "forward" else f"{arm} {pde_interp[arm][0]}"
+        print(f"[time] {card}: n={n} f32 {label}: {med[arm]:.3f} ms "
+              f"({med[arm] / med['forward']:.2f}x forward; CUDA events, "
+              f"median of 3 interleaved); profiled run: kernels "
+              f"{busy:.3f} ms of {wall:.3f} ms wall, device idle "
+              f"{100 * (1 - busy / wall):.1f}%")
+    for arm in ("(d)", "(e)"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        arms[arm]()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        print(f"[time] {card}: n={n} f32 {arm} {pde_interp[arm][0]}: peak "
+              f"device memory {peak:.1f} MiB above the inputs "
+              "(max_memory_allocated)")
+    del u0, p
+
+    # the spiral arms against S1's forward (S2's and S3's rows are phase
+    # 6c's): 3 interleaved rounds, the warm-up round's record naming the
+    # reverse that ran (no trace: each gradient holds ~10^3 launches)
+    setup32 = spiral_setup(P, torch.float32, dev, data64)
+    arms = {"S1 forward": lambda: spiral_forward(
+        P, setup32, spiral_arms["S1 fixed grid, unroll -> DirectAdjoint"])}
+    spiral_timed = {f"{arm.split(' ')[0]} gradient": kw
+                    for arm, kw in spiral_interp.items()}
+    spiral_timed["S2i- gradient"] = dict(
+        SPIRAL_ADAPTIVE, sensealg=P.InterpolatingAdjoint(pinned_reverse=False))
+    for name, kw in spiral_timed.items():
+        arms[name] = lambda kw=kw: spiral_gradient(P, setup32, kw)
+    ran = {}
+    med = interleaved_ms(arms, rounds=3, outputs=ran)
+    for name in arms:
+        extra = ""
+        if name in spiral_timed:
+            rec = ran[name][1].adjoint
+            extra = f"; {rec.reverse} reverse {rec.stats}"
+        print(f"[time] {card}: spiral f32 {name}: {med[name]:.3f} ms "
+              f"({med[name] / med['S1 forward']:.2f}x S1 forward; CUDA events, "
+              f"median of 3 interleaved){extra}")
+    del setup32
+    elapsed("phase 6e [interp] timings")
+
     # Lotka-Volterra last: its traces hold the most launches of any
     for name, sensealg in [("forward", None)] + list(lv_runs.items()):
         ms = lv_times[name]
@@ -1462,13 +1723,20 @@ def main() -> int:
     k1_bound = 8 * n / HBM_BYTES_PER_S * 1e3
     k2_bound = 12 * n / HBM_BYTES_PER_S * 1e3
     s4 = mlp_timing[("S4", torch.bfloat16)]
+    interp_k = {k: sum(got[k] for got in interp_launches.values())
+                for k in ("K1", "K2")}
+    interp_node = [sum(got[i] for got in interp_node_launches.values())
+                   for i in (0, 1)]
     kernels = [
         {"name": "rd1d_fwd (K1)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:58",
-         "launches": launches["K1"] + pde_c_launches["K1"],
+         "launches": (launches["K1"] + pde_c_launches["K1"]
+                      + interp_k["K1"]),
          "paths": {"PDE (a)+(b)": launches["K1"],
-                   "PDE (c) QuadratureAdjoint": pde_c_launches["K1"]},
+                   "PDE (c) QuadratureAdjoint": pde_c_launches["K1"],
+                   **{f"PDE {arm}": got["K1"]
+                      for arm, got in interp_launches.items()}},
          "max_abs_err": max_abs["K1"],
          "ms": timing[n]["K1"], "plain_ms": timing[n]["K1_plain"],
          "cold_ms": timing[n]["K1_cold"],
@@ -1477,9 +1745,12 @@ def main() -> int:
         {"name": "rd1d_vjp (K2)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:66",
-         "launches": launches["K2"] + pde_c_launches["K2"],
+         "launches": (launches["K2"] + pde_c_launches["K2"]
+                      + interp_k["K2"]),
          "paths": {"PDE (a)+(b)": launches["K2"],
-                   "PDE (c) QuadratureAdjoint": pde_c_launches["K2"]},
+                   "PDE (c) QuadratureAdjoint": pde_c_launches["K2"],
+                   **{f"PDE {arm}": got["K2"]
+                      for arm, got in interp_launches.items()}},
          "max_abs_err": max_abs["K2"],
          "ms": timing[n]["K2"], "plain_ms": timing[n]["K2_plain"],
          "cold_ms": timing[n]["K2_cold"],
@@ -1488,9 +1759,12 @@ def main() -> int:
         {"name": "mlp2_fwd (K3)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:53",
-         "launches": s1_s5_launches["K3"] + s2q_launches[0],
+         "launches": (s1_s5_launches["K3"] + s2q_launches[0]
+                      + interp_node[0]),
          "paths": {"S1-S5": s1_s5_launches["K3"],
-                   "S2q QuadratureAdjoint": s2q_launches[0]},
+                   "S2q QuadratureAdjoint": s2q_launches[0],
+                   **{arm: got[0]
+                      for arm, got in interp_node_launches.items()}},
          "max_abs_err": max_abs["K3"],
          "ms": s4["K3"], "plain_ms": s4["K3_plain"],
          "bound_ms": s4["bound"]["K3"][0], "bound_by": s4["bound"]["K3"][1],
@@ -1498,9 +1772,12 @@ def main() -> int:
         {"name": "mlp2_vjp (K4)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:68",
-         "launches": s1_s5_launches["K4"] + s2q_launches[1],
+         "launches": (s1_s5_launches["K4"] + s2q_launches[1]
+                      + interp_node[1]),
          "paths": {"S1-S5": s1_s5_launches["K4"],
-                   "S2q QuadratureAdjoint": s2q_launches[1]},
+                   "S2q QuadratureAdjoint": s2q_launches[1],
+                   **{arm: got[1]
+                      for arm, got in interp_node_launches.items()}},
          "max_abs_err": max_abs["K4"],
          "ms": s4["K4"], "plain_ms": s4["K4_plain"],
          "bound_ms": s4["bound"]["K4"][0], "bound_by": s4["bound"]["K4"][1],

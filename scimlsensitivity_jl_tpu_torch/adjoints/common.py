@@ -4,11 +4,14 @@ Counterpart of `scimlsensitivity_jl_tpu/adjoints/common.py`:
 `forward_saveat_solve` (:430) with `save_hook_factory` (:407) and its
 `extra_hook`, `reverse_joined_solve` (:185) with loss-cotangent jumps,
 checkpoint snaps, the per-accepted-step hook and the reverse dense output
-(`collect_dense`; event arguments wait for ROADMAP M8), and
-`match_cotangents` (:551).
+(`collect_dense`; event arguments wait for ROADMAP M8),
+`reverse_pinned_solve` (:35, without `collect_lam_nodes`, which nothing
+calls) and `match_cotangents` (:551).
 
 Save times, jump times and snap times are host values, so matching them
-against the integrator's host clock reads nothing from the device.
+against the integrator's host clock reads nothing from the device. Every
+matcher takes two times as one within `solvers.integrate.match_tol`,
+relative to the solve's span below 1 where JAX's floor is 1 (ROADMAP §3).
 """
 
 from __future__ import annotations
@@ -19,13 +22,15 @@ import numpy as np
 import torch
 
 from ..ops.interp import DenseOutput
-from ..solvers.integrate import Stats, integrate, time_dtype
+from ..solvers.integrate import (Stats, error_norm, integrate, match_tol,
+                                 time_dtype)
 from ..utils.pytree import ravel_pytree
 
 __all__ = [
     "ForwardResult",
     "forward_saveat_solve",
     "reverse_joined_solve",
+    "reverse_pinned_solve",
     "save_hook_factory",
     "save_carry0",
     "saved_rows",
@@ -42,19 +47,13 @@ class ForwardResult(NamedTuple):
     stats: Stats
 
 
-def _match_tol(kind, *ts):
-    """64 eps · max(|t|..., 1) in the time dtype: the tolerance every stop,
-    save and jump matcher of the JAX package uses."""
-    eps = kind(np.finfo(kind).eps)
-    return kind(kind(kind(64.0) * eps) * max([kind(1.0)] + [abs(t) for t in ts]))
-
-
-def save_hook_factory(saveat: np.ndarray, tdir):
+def save_hook_factory(saveat: np.ndarray, tdir, span):
     """Accepted-step hook that captures u at each save time.
 
     `saveat` is merged into the stops, so the integrator lands on each save time
     exactly up to roundoff; the hook records the state the first time
-    t_new reaches saveat[k]. Carry: (list of rows, k)."""
+    t_new reaches saveat[k] (within `match_tol` of the solve's `span`).
+    Carry: (list of rows, k)."""
     nt = saveat.shape[0]
     kind = saveat.dtype.type
 
@@ -64,7 +63,7 @@ def save_hook_factory(saveat: np.ndarray, tdir):
         if k >= nt:
             return rows, k
         target = saveat[k]
-        tol = _match_tol(kind, target, t_new)
+        tol = match_tol(kind, span, target, t_new)
         if kind(kind(t_new - target) * tdir) >= -tol:
             rows[k] = y1
             k += 1
@@ -73,11 +72,11 @@ def save_hook_factory(saveat: np.ndarray, tdir):
     return hook
 
 
-def save_carry0(saveat: np.ndarray, t0, tdir, u0vec: torch.Tensor):
+def save_carry0(saveat: np.ndarray, t0, tdir, u0vec: torch.Tensor, span):
     """The save hook's first carry: save times at or before t0 (normally
     just saveat[0] == t0) hold u0."""
     kind = saveat.dtype.type
-    tol0 = _match_tol(kind, t0)
+    tol0 = match_tol(kind, span, t0)
     rows: List[Optional[torch.Tensor]] = [None] * saveat.shape[0]
     k0 = 0
     for i in range(saveat.shape[0]):
@@ -127,7 +126,7 @@ def forward_saveat_solve(
     all_stops = saveat if tstops is None else np.sort(
         np.concatenate([saveat, np.asarray(tstops, dtype=kind)]))
 
-    hook = save_hook_factory(saveat, tdir)
+    hook = save_hook_factory(saveat, tdir, t1 - t0)
     if extra_hook is not None:
         save_hook = hook
 
@@ -139,7 +138,7 @@ def forward_saveat_solve(
         stepper, fvec, t0, t1, u0vec,
         rtol=rtol, atol=atol, dt0=dt0, max_steps=max_steps,
         tstops=all_stops, hook=hook,
-        hook_carry=save_carry0(saveat, t0, tdir, u0vec),
+        hook_carry=save_carry0(saveat, t0, tdir, u0vec, t1 - t0),
         store_dense=store_dense, dtmax=dtmax, fixed_dt=fixed_dt,
         fixed_trip=fixed_trip,
     )
@@ -202,6 +201,7 @@ def reverse_joined_solve(
         t_lo, t_hi = times[0], times[-1]
     else:
         t_lo, t_hi = kind(t_span[0]), kind(t_span[1])
+    span = kind(t_hi - t_lo)
 
     def add_row(z, k):
         z[:n_lam] += lam_jumps[k]
@@ -214,7 +214,7 @@ def reverse_joined_solve(
     # time that coincides with it)
     z0 = z_init.clone()
     k0 = m - 1
-    tol0 = _match_tol(kind, t_hi)
+    tol0 = match_tol(kind, span, t_hi)
     while k0 >= 0 and times[k0] >= kind(t_hi - tol0):
         add_row(z0, k0)
         k0 -= 1
@@ -223,7 +223,7 @@ def reverse_joined_solve(
         # every row that coincides with this stop fires (a save time that
         # duplicates the t0 extension gives two)
         hc, k = carry
-        tol = _match_tol(kind, t, t_hi)
+        tol = match_tol(kind, span, t, t_hi)
         k_start = k
         while k >= 0 and abs(kind(times[k] - t)) <= tol:
             if k == k_start:
@@ -244,6 +244,106 @@ def reverse_joined_solve(
         err_weights=err_weights,
     )
     return res.u_final, res.hook_carry[0], res.stats, res.dense
+
+
+def reverse_pinned_solve(
+    stepper,
+    make_interval_rhs: Callable,
+    dense: DenseOutput,
+    times,
+    lam_jumps: torch.Tensor,
+    z_init: torch.Tensor,
+    n_lam: int,
+    *,
+    rtol,
+    atol,
+    hook: Optional[Callable] = None,
+    hook_carry: Any = None,
+    err_weights: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, Any, Stats]:
+    """Reverse solve PINNED to the forward's accepted grid: one `stepper`
+    step per stored forward interval, walking the dense buffer backwards by
+    index, with no controller and no interval search.
+
+    make_interval_rhs(i) -> rhs(z, t): the reverse field over interval i,
+    with y from that interval's directly indexed Hermite rows. The loss
+    cotangents `lam_jumps[k]` are added into z[:n_lam] when the walk
+    reaches a node matching times[k], with the matcher and tolerance of
+    `reverse_joined_solve`, at most three rows per node (JAX's
+    `jump_unroll` without events); the FSAL derivative is evaluated again
+    after a jump. Rows no wider than the matching tolerance are zero-width:
+    they step nowhere and add nothing (neither step nor hook runs there;
+    JAX steps and masks the result).
+
+    The weighted embedded error is computed on every step and kept on the
+    device; the largest is read once at the end, and above 100 (JAX's
+    `guard`, in units of the tolerance) the retcode is 2 (DtMin), which
+    poisons the gradient (a NaN error compares false, as in JAX).
+    hook(rec, carry): once per interval, rec = (ta, tb, z_a, f_a, z_b, f_b,
+    i), ta > tb walking backwards.
+
+    Returns (z at t0 after all jumps, the hook's carry, Stats with one
+    accepted step per interval stepped)."""
+    dtype = z_init.dtype
+    kind = time_dtype(dtype)
+    times = np.asarray(times, dtype=kind)
+    ts, n_steps = dense.ts, dense.n_steps
+    t_hi = ts[n_steps]
+    span = kind(t_hi - ts[0])
+    weight_count = None
+    if err_weights is not None:
+        weight_count = max(int((err_weights > 0).sum().item()), 1)
+
+    # every jump row at or above t_hi fires now
+    z = z_init.clone()
+    k = times.shape[0] - 1
+    tol0 = match_tol(kind, span, t_hi)
+    while k >= 0 and times[k] >= kind(t_hi - tol0):
+        z[:n_lam] += lam_jumps[k]
+        k -= 1
+
+    f = make_interval_rhs(max(n_steps - 1, 0))(z, t_hi).to(dtype)
+    worst = None
+    n_stepped, n_fevals = 0, 1
+    for i in range(n_steps - 1, -1, -1):
+        ta, tb = ts[i + 1], ts[i]
+        dt = kind(tb - ta)  # the forward step width, negated
+        rhs = make_interval_rhs(i)
+        z1, f1 = z, f
+        if abs(dt) > match_tol(kind, span, ta):
+            z1, f1, err = stepper.step(rhs, ta, dt, z, f)
+            z1, f1 = z1.to(dtype), f1.to(dtype)
+            n_stepped += 1
+            n_fevals += stepper.n_stages
+            if err is not None:
+                e = error_norm(err, z, z1, rtol, atol, err_weights,
+                               weight_count)
+                worst = e if worst is None else torch.maximum(worst, e)
+            if hook is not None:
+                hook_carry = hook((ta, tb, z, f, z1, f1, i), hook_carry)
+        tol = match_tol(kind, span, tb, t_hi)
+        fired = False
+        for _ in range(3):
+            if k >= 0 and abs(kind(times[k] - tb)) <= tol:
+                if not fired:
+                    z1 = z1.clone()
+                z1[:n_lam] += lam_jumps[k]
+                k -= 1
+                fired = True
+        if fired:
+            f1 = rhs(z1, tb).to(dtype)
+            n_fevals += 1
+        z, f = z1, f1
+    # jump rows below the final node (t0 duplicates)
+    if k >= 0:
+        z = z.clone()
+    while k >= 0:
+        z[:n_lam] += lam_jumps[k]
+        k -= 1
+    retcode = 2 if worst is not None and worst.item() > 100.0 else 0
+    stats = Stats(n_accepted=n_stepped, n_rejected=0, n_fevals=n_fevals,
+                  retcode=retcode)
+    return z, hook_carry, stats
 
 
 def augmented_fvec(kern, p, n: int, seeds_p: torch.Tensor):

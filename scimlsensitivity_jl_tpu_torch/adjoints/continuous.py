@@ -2,15 +2,32 @@
 `torch.autograd.Function`s over solve (PyTorch port).
 
 Counterpart of `scimlsensitivity_jl_tpu/adjoints/continuous.py`:
-`SolveOptions`, `AuxOut` and `make_ode_solve_fn` with the backward rules of
-`BacksolveAdjoint` (`_bwd_backsolve`, continuous.py:1402-1467),
-`GaussAdjoint` without checkpointing (`_bwd_gauss`, :1471-1568, the branch
-at :1548-1568, with the Gauss–Legendre branch of `make_gauss_quad_hook`
-:290-310, :412-423), `QuadratureAdjoint` (`_bwd_quadrature`, :1572-1650,
-the ODE branch, with `adaptive_gk_dp` :426-518) and
-`ForwardDiffSensitivity` (`_bwd_forwarddiff`, :1653-1766, without events
-and dense-output cotangents). The JAX `custom_vjp` becomes a
-`torch.autograd.Function` whose backward is another solve:
+`SolveOptions`, `AuxOut` and `make_ode_solve_fn` (routing :1765-1779,
+pinned-reverse eligibility `_pinned_on` :746-775, the interval fields
+`_make_interval_rhs_lam` / `_make_interval_rhs_joined` :777-803, dense
+storage :805-813) with the backward rules of `InterpolatingAdjoint` and
+checkpointed Gauss (`_bwd_interpolating`, :1101-1398: the dense branch,
+pinned or adaptive, and the checkpointed one, without the DAE branch and
+events), `BacksolveAdjoint` (`_bwd_backsolve`, :1402-1467), `GaussAdjoint`
+and `GaussKronrodAdjoint` (`_bwd_gauss`, :1471-1568, adaptive or pinned,
+with `make_gauss_quad_hook` :290-423), `QuadratureAdjoint`
+(`_bwd_quadrature`, :1572-1650, the ODE branch, with `adaptive_gk_dp`
+:426-518) and `ForwardDiffSensitivity` (`_bwd_forwarddiff`, :1653-1766,
+without events and dense-output cotangents). The JAX `custom_vjp` becomes
+a `torch.autograd.Function` whose backward is another solve:
+
+  InterpolatingAdjoint — reverse solve of the joined z = [λ; q] over the
+                      forward's dense output, q with error weight 0. Auto
+                      (pinned_reverse=None) pins it to the forward's grid
+                      (`reverse_pinned_solve`: one step per forward
+                      interval) and, with pinned_fallback, reruns the
+                      adaptive reverse when the pinned pass trips its
+                      error guard. checkpointing=True (and
+                      GaussAdjoint/GaussKronrodAdjoint(checkpointing=True))
+                      instead re-solves each inter-save interval forward
+                      from its stored start, from the top down, and runs
+                      the adaptive joined reverse over that local
+                      interpolant.
 
   BacksolveAdjoint  — reverse solve of the augmented [λ; q; u], the ODE
                       itself integrated backwards, with u snapped back to
@@ -19,7 +36,12 @@ and dense-output cotangents). The JAX `custom_vjp` becomes a
                       grid while the reverse adapts at adj_rtol / adj_atol.
   GaussAdjoint      — reverse solve of λ alone over the forward's dense
                       output; dL/dp = ∫ λᵀ∂f/∂p dt accumulates by an n_nodes
-                      Gauss–Legendre rule on every accepted reverse step.
+                      Gauss–Legendre rule on every accepted reverse step;
+                      pinned_reverse=True walks the forward's grid instead.
+  GaussKronrodAdjoint — the same, with a GK(7,15) pair on every step,
+                      bisected down to max_depth where its embedded error
+                      exceeds max(abstol·|Δt|/T, reltol·‖estimate‖) (one
+                      host read per check, where JAX uses lax.cond).
   QuadratureAdjoint — the same λ-only reverse, keeping λ's dense output;
                       afterwards dL/dp by one GK(7,15) panel per recorded
                       reverse step, then bisection of the panel with the
@@ -43,13 +65,19 @@ Sign conventions (continuous adjoint with discrete cost injections):
   dλ/dt = -(∂f/∂u)ᵀλ,   λ(t_i⁻) += Δᵢ   (loss cotangent at save time i)
   dq/dt = -λᵀ∂f/∂p from q(T) = 0  ⇒  q(t0) = dL/dp,   dL/du0 = λ(t0).
 
-The forward solve is shared by every rule; only the backward differs. The
-Interpolating and GaussKronrod backward rules, and Gauss with
-checkpointing or a pinned reverse, wait (ROADMAP M4): their forward runs,
-and asking for their gradient raises. Save times are host values and get
-no gradient, and gradients through dense output `sol(t)` wait too (M4).
+The forward solve is shared by every rule; only the backward differs.
+Save times are host values and get no gradient, and gradients through
+dense output `sol(t)` wait (ROADMAP M4). In the checkpointed reverse,
+intervals at or above the forward's t_final are skipped and the top one
+is clamped to t_final, as in JAX (:1311-1332): that covers the zero-width
+top interval when saveat ends at t1, and a truncated forward; the event
+matching at those boundaries waits for M8.
 
-Deliberate divergences from the JAX package (ROADMAP §3): Backsolve's
+Deliberate divergences from the JAX package (ROADMAP §3): times match
+relative to the solve's span where it is below 1 (`match_tol`; JAX's
+floor of 64 eps, 7.6e-6 in float32, took every save time of a shorter
+float32 solve as reached at t0, every interval as zero-width and every
+jump as due at t1), Backsolve's
 reconstruction drift has its own retcode (6, where JAX reuses 3, a DDE lag
 violation), and with checkpointing the drift guard checks every segment
 before its snap (JAX checks u at t0 only, after the t0 snap has restored
@@ -70,10 +98,13 @@ from ..ops.vjp import make_vjp_kernels
 from ..sensealg import (BacksolveAdjoint, ForwardDiffSensitivity, GaussAdjoint,
                         GaussKronrodAdjoint, InterpolatingAdjoint,
                         QuadratureAdjoint)
-from ..solvers.integrate import RETCODE_TERMINATED, Stats, time_dtype
+from ..solvers.explicit import ExplicitRK
+from ..solvers.integrate import (RETCODE_TERMINATED, Stats, integrate,
+                                 match_tol, time_dtype)
 from ..utils.pytree import ravel_pytree
-from .common import (augmented_fvec, forward_saveat_solve, match_cotangents,
-                     reverse_joined_solve, save_carry0, save_hook_factory,
+from .common import (augmented_fvec, forward_saveat_solve,
+                     match_cotangents, reverse_joined_solve,
+                     reverse_pinned_solve, save_carry0, save_hook_factory,
                      saved_rows)
 
 __all__ = ["SolveOptions", "AuxOut", "AdjointRecord", "make_ode_solve_fn",
@@ -83,11 +114,9 @@ __all__ = ["SolveOptions", "AuxOut", "AdjointRecord", "make_ode_solve_fn",
 # package reports it as 3, the code of a DDE lag violation
 RETCODE_RECON_DRIFT = 6
 
-_UNPORTED_RULES = {
-    InterpolatingAdjoint: "ROADMAP M4",
-    GaussAdjoint: "ROADMAP M4 (checkpointing=True, pinned_reverse=True)",
-    GaussKronrodAdjoint: "ROADMAP M4",
-}
+_GAUSS_RULES = (GaussAdjoint, GaussKronrodAdjoint)
+_RULES = (BacksolveAdjoint, InterpolatingAdjoint, *_GAUSS_RULES,
+          QuadratureAdjoint, ForwardDiffSensitivity)
 
 
 @dataclass(frozen=True)
@@ -113,9 +142,16 @@ class SolveOptions:
 class AdjointRecord:
     """Filled in by the backward pass: the reverse solve's Stats, whose
     retcode is the worst of the forward, the reverse and the drift guard
-    (nonzero means the gradient is NaN). None until a backward ran."""
+    (nonzero means the gradient is NaN); `reverse`, the reverse solve that ran
+    ("adaptive", "pinned", "pinned, then adaptive" when the auto-pinned
+    pass tripped its guard, or "checkpointed"); `resolves`, the intervals
+    of nonzero width that the checkpointed reverse solved forward again.
+    The checkpointed Stats sum the local reverse solves. None until a
+    backward ran."""
 
     stats: Optional[Stats] = None
+    reverse: Optional[str] = None
+    resolves: int = 0
 
 
 class AuxOut(NamedTuple):
@@ -164,9 +200,15 @@ class _ContinuousRule:
         self.u0_tree, self.unravel_p, self.has_p = u0_tree, unravel_p, has_p
         self.bwd_stepper = bwd_solver or solver
         self.record, self.hooks = record, hooks
-        # the λ-only reverses read u(t) from the forward's dense output
-        self.store_dense = opts.dense or type(sensealg) in (GaussAdjoint,
-                                                            QuadratureAdjoint)
+        # the reverses over the forward's interpolant read u(t) from its
+        # dense output; the checkpointed ones re-solve instead
+        self.checkpointed = getattr(sensealg, "checkpointing", False) and (
+            isinstance(sensealg, (InterpolatingAdjoint, *_GAUSS_RULES)))
+        needs_dense = (isinstance(sensealg, (QuadratureAdjoint,
+                                             InterpolatingAdjoint,
+                                             *_GAUSS_RULES))
+                       and not self.checkpointed)
+        self.store_dense = bool(needs_dense or opts.dense)
         self.dense = self.stats = self.t_final = None
         self.step_log = (_StepLog(solver)
                          if isinstance(sensealg, ForwardDiffSensitivity)
@@ -197,8 +239,8 @@ class _ContinuousRule:
         return fwd
 
     def backward(self, u0vec, pflat, ys_save, u_final, d_ys, d_uf):
-        """The reverse pass of the rule (`solve_fn` refuses a gradient under
-        an unported rule before the forward runs)."""
+        """The reverse pass of the rule: the cotangents of the save rows and
+        of u_final -> those of u0 and p."""
         n, nt = u0vec.numel(), ys_save.shape[0]
         lam_jumps = (d_ys.reshape(nt, n) if d_ys is not None
                      else u0vec.new_zeros(nt, n))
@@ -216,6 +258,7 @@ class _ContinuousRule:
         if d_uf is not None:  # sol.u_final cotangent: a λ jump at t1
             jumps[-1] += d_uf.reshape(-1)
         opts = self.opts
+        self.record.reverse, self.record.resolves = "adaptive", 0
         adj = dict(
             rtol=opts.adj_rtol if opts.adj_rtol is not None else opts.rtol,
             atol=opts.adj_atol if opts.adj_atol is not None else opts.atol,
@@ -225,6 +268,12 @@ class _ContinuousRule:
         if isinstance(self.sensealg, BacksolveAdjoint):
             lam0, q, rstats, worst = self._backward_backsolve(
                 u0vec, pflat, p, kern, times, jumps, ys_save, u_final, adj)
+        elif self.checkpointed:
+            lam0, q, rstats, worst = self._backward_checkpointed(
+                u0vec, pflat, p, kern, times, jumps, ys_save, u_final, adj)
+        elif isinstance(self.sensealg, InterpolatingAdjoint):
+            lam0, q, rstats, worst = self._backward_interpolating(
+                u0vec, pflat, p, kern, times, jumps, adj)
         else:
             lam0, q, rstats, worst = self._backward_lambda(
                 u0vec, pflat, p, kern, times, jumps, adj)
@@ -286,29 +335,150 @@ class _ContinuousRule:
                 worst = max(worst, RETCODE_RECON_DRIFT)
         return z[:n], z[n:n + npf], rstats, worst
 
+    def _pinned_on(self) -> bool:
+        """Whether the reverse rides the forward's grid (JAX `_pinned_on`):
+        only with an explicit-RK reverse stepper; auto (pinned_reverse=None)
+        pins InterpolatingAdjoint alone."""
+        want = getattr(self.sensealg, "pinned_reverse", None)
+        if want is False:
+            return False
+        eligible = isinstance(self.bwd_stepper, ExplicitRK)
+        if want is True and not eligible:
+            raise NotImplementedError(
+                "pinned_reverse=True needs an explicit-RK reverse stepper "
+                "and no events/DAE mass structure; leave it None (auto) or "
+                "set False")
+        if want is None:
+            return eligible and type(self.sensealg) is InterpolatingAdjoint
+        return eligible
+
+    def _backward_interpolating(self, u0vec, pflat, p, kern, times, jumps,
+                                adj):
+        """(λ(t0), q(t0), reverse Stats, worst retcode) of the dense
+        InterpolatingAdjoint: the joined z = [λ; q] runs backwards over the
+        forward's dense output with aug_rhs = −[ūᵀ, p̄ᵀ] from one
+        `f_and_vjp` per stage, q with error weight 0 (pure quadrature, no
+        feedback into λ). Pinned to the forward's grid when `_pinned_on`;
+        under auto pinning with pinned_fallback, a pinned pass that trips
+        its error guard is followed by the adaptive reverse (a host branch
+        where JAX uses lax.cond), while pinned_reverse=True keeps the
+        guard's NaN."""
+        dense, n, npf = self.dense, u0vec.numel(), pflat.numel()
+        aug_rhs = _joined_rhs(kern, p, n, lambda t: dense_eval(dense, t))
+        z0 = u0vec.new_zeros(n + npf)
+        wts = torch.cat([u0vec.new_ones(n), u0vec.new_zeros(npf)])
+        if self._pinned_on():
+            z, _, rstats = reverse_pinned_solve(
+                self.bwd_stepper,
+                lambda i: _joined_rhs(kern, p, n, _interval_y(dense, i)),
+                dense, times, jumps, z0, n, rtol=adj["rtol"],
+                atol=adj["atol"], err_weights=wts)
+            self.record.reverse = "pinned"
+            if (rstats.retcode != 0 and self.sensealg.pinned_reverse is None
+                    and self.sensealg.pinned_fallback):
+                z, _, rstats, _ = reverse_joined_solve(
+                    self.bwd_stepper, aug_rhs, times, jumps, z0, n,
+                    err_weights=wts, **adj)
+                self.record.reverse = "pinned, then adaptive"
+        else:
+            z, _, rstats, _ = reverse_joined_solve(
+                self.bwd_stepper, aug_rhs, times, jumps, z0, n,
+                err_weights=wts, **adj)
+        return z[:n], z[n:], rstats, rstats.retcode
+
+    def _backward_checkpointed(self, u0vec, pflat, p, kern, times, jumps,
+                               ys_save, u_final, adj):
+        """(λ(t0), q(t0), summed reverse Stats, worst retcode) of
+        InterpolatingAdjoint(checkpointing=True), which
+        GaussAdjoint/GaussKronrodAdjoint(checkpointing=True) share (JAX
+        :1252-1398, without events): for each inter-save interval from the
+        top down, add its jump, solve the interval forward again from the
+        stored save value with dense output, then run the adaptive joined
+        reverse over that local interpolant. The local forward gets
+        opts.max_steps under a fixed grid, else max(max_steps // 8, 64)
+        steps; the worst retcode of every local solve poisons the
+        gradient."""
+        opts, n, npf = self.opts, u0vec.numel(), pflat.numel()
+        kind = type(self.t0)
+        ckpt = torch.cat([u0vec[None], ys_save, u_final[None]])
+        seg_max_steps = (opts.max_steps if opts.fixed_dt is not None
+                         else max(opts.max_steps // 8, 64))
+        wts = torch.cat([u0vec.new_ones(n), u0vec.new_zeros(npf)])
+        tf = self.t_final
+        tdir = kind(1.0) if self.t1 >= self.t0 else kind(-1.0)
+        tol_tf = match_tol(kind, self.t1 - self.t0, tf)
+        fvec = lambda uv, t: kern.fvec(uv, p, t)
+        z = u0vec.new_zeros(n + npf)
+        worst = n_acc = n_rej = n_fev = resolves = 0
+        for i in range(times.shape[0] - 1, 0, -1):
+            z = z.clone()
+            z[:n] += jumps[i]
+            t_hi, t_lo = times[i], times[i - 1]
+            # intervals at or above t_final hold u(t_final): no dynamics
+            if kind(kind(t_lo - tf) * tdir) >= -tol_tf:
+                continue
+            if kind(kind(t_hi - tf) * tdir) > 0:
+                t_hi = tf
+            local = integrate(self.solver, fvec, t_lo, t_hi, ckpt[i - 1],
+                              rtol=opts.rtol, atol=opts.atol,
+                              max_steps=seg_max_steps, store_dense=True,
+                              fixed_dt=opts.fixed_dt)
+            aug_rhs = _joined_rhs(
+                kern, p, n, lambda t, d=local.dense: dense_eval(d, t))
+            rev = integrate(self.bwd_stepper, aug_rhs, t_hi, t_lo, z,
+                            rtol=adj["rtol"], atol=adj["atol"],
+                            max_steps=adj["max_steps"], store_dense=False,
+                            err_weights=wts)
+            fwd_rc = local.stats.retcode
+            worst = max(worst, 0 if fwd_rc == RETCODE_TERMINATED else fwd_rc,
+                        rev.stats.retcode)
+            n_acc += rev.stats.n_accepted
+            n_rej += rev.stats.n_rejected
+            n_fev += rev.stats.n_fevals
+            resolves += int(t_hi != t_lo)
+            z = rev.u_final
+        z = z.clone()
+        z[:n] += jumps[0]
+        self.record.reverse, self.record.resolves = "checkpointed", resolves
+        rstats = Stats(n_accepted=n_acc, n_rejected=n_rej, n_fevals=n_fev,
+                       retcode=worst)
+        return z[:n], z[n:], rstats, worst
+
     def _backward_lambda(self, u0vec, pflat, p, kern, times, jumps, adj):
-        """(λ(t0), dL/dp, reverse Stats, worst retcode) of GaussAdjoint and
-        QuadratureAdjoint: λ alone runs backwards over the forward's dense
-        output (no error weights: every row is controlled). Gauss's hook
-        integrates λᵀ∂f/∂p on each accepted step; Quadrature keeps λ's
-        dense output and integrates afterwards."""
+        """(λ(t0), dL/dp, reverse Stats, worst retcode) of GaussAdjoint,
+        GaussKronrodAdjoint and QuadratureAdjoint: λ alone runs backwards
+        over the forward's dense output (no error weights: every row is
+        controlled). The Gauss hooks integrate λᵀ∂f/∂p on each accepted
+        step, and with pinned_reverse=True the reverse walks the forward's
+        grid (no fallback: auto never pins these rules); Quadrature keeps
+        λ's dense output and integrates afterwards."""
         dense, n, npf = self.dense, u0vec.numel(), pflat.numel()
         quadrature = isinstance(self.sensealg, QuadratureAdjoint)
-
-        def aug_rhs(lam, t):
-            return -kern.vjp_u(dense_eval(dense, t), p, t, lam)
-
-        q0 = torch.zeros(npf, dtype=torch.promote_types(u0vec.dtype,
-                                                        torch.float32),
-                         device=u0vec.device)
-        hook = None
+        pinned = not quadrature and self._pinned_on()
+        aug_rhs = _lam_rhs(kern, p, lambda t: dense_eval(dense, t))
+        qdtype = torch.promote_types(u0vec.dtype, torch.float32)
+        q0 = torch.zeros(npf, dtype=qdtype, device=u0vec.device)
+        hook, finish = None, None
         if self.has_p and not quadrature:
-            hook = make_gauss_quad_hook(kern, p, dense, self.sensealg.n_nodes)
-        lam, q, rstats, lam_dense = reverse_joined_solve(
-            self.bwd_stepper, aug_rhs, times, jumps, u0vec.new_zeros(n), n,
-            hook=hook, hook_carry=q0, collect_dense=quadrature, **adj)
+            hook, q0, finish = make_gauss_quad_hook(
+                kern, p, dense, self.sensealg, self.t0, self.t1, qdtype,
+                pinned=pinned)
+        lam0 = u0vec.new_zeros(n)
+        if pinned:
+            lam, q, rstats = reverse_pinned_solve(
+                self.bwd_stepper,
+                lambda i: _lam_rhs(kern, p, _interval_y(dense, i)), dense,
+                times, jumps, lam0, n, rtol=adj["rtol"], atol=adj["atol"],
+                hook=hook, hook_carry=q0)
+            self.record.reverse = "pinned"
+        else:
+            lam, q, rstats, lam_dense = reverse_joined_solve(
+                self.bwd_stepper, aug_rhs, times, jumps, lam0, n,
+                hook=hook, hook_carry=q0, collect_dense=quadrature, **adj)
         if quadrature:
             q = adaptive_gk_dp(kern, p, dense, lam_dense, self.sensealg, q)
+        elif finish is not None:
+            q = finish(q)
         return lam, q, rstats, rstats.retcode
 
     def _backward_forwarddiff(self, u0vec, pflat, p, kern, lam, d_uf):
@@ -322,14 +492,15 @@ class _ContinuousRule:
         n, npf, dtype = u0vec.numel(), pflat.numel(), u0vec.dtype
         saveat, t0 = self.saveat, self.t0
         tdir = type(t0)(1.0) if self.t1 >= t0 else type(t0)(-1.0)
-        save_hook = save_hook_factory(saveat, tdir)
+        span = self.t1 - t0
+        save_hook = save_hook_factory(saveat, tdir, span)
         seeds = torch.eye(n + npf, dtype=dtype, device=u0vec.device)
         parts = []
         for block in torch.split(seeds, self.sensealg.chunk_size or n + npf):
             aug = augmented_fvec(kern, p, n, block[:, n:])
             z = torch.cat([u0vec, block[:, :n].reshape(-1)])
             fz = aug(z, t0).to(dtype)
-            carry = save_carry0(saveat, t0, tdir, z)
+            carry = save_carry0(saveat, t0, tdir, z, span)
             for t, dt in self.step_log.steps:
                 z1, f1, _ = self.solver.step(aug, t, dt, z, fz,
                                              need_err=False)
@@ -346,30 +517,131 @@ class _ContinuousRule:
         return contracted[:n], contracted[n:]
 
 
-def make_gauss_quad_hook(kern, p, dense, n_nodes: int):
-    """Per-accepted-step hook of a λ-only reverse solve that accumulates
-    dL/dp = ∫ λᵀ∂f/∂p dt in its carry (the Gauss–Legendre branch of the JAX
-    `make_gauss_quad_hook`). λ at a node comes from the step's own Hermite
-    interpolant, u from the forward's dense output. The carry is the
-    running sum, in promote(state dtype, float32): a bfloat16 running sum
-    would lose the mantissa."""
-    xg, wg = gl_01(n_nodes)
+def _joined_rhs(kern, p, n: int, y_of):
+    """The reverse field over z = [λ; q]: −[ūᵀ, p̄ᵀ] from one `f_and_vjp`
+    at u = y_of(t)."""
+    def rhs(z, t):
+        _, ubar, pbar = kern.f_and_vjp(y_of(t), p, t, z[:n])
+        return torch.cat([-ubar, -_flat(pbar, ubar)])
 
-    def hook(rec, qflat):
-        ta, tb, lam_a, fa, lam_b, fb = rec
-        kind = type(ta)
+    return rhs
+
+
+def _lam_rhs(kern, p, y_of):
+    """The reverse field over λ alone: −ūᵀ at u = y_of(t)."""
+    return lambda lam, t: -kern.vjp_u(y_of(t), p, t, lam)
+
+
+def _interval_y(dense, i: int):
+    """u(t) on the forward's interval i from its directly indexed Hermite
+    rows, no interval search: the pinned reverse's interpolant (JAX
+    `_make_interval_rhs_joined` / `_lam`, :777-803, and the pinned mode of
+    `make_gauss_quad_hook`)."""
+    rows = (dense.ts[i], dense.ts[i + 1], dense.ys[i], dense.fs[i],
+            dense.ys[i + 1], dense.fs[i + 1])
+    return lambda t: hermite_eval(t, *rows)
+
+
+def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
+                         pinned: bool = False):
+    """Per-accepted-step hook of a λ-only reverse solve that accumulates
+    dL/dp = ∫ λᵀ∂f/∂p dt in its carry (JAX `make_gauss_quad_hook`). λ at a
+    node comes from the step's own Hermite interpolant, u from the
+    forward's dense output, or, pinned, from the rows of the forward
+    interval `i` that the step walks (the record's seventh entry).
+    qdtype: promote(state dtype, float32), the running sum's dtype (a
+    bfloat16 sum would lose the mantissa).
+
+    GaussAdjoint: n_nodes Gauss–Legendre nodes per step; the carry is q.
+    GaussKronrodAdjoint: a GK(7,15) pair per step, and a step whose
+    embedded error exceeds max(abstol·|Δt|/T, reltol·‖estimate‖) is split
+    in half, recursively down to max_depth (each check one host read); the
+    carry is (q, Σ error).
+    Returns (hook, carry0, finish): finish(carry) -> q, and for
+    GaussKronrodAdjoint prints JAX's warning when the summed error exceeds
+    max(abstol, reltol·‖q‖). The nodes are a loop: the kernel ops have no
+    vmap rule."""
+    kind = type(t0)
+    device = dense.ys.device
+    npf = ravel_pytree(p)[0].numel()
+
+    def node_fn(rec):
+        ta, tb, lam_a, fa, lam_b, fb, *iv = rec
+        y_of = (_interval_y(dense, iv[0]) if pinned
+                else lambda tj: dense_eval(dense, tj))
+
+        def node(tj):
+            lam_j = hermite_eval(tj, ta, tb, lam_a, fa, lam_b, fb)
+            return ravel_pytree(kern.vjp_p(y_of(tj), p, tj, lam_j))[0].to(
+                qdtype)
+
+        return ta, tb, node
+
+    if isinstance(sensealg, GaussKronrodAdjoint):
+        xk, wk, wg = gauss_kronrod_01(7)
+        w_est = torch.as_tensor(wk, dtype=qdtype, device=device)
+        w_err = torch.as_tensor(wk - wg, dtype=qdtype, device=device)
+        span = kind(abs(kind(t1 - t0)))
+        abstol, reltol = kind(sensealg.abstol), kind(sensealg.reltol)
+
+        def panel(node, pa, pb):
+            width = kind(pb - pa)  # negative: the reverse walks backwards
+            vals = torch.stack([node(kind(pa + kind(width * kind(xj))))
+                                for xj in xk])
+            # q += ∫ (−λᵀ∂f/∂p) dt in the forward orientation
+            est = (w_est @ vals) * float(-width)
+            err = torch.linalg.vector_norm(w_err @ vals) * float(abs(width))
+            return est, err
+
+        def refine(node, pa, pb, depth):
+            est, err = panel(node, pa, pb)
+            if depth <= 0:
+                return est, err
+            err_v, est_norm = torch.stack(
+                [err, torch.linalg.vector_norm(est)]).tolist()
+            tol = max(kind(kind(abstol * abs(kind(pb - pa))) / span),
+                      kind(reltol * kind(est_norm)))
+            if not kind(err_v) > tol:
+                return est, err
+            pm = kind(kind(0.5) * kind(pa + pb))
+            e_l, r_l = refine(node, pa, pm, depth - 1)
+            e_r, r_r = refine(node, pm, pb, depth - 1)
+            return e_l + e_r, r_l + r_r
+
+        def gk_hook(rec, carry):
+            qflat, errsum = carry
+            ta, tb, node = node_fn(rec)
+            est, err = refine(node, ta, tb, sensealg.max_depth)
+            return qflat + est, errsum + err
+
+        def finish(carry):
+            qflat, errsum = carry
+            err_v, q_norm = torch.stack(
+                [errsum, torch.linalg.vector_norm(qflat)]).tolist()
+            tol = max(abstol, kind(reltol * kind(q_norm)))
+            if kind(err_v) > tol:
+                print("GaussKronrodAdjoint: accumulated quadrature error "
+                      f"estimate {err_v} exceeds tolerance {tol}; tighten "
+                      "adj_rtol/adj_atol or raise max_depth")
+            return qflat
+
+        zero = torch.zeros((), dtype=qdtype, device=device)
+        return gk_hook, (zero.new_zeros(npf), zero), finish
+
+    xg, wg = gl_01(sensealg.n_nodes)
+
+    def gl_hook(rec, qflat):
+        ta, tb, node = node_fn(rec)
         width = kind(tb - ta)  # negative: the reverse walks backwards
         total = None
         for xj, wj in zip(xg, wg):
-            tj = kind(ta + kind(width * kind(xj)))
-            lam_j = hermite_eval(tj, ta, tb, lam_a, fa, lam_b, fb)
-            vj = ravel_pytree(kern.vjp_p(dense_eval(dense, tj), p, tj, lam_j))[0]
-            term = vj.to(qflat.dtype) * float(kind(wj))
+            term = node(kind(ta + kind(width * kind(xj)))) * float(kind(wj))
             total = term if total is None else total + term
         # q += ∫_{ta}^{tb} (−λᵀ∂f/∂p) dt
         return qflat - total * float(width)
 
-    return hook
+    return gl_hook, torch.zeros(npf, dtype=qdtype, device=device), (
+        lambda q: q)
 
 
 def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init):
@@ -465,12 +737,12 @@ def make_ode_solve_fn(f, solver, sensealg, opts: SolveOptions, t0, t1, *,
     """Build `fn(u0, p, saveat) -> (ys, AuxOut)` whose gradient follows
     `sensealg`. saveat: host array of save times. user_*: the problem's
     jac / vjp / paramjac hooks (`ops.vjp.make_vjp_kernels`)."""
-    grads_ported = isinstance(sensealg, (BacksolveAdjoint, QuadratureAdjoint,
-                                         ForwardDiffSensitivity)) or (
-        type(sensealg) is GaussAdjoint and not sensealg.checkpointing
-        and not sensealg.pinned_reverse)
-    if not grads_ported and not isinstance(sensealg, tuple(_UNPORTED_RULES)):
-        raise NotImplementedError(f"no ODE adjoint rule for {sensealg!r}")
+    if not isinstance(sensealg, _RULES):
+        raise NotImplementedError(
+            f"no ODE adjoint rule for {sensealg!r}; the port has "
+            "BacksolveAdjoint, InterpolatingAdjoint, GaussAdjoint, "
+            "GaussKronrodAdjoint, QuadratureAdjoint, ForwardDiffSensitivity, "
+            "ForwardSensitivity and DirectAdjoint")
     hooks = dict(user_jac=user_jac, user_vjp=user_vjp,
                  user_paramjac=user_paramjac)
     reverse_solve = not isinstance(sensealg, ForwardDiffSensitivity)
@@ -482,13 +754,6 @@ def make_ode_solve_fn(f, solver, sensealg, opts: SolveOptions, t0, t1, *,
             pflat = u0vec.new_zeros(0)
         wants_grad = torch.is_grad_enabled() and (u0vec.requires_grad
                                                   or pflat.requires_grad)
-        if wants_grad and not grads_ported:
-            raise NotImplementedError(
-                f"gradients under {type(sensealg).__name__}: "
-                f"{_UNPORTED_RULES[type(sensealg)]}; the port has "
-                "BacksolveAdjoint, GaussAdjoint, QuadratureAdjoint, "
-                "ForwardDiffSensitivity, ForwardSensitivity and "
-                "DirectAdjoint so far")
         if wants_grad and opts.dense:
             raise NotImplementedError(
                 "gradients through dense output sol(t): ROADMAP M4")

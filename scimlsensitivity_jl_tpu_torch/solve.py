@@ -4,7 +4,8 @@ Counterpart of `scimlsensitivity_jl_tpu/solve.py:solve` -> `_solve_ode` for
 plain ODEs: saveat validation, the default-sensealg dispatch (solve.py:
 404-431, with its `fixed_grid_continuous` rule), the fixed-grid branch
 (solve.py:538-547), the continuous rules with the problem's jac / vjp /
-paramjac hooks (solve.py:577-581), ForwardSensitivity (solve.py:606-609)
+paramjac hooks and a checkpoint grid (`checkpoints=`, solve.py:548-581),
+ForwardSensitivity (solve.py:606-609)
 and adaptive DirectAdjoint (solve.py:611-619). Gradients follow
 `sensealg` through torch.autograd.
 Other problem types, callbacks, mass matrices and the sensealgs whose rules
@@ -89,6 +90,15 @@ def solve(
         bwd_solver=bwd_solver, adaptive=adaptive, unroll=unroll,
         verbose=verbose, dtmax=dtmax,
     )
+
+
+def _take_rows(tree, rows: torch.Tensor):
+    """The rows `rows` of every leaf of a tree of (nt, ...) tensors."""
+    if isinstance(tree, dict):
+        return {key: _take_rows(tree[key], rows) for key in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_take_rows(x, rows) for x in tree)
+    return tree[rows.to(tree.device)]
 
 
 def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
@@ -183,13 +193,30 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
                                       n_steps=n_steps, unroll=unroll)
         ys, aux = fn(prob.u0, prob.p, saveat)
     elif isinstance(sensealg, _CONTINUOUS_RULES):
-        if getattr(sensealg, "checkpoints", None) is not None:
-            raise NotImplementedError("checkpoints=...: ROADMAP M4")
+        # a checkpoint grid of its own (JAX solve.py:548-578): the
+        # checkpoint times join the internal save grid, so the forward
+        # keeps the states there and the checkpointed reverse re-solves the
+        # finer intervals; the caller's rows are gathered back out
+        saveat_solve, user_rows = saveat, None
+        ckpts = getattr(sensealg, "checkpoints", None)
+        if ckpts is not None:
+            if not getattr(sensealg, "checkpointing", False):
+                raise ValueError("checkpoints=... requires checkpointing=True")
+            ck = np.asarray(ckpts, dtype=float)
+            if ck.size and (ck.min() < float(min(t0, t1)) - 1e-12
+                            or ck.max() > float(max(t0, t1)) + 1e-12):
+                raise ValueError("checkpoints must lie inside tspan")
+            merged = np.union1d(saveat.astype(float), ck)
+            user_rows = torch.from_numpy(
+                np.searchsorted(merged, saveat.astype(float)))
+            saveat_solve = merged.astype(kind)
         fn = make_ode_solve_fn(prob.f, solver, sensealg, opts, t0, t1,
                                user_jac=prob.jac, user_vjp=prob.vjp,
                                user_paramjac=prob.paramjac,
                                bwd_solver=bwd_solver)
-        ys, aux = fn(prob.u0, prob.p, saveat)
+        ys, aux = fn(prob.u0, prob.p, saveat_solve)
+        if user_rows is not None:
+            ys = _take_rows(ys, user_rows)
     elif isinstance(sensealg, DirectAdjoint):
         from .adjoints.direct import make_direct_solve_fn
 

@@ -14,7 +14,7 @@ controller state stay on the host as numpy scalars of the time dtype, so
 they round exactly as the JAX package's device scalars do, and the state
 stays on the device. The fixed-grid march therefore reads nothing back
 from the device. The adaptive loop reads one number per step, the
-weighted error norm, in `_error_norm`: the only place a later CUDA-graph
+weighted error norm (`error_norm`): the only place a later CUDA-graph
 integrator has to replace.
 """
 
@@ -33,6 +33,8 @@ __all__ = [
     "Stats",
     "integrate",
     "hairer_norm",
+    "error_norm",
+    "match_tol",
     "initial_step_size",
     "time_dtype",
     "state_kind",
@@ -170,17 +172,31 @@ def _next_stop(t, t1, tstops, tdir):
     return kind(candidates.min() * tdir)
 
 
-def _error_norm(err, u, u1, rtol, atol, err_weights, weight_count) -> float:
-    """The adaptive integrator's one device->host read per step: the RMS of the
-    error scaled by atol + rtol·max(|u|, |u1|), over the weighted components
-    only when `err_weights` is given (weight-0 rows, pure quadrature
-    accumulators, must not dilute the mean)."""
+def error_norm(err, u, u1, rtol, atol, err_weights=None,
+               weight_count=None) -> torch.Tensor:
+    """The RMS of the error scaled by atol + rtol·max(|u|, |u1|), over the
+    weighted components only when `err_weights` is given (weight-0 rows,
+    pure quadrature accumulators, must not dilute the mean); a device
+    scalar."""
     sc = (torch.maximum(u.abs(), u1.abs()).to(err.dtype) * float(rtol)
           + float(atol))
     if err_weights is None:
-        return hairer_norm(err / sc).item()
+        return hairer_norm(err / sc)
     scaled = (err_weights * (err / sc)).abs() ** 2
-    return torch.sqrt(torch.sum(scaled) / weight_count).item()
+    return torch.sqrt(torch.sum(scaled) / weight_count)
+
+
+def match_tol(kind, span, *ts):
+    """The tolerance to which every stop, save and jump matcher of the port
+    takes two times as one: 64 eps · max(|t|..., min(1, |span|)) in the
+    time dtype, span the length of the solve. JAX's floor is 1 time unit
+    (64 eps · max(|t|..., 1)); for spans of 1 or more the two agree, and
+    below 1 the port's floor shrinks with the span, so that a short solve's
+    steps and save times stay apart where 64 float32 eps (7.6e-6) can
+    exceed the whole span (a deliberate divergence, ROADMAP §3)."""
+    eps = kind(np.finfo(kind).eps)
+    floor = min(kind(1.0), abs(kind(span)))
+    return kind(kind(kind(64.0) * eps) * max([floor] + [abs(t) for t in ts]))
 
 
 def integrate(
@@ -231,7 +247,6 @@ def integrate(
     rtol, atol = kind(rtol), kind(atol)
     if tstops is not None:
         tstops = np.asarray(tstops, dtype=kind)
-    eps = kind(np.finfo(kind).eps)
     weight_count = None
     if err_weights is not None:
         weight_count = max(int((err_weights > 0).sum().item()), 1)
@@ -266,8 +281,8 @@ def integrate(
         u1, f1 = u1.to(dtype), f1.to(dtype)
 
         if fixed_dt is None:
-            err_norm = kind(_error_norm(err, u, u1, rtol, atol, err_weights,
-                                        weight_count))
+            err_norm = kind(error_norm(err, u, u1, rtol, atol, err_weights,
+                                       weight_count).item())
             bad = not np.isfinite(err_norm)
             if bad:
                 err_norm = kind(2.0)
@@ -302,8 +317,8 @@ def integrate(
             if stop_transform is not None and clipped:
                 # evaluate f one stop-matching tolerance into the direction
                 # of integration, on the far side of the jump
-                t_eval = kind(t_new + kind(tdir * kind(
-                    kind(kind(64.0) * eps) * max(kind(1.0), abs(t_new)))))
+                t_eval = kind(t_new + kind(tdir * match_tol(
+                    kind, t1 - t0, t_new)))
                 u_new, hook_carry, fired = stop_transform(t_new, u_new,
                                                           hook_carry)
                 if fired:

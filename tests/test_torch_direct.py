@@ -3,10 +3,12 @@
 JAX package's (autograd through the masked fixed-trip `integrate_scan`),
 in float64 on the CPU.
 
-JAX runs op by op (`jax.disable_jit`), as the adaptive parity tests of
-test_torch_solve.py do: a jitted program contracts multiply-adds into FMAs,
-and the controller's error on a step clipped to a save time is dominated by
-roundoff, so only the op-by-op program takes the port's exact steps."""
+JAX runs as one program compiled at XLA optimization level 0
+(`torch_parity.jax_o0`), as the adaptive parity tests of
+test_torch_solve.py do: an optimized program contracts multiply-adds into
+FMAs, and the controller's error on a step clipped to a save time is
+dominated by roundoff, so only a program whose rounding is op by op takes
+the port's exact steps."""
 
 import jax
 import jax.numpy as jnp
@@ -14,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import (assert_close, lotka_volterra_jax,
+from torch_parity import (assert_close, jax_o0, lotka_volterra_jax,
                           lotka_volterra_port, to_numpy, to_port)
 
 import scimlsensitivity_jl_tpu as J
@@ -24,8 +26,8 @@ U0 = np.array([1.0, 1.0])
 PRM = np.array([1.5, 1.0, 3.0, 1.0])
 T1 = 1.0
 TS = np.array([0.0, 0.3, 0.6, 1.0])
-# 13 attempts reach t1 from dt0 = 0.5 (11 accepted, 2 rejected); JAX op
-# by op pays for every one of the scan's max_steps iterations
+# 13 attempts reach t1 from dt0 = 0.5 (11 accepted, 2 rejected); the
+# scan runs all of its max_steps iterations
 MAX_STEPS = 16
 KW = dict(saveat=TS, rtol=1e-6, atol=1e-9)
 
@@ -41,10 +43,9 @@ def _jax_run(max_steps=MAX_STEPS, dt0=0.5, **sense):
         return jnp.sum(sol.ys ** 2), (sol.ys, st.n_accepted, st.n_rejected,
                                       st.n_fevals, sol.retcode)
 
-    with jax.disable_jit():
-        (_, aux), grads = jax.value_and_grad(loss, argnums=(0, 1),
-                                             has_aux=True)(
-            jnp.asarray(U0), jnp.asarray(PRM))
+    (_, aux), grads = jax_o0(
+        jax.value_and_grad(loss, argnums=(0, 1), has_aux=True),
+        jnp.asarray(U0), jnp.asarray(PRM))
     ys, n_acc, n_rej, n_fev, rc = aux
     counts = (int(n_acc), int(n_rej), int(n_fev), int(rc))
     return [np.asarray(g) for g in grads], np.asarray(ys), counts

@@ -3,7 +3,9 @@ float64 on the CPU: the flagship reaction–diffusion gradient (n = 1024, 16
 fixed Tsit5 steps) under BacksolveAdjoint (fixed-grid forward, adaptive
 reverse at adj_rtol) and DirectAdjoint, and the Backsolve reconstruction
 guard with its two deliberate divergences (its own retcode, and a check
-before every checkpoint snap)."""
+before every checkpoint snap). JAX runs each reference as one program
+compiled at XLA optimization level 0 (`torch_parity.jax_o0`), whose
+rounding is op by op, as the port's."""
 
 import jax
 import jax.numpy as jnp
@@ -44,8 +46,8 @@ def test_rd1d_gradients_match_jax(sensealg):
                       J.Tsit5(), sensealg=getattr(J, sensealg)(), **kw)
         return jnp.sum(sol.ys[-1] ** 2)
 
-    gu_j, gp_j = jax.grad(loss_jax, argnums=(0, 1))(jnp.asarray(u0),
-                                                    jnp.asarray(p))
+    gu_j, gp_j = jax_o0(jax.grad(loss_jax, argnums=(0, 1)), jnp.asarray(u0),
+                        jnp.asarray(p))
     uu = to_port(u0).requires_grad_()
     pp = to_port(p).requires_grad_()
     sol = P.solve(P.ODEProblem(port_field(N, 1.0 / N), uu, (0.0, t1), pp),
@@ -94,7 +96,7 @@ def test_backsolve_recon_guard_poisons_in_both_packages(capfd):
                           verbose=True, **kw)
             return jnp.sum(sol.ys[-1] ** 2)
 
-        g_j = np.asarray(jax.grad(loss_jax)(jnp.asarray(p)))
+        g_j = np.asarray(jax_o0(jax.grad(loss_jax), jnp.asarray(p)))
         pp = to_port(p).requires_grad_()
         sol = P.solve(P.ODEProblem(port_f, to_port(u0), (0.0, T), pp),
                       P.Tsit5(), saveat=[0.0, T],
@@ -175,7 +177,8 @@ def test_dict_parameters_carry_across_and_differentiate():
                       sensealg=J.BacksolveAdjoint(), **kw)
         return jnp.sum(sol.ys[-1] ** 2)
 
-    g_j = jax.grad(loss_jax)({k: jnp.asarray(v) for k, v in p_np.items()})
+    g_j = jax_o0(jax.grad(loss_jax),
+                 {k: jnp.asarray(v) for k, v in p_np.items()})
     p = {k: v.requires_grad_() for k, v in to_port(p_np).items()}
     sol = P.solve(P.ODEProblem(lambda u, q, t: lv(u, q, t, torch.stack),
                                to_port(np.array([1.0, 1.0])), (0.0, 1.0), p),

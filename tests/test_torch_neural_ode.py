@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import to_numpy, to_port
+from torch_parity import jax_o0, to_numpy, to_port
 
 import scimlsensitivity_jl_tpu as J
 import scimlsensitivity_jl_tpu_torch as P
@@ -52,7 +52,7 @@ def _port_spiral_field(u, p, t):
     return fused_mlp2(p, u ** 3)
 
 
-def _spiral_grads(solve_kw, jax_kw=None, disable_jit=False):
+def _spiral_grads(solve_kw, jax_kw=None, op_rounding=False):
     """d/dp of Σ(ys − data)² for the spiral, JAX then the port, and the
     port's solution."""
     params = _mlp_params((2, 50, 2), seed=3)
@@ -66,9 +66,8 @@ def _spiral_grads(solve_kw, jax_kw=None, disable_jit=False):
         return jnp.sum((sol.ys - jnp.asarray(data)) ** 2)
 
     jp = {k: jnp.asarray(v) for k, v in params.items()}
-    if disable_jit:
-        with jax.disable_jit():
-            g_jax = jax.grad(loss_jax)(jp)
+    if op_rounding:
+        g_jax = jax_o0(jax.grad(loss_jax), jp)
     else:
         g_jax = jax.grad(loss_jax)(jp)
 
@@ -101,7 +100,8 @@ def test_spiral_fixed_grid_direct_matches_jax():
 def test_spiral_adaptive_matches_jax(sensealg):
     """S2 (BacksolveAdjoint, __graft_entry__.py:entry) and S3 (sensealg=None,
     which picks GaussAdjoint at n + p = 254 in both packages): rtol 1e-3,
-    atol 1e-6. JAX runs op by op (jax.disable_jit), as the adaptive parity
+    atol 1e-6. JAX runs as one program compiled at XLA optimization level
+    0 (`torch_parity.jax_o0`, rounding op by op), as the adaptive parity
     test of tests/test_torch_solve.py does, so both take the same steps;
     rtol 1e-9 on the gradient (the Gauss sums run in another order)."""
     kw = dict(ADAPTIVE)
@@ -109,7 +109,7 @@ def test_spiral_adaptive_matches_jax(sensealg):
     if sensealg is not None:
         kw["sensealg"] = getattr(P, sensealg)()
         jax_kw["sensealg"] = getattr(J, sensealg)()
-    g_jax, g_port, sol = _spiral_grads(kw, jax_kw, disable_jit=True)
+    g_jax, g_port, sol = _spiral_grads(kw, jax_kw, op_rounding=True)
     want = P.BacksolveAdjoint if sensealg else P.GaussAdjoint
     assert type(sol.sensealg) is want
     assert sol.retcode == 0 and sol.adjoint.stats.retcode == 0

@@ -7,13 +7,14 @@ import re
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from torch_parity import (assert_close, lotka_volterra_jax,
+from torch_parity import (assert_close, jax_o0, lotka_volterra_jax,
                           lotka_volterra_port, rd1d_u0, to_port)
 
 import scimlsensitivity_jl_tpu as J
@@ -25,24 +26,36 @@ LV_U0 = np.array([1.0, 1.0])
 LV_P = np.array([1.5, 1.0, 3.0, 1.0])
 
 
+def _arrays(sol):
+    """The array fields of a JAX solution, which a compiled program can
+    return (the problem and solver are not arrays)."""
+    return dict(ys=sol.ys, stats=sol.stats, retcode=sol.retcode,
+                dense=sol.dense, u_final=sol.u_final)
+
+
 @pytest.mark.parametrize("dt0", [None, 0.5], ids=["auto_dt0", "rejecting_dt0"])
 def test_lotka_volterra_adaptive_matches_jax(dt0):
     """Same accepted grid, counts, retcode, saved states and dense output.
 
-    The JAX side runs op by op (jax.disable_jit): a jitted XLA program
-    contracts multiply-adds into FMAs, and on a short step clipped to a save
-    time the embedded error estimate is a cancellation dominated by
-    roundoff, so the compiled controller picks steps that differ in the
-    sixth digit. Op by op, both packages do the same float64 arithmetic and
+    The JAX side runs as one program compiled at XLA optimization level 0
+    (`torch_parity.jax_o0`): an optimized XLA program contracts
+    multiply-adds into FMAs, and on a short step clipped to a save time the
+    embedded error estimate is a cancellation dominated by roundoff, so the
+    optimized controller picks steps that differ in the sixth digit. With
+    op-by-op rounding, both packages do the same float64 arithmetic and
     agree to the last bit."""
     ts = np.linspace(0.0, 1.5, 4)
     kw = dict(saveat=ts, rtol=1e-6, atol=1e-9, dt0=dt0, dense=True)
-    with jax.disable_jit():
-        sj = J.solve(J.ODEProblem(lotka_volterra_jax, jnp.asarray(LV_U0),
-                                  (0.0, 1.5), jnp.asarray(LV_P)), J.Tsit5(),
-                     **kw)
-        t_probe = np.array([0.3, 1.1])
-        dense_j = np.asarray(sj(jnp.asarray(t_probe)))
+    t_probe = np.array([0.3, 1.1])
+
+    def jax_solve(u0, p, t_eval):
+        sol = J.solve(J.ODEProblem(lotka_volterra_jax, u0, (0.0, 1.5), p),
+                      J.Tsit5(), **kw)
+        return _arrays(sol), sol(t_eval)
+
+    sj, dense_j = jax_o0(jax_solve, jnp.asarray(LV_U0), jnp.asarray(LV_P),
+                         jnp.asarray(t_probe))
+    sj = SimpleNamespace(**sj)
     sp = P.solve(P.ODEProblem(lotka_volterra_port, to_port(LV_U0), (0.0, 1.5),
                               to_port(LV_P)), P.Tsit5(), **kw)
     n_acc = int(sj.stats.n_accepted)
@@ -123,11 +136,18 @@ def test_reversed_span_fixed_grid_dt_sign():
     same steps: 10 on the discrete march; the continuous one's controller
     adds a last sliver of roundoff (11)."""
     kw = dict(adaptive=False)
-    with jax.disable_jit():
-        jprob = J.ODEProblem(lambda u, p, t: -u, jnp.ones(1), (1.0, 0.0))
+
+    def jax_solves(u0):
+        jprob = J.ODEProblem(lambda u, p, t: -u, u0, (1.0, 0.0))
         sj = J.solve(jprob, J.Tsit5(), dt=0.1, **kw)
-        sj_neg = {sa: J.solve(jprob, J.Tsit5(), dt=-0.1, sensealg=sa, **kw)
-                  for sa in (None, J.BacksolveAdjoint())}
+        return _arrays(sj), [
+            _arrays(J.solve(jprob, J.Tsit5(), dt=-0.1, sensealg=sa, **kw))
+            for sa in (None, J.BacksolveAdjoint())]
+
+    sj, sols_neg = jax_o0(jax_solves, jnp.ones(1))
+    sj = SimpleNamespace(**sj)
+    sj_neg = {sa: SimpleNamespace(**s) for sa, s in
+              zip((None, J.BacksolveAdjoint()), sols_neg)}
     assert int(sj.stats.n_accepted) == 1
     assert int(sj_neg[None].stats.n_accepted) == 10
     np.testing.assert_allclose(np.asarray(sj.u_final), [2.71809888], atol=1e-8)
@@ -144,17 +164,17 @@ def test_reversed_span_fixed_grid_dt_sign():
 
 def test_unported_paths_raise():
     """What the port does not have yet fails loudly, naming the ROADMAP
-    item, instead of returning a silent zero gradient."""
+    item, instead of returning a silent zero gradient: a gradient through
+    dense output sol(t), the unrolled adaptive continuous solves, and
+    callbacks."""
     u0 = to_port(LV_U0).requires_grad_()
     prob = P.ODEProblem(lotka_volterra_port, u0, (0.0, 1.0), to_port(LV_P))
-    with pytest.raises(NotImplementedError, match="ROADMAP M4"):
-        P.solve(prob, sensealg=P.InterpolatingAdjoint())
-    with pytest.raises(NotImplementedError, match="ROADMAP M4"):
-        P.solve(prob, sensealg=P.GaussAdjoint(checkpointing=True))
+    with pytest.raises(NotImplementedError, match="sol\\(t\\): ROADMAP M4"):
+        P.solve(prob, sensealg=P.InterpolatingAdjoint(), dense=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP M3/M4"):
+        P.solve(prob, sensealg=P.GaussKronrodAdjoint(), unroll=True)
     with pytest.raises(NotImplementedError, match="ROADMAP M8"):
         P.solve(prob, callback=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP M4"):
-        P.solve(prob, sensealg=P.GaussKronrodAdjoint())
     # without a gradient the shared forward solve runs under any rule
     sol = P.solve(P.ODEProblem(lotka_volterra_port, to_port(LV_U0),
                                (0.0, 1.0), to_port(LV_P)))
