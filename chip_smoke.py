@@ -47,7 +47,20 @@ launch counters set to 0 just before it and read just after:
     GaussKronrodAdjoint() (S2k), GaussAdjoint(checkpointing=True) (S2c)
     and GaussAdjoint(pinned_reverse=True) (S2p) (K3, K4); Lotka–Volterra
     under InterpolatingAdjoint and GaussKronrodAdjoint, and the auto-pinned
-    against the unpinned InterpolatingAdjoint on [0, 0.5].
+    against the unpinned InterpolatingAdjoint on [0, 0.5];
+  * events, dense output and save times: the flagship PDE with one dose
+    (PresetTimeCallback at 24 ns, affect u ← 0.9u + 0.05u²), adaptive Tsit5
+    on [0, 64 ns] from dt0 = 1e-9, float64 at n = 262,144 (rtol 1e-8,
+    atol 1e-10) and float32 at n = 1,048,576 (rtol 1e-4, atol 1e-7), loss
+    Σ ys[-1]², under sensealg=None (GaussAdjoint), BacksolveAdjoint,
+    InterpolatingAdjoint and DirectAdjoint (K1, K2); the spiral at S2's
+    setting with the continuous event ‖u‖² = 7.2555 (affect u ← 0.8u)
+    under sensealg=None (GaussAdjoint), InterpolatingAdjoint,
+    BacksolveAdjoint, QuadratureAdjoint and DirectAdjoint (S2e), with
+    dense=True and the loss Σ sol(t)² over 50 query times under GaussAdjoint
+    and InterpolatingAdjoint (S2d), and the gradient of a saveat tensor
+    under GaussAdjoint (S2t) (K3, K4); the bouncing ball of
+    bench.py:289-316 in float64 (no kernel).
 
 Phases, each printed before the last line:
 
@@ -90,6 +103,12 @@ Phases, each printed before the last line:
      card against CPU, with their K3/K4 launches; the Lotka–Volterra rules
      on the card against ForwardDiffSensitivity, and the auto-pinned
      against the unpinned reverse on [0, 0.5], gradients and times;
+  5f. [events f64]: the dosed PDE at n = 262,144 under each rule, the card
+     against the port's CPU run, one dose recorded, sensealg=None on
+     GaussAdjoint, K1/K2 launches, then float32 at n = 1,048,576 against
+     the card's float64; S2e, S2d and S2t, card against CPU, with the same
+     event count on both (at least one) and their K3/K4 launches; the
+     bouncing ball under GaussAdjoint against ForwardDiffSensitivity;
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
      kernel device time against its bound and its plain version (K1, K2
@@ -102,7 +121,10 @@ Phases, each printed before the last line:
      S2q against S1's forward and PDE (c) against the PDE forward; PDE
      (d)-(f) against the forward at n = 1,048,576 with the peak device
      memory of (d) and (e); S2i, S2k, S2c, S2p and S2i- (unpinned) against
-     S1's forward, each with the reverse that ran.
+     S1's forward, each with the reverse that ran; phase 5f's arms (PDE
+     dose f32 at n = 1,048,576, S2e, S2d, S2t in float32, the ball) each
+     against its own forward, with the device's idle share (not traced
+     for the spiral's gradients).
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -207,6 +229,21 @@ RK4_GEOMS = {"flagship": (MEGA_N, MEGA_S, 4096, 1024),
 RK4_FLOPS = {"K5": 44, "K6": 44 + 74}
 RK4_BYTES = {"K5": 2, "K6": 3}  # values per cell read or written once
 
+
+# events, dense output and save times (phase 5f): the flagship field with
+# one dose at 24 ns of the 64 ns span (affect u ← 0.9u + 0.05u², whose
+# Jacobian is not the identity), adaptive Tsit5 from dt0 = 1e-9, float64
+# at n = 262,144 and float32 at n = 1,048,576
+EV_T1, EV_DOSE_T = STEPS * DT, 24e-9
+EV_TOL = {torch.float64: dict(rtol=1e-8, atol=1e-10),
+          torch.float32: dict(rtol=1e-4, atol=1e-7)}
+EV_N = {torch.float64: 262144, torch.float32: 1048576}
+# the spiral's event: ‖u‖² = c with affect u ← 0.8u, c the midpoint of
+# ‖u‖² over S2's undisturbed forward at SEED (4.0 at t = 0, 10.511 at 1.5)
+SPIRAL_EVENT_C = 7.2555
+DENSE_NQ = 50  # sol(t) query times on the spiral
+EV_RULE_TOL = 1e-6  # the bouncing ball: GaussAdjoint against ForwardDiff
+EV_TIMING_ROUNDS = 3
 
 # K1/K2 checks: (n, u's offset, λ's offset) in values into a larger buffer:
 # the PDE's n, a ragged n, tiny n (no whole 16-byte vector, or one and a
@@ -581,6 +618,89 @@ def rk4_bound_ms(name, n, S, dtype):
     t_ops = S * RK4_FLOPS[name] * n / PEAK_FLOPS[torch.float32] * 1e3
     t_bytes = RK4_BYTES[name] * n * size / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def dose_affect(u, p, t):
+    return 0.9 * u + 0.05 * u * u
+
+
+def dose_solve(P, field, u0, p, sensealg, dtype):
+    cb = P.PresetTimeCallback([EV_DOSE_T], dose_affect)
+    return P.solve(P.ODEProblem(field, u0, (0.0, EV_T1), p), P.Tsit5(),
+                   saveat=[0.0, EV_T1], dt0=DT, callback=cb,
+                   sensealg=sensealg, **EV_TOL[dtype])
+
+
+def dose_gradient(P, field, u0, p, sensealg):
+    """(u0-grad, p-grad, solution) of Σ ys[-1]² of the dosed PDE."""
+    uu = u0.clone().requires_grad_()
+    pp = p.clone().requires_grad_()
+    sol = dose_solve(P, field, uu, pp, sensealg, u0.dtype)
+    gu, gp = torch.autograd.grad(torch.sum(sol.ys[-1] ** 2), (uu, pp))
+    return gu, gp, sol
+
+
+def dose_forward(P, field, u0, p):
+    with torch.no_grad():
+        return dose_solve(P, field, u0, p, None, u0.dtype).ys[-1]
+
+
+def spiral_event_kw(P, kw):
+    cb = P.ContinuousCallback(
+        lambda u, p, t: u[0] ** 2 + u[1] ** 2 - SPIRAL_EVENT_C,
+        lambda u, p, t: 0.8 * u)
+    return dict(kw, callback=cb)
+
+
+def spiral_dense_gradient(P, setup, kw):
+    """(d/dp of Σ over DENSE_NQ query times of sol(t)², solution)."""
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in setup[0].items()}
+    sol = spiral_solve(P, setup, dict(kw, dense=True), params)
+    tq = torch.linspace(0.0, SPIRAL_T1, DENSE_NQ + 2,
+                        dtype=torch.float64)[1:-1].tolist()
+    grads = torch.autograd.grad(torch.sum(sol(tq) ** 2),
+                                list(params.values()))
+    return dict(zip(params, grads)), sol
+
+
+def spiral_saveat_gradient(P, setup, kw):
+    """(d/d[params, save times] of Σ(ys - data)², solution): the save
+    times a CPU tensor that requires grad."""
+    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2
+
+    params0, u0, data, ts = setup
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in params0.items()}
+    sv = torch.tensor(ts, dtype=torch.float64, requires_grad=True)
+    prob = P.ODEProblem(lambda u, p, t: fused_mlp2(p, u ** 3), u0,
+                        (0.0, SPIRAL_T1), params)
+    sol = P.solve(prob, P.Tsit5(), saveat=sv, **kw)
+    grads = torch.autograd.grad(torch.sum((sol.ys - data) ** 2),
+                                list(params.values()) + [sv])
+    return dict(zip(list(params) + ["saveat"], grads)), sol
+
+
+def ball_solve(P, device, sensealg, grad):
+    """The bouncing ball of bench.py:289-316 in float64: Σ ys[:, 0]² and
+    its p-gradient (p = [g, restitution]), or the solution."""
+    cb = P.ContinuousCallback(
+        condition=lambda u, p, t: u[0],
+        affect=lambda u, p, t: torch.stack([u[0], -p[1] * u[1]]),
+        direction=-1)
+    p = torch.tensor([9.8, 0.8], dtype=torch.float64, device=device)
+    p.requires_grad_(grad)
+    u0 = torch.tensor([1.0, 0.0], dtype=torch.float64, device=device)
+    ts = torch.linspace(0.0, 1.2, 7, dtype=torch.float64).tolist()
+    with torch.set_grad_enabled(grad):
+        sol = P.solve(P.ODEProblem(
+            lambda u, q, t: torch.stack([u[1], -q[0] + 0.0 * u[0]]), u0,
+            (0.0, 1.2), p), P.Tsit5(), saveat=ts, rtol=1e-6, atol=1e-8,
+            callback=cb, sensealg=sensealg, max_steps=256)
+        if not grad:
+            return sol
+        (gp,) = torch.autograd.grad(torch.sum(sol.ys[:, 0] ** 2), (p,))
+    return gp, sol
 
 
 def main() -> int:
@@ -1357,6 +1477,136 @@ def main() -> int:
 
     elapsed("phase 5e [interp f64]")
 
+    # -- 5f. [events f64]: events, dense output and save times -------------
+    # PDE with a dose (PresetTimeCallback): K1 in every forward stage and for
+    # f⁻/f⁺ at the dose, K2 at every reverse stage or quadrature node
+    dose_rules = {"None (-> GaussAdjoint)": None,
+                  "BacksolveAdjoint": P.BacksolveAdjoint(),
+                  "InterpolatingAdjoint": P.InterpolatingAdjoint(),
+                  "DirectAdjoint": P.DirectAdjoint()}
+    dose_launches = {}
+    dose_grads64 = {}
+    t = time.perf_counter()
+    n = EV_N[torch.float64]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    for name, sensealg in dose_rules.items():
+        rd1d.rd1d_fwd_cuda.launches = 0
+        rd1d.rd1d_vjp_cuda.launches = 0
+        u0, p = flagship_inputs(n, torch.float64, dev)
+        gu, gp, sol = dose_gradient(P, field, u0, p, sensealg)
+        torch.cuda.synchronize()
+        got = {"K1": rd1d.rd1d_fwd_cuda.launches,
+               "K2": rd1d.rd1d_vjp_cuda.launches}
+        dose_launches[name] = got
+        u0c, pc = flagship_inputs(n, torch.float64, "cpu")
+        gu_c, gp_c, sol_c = dose_gradient(P, field, u0c, pc, sensealg)
+        e_u = rel_l2(gu, gu_c)
+        e_p = ((gp.cpu() - gp_c).abs() / gp_c.abs()).tolist()
+        print(f"[events f64] PDE dose n={n} {name}: {type(sol.sensealg).__name__}"
+              f"; forward {sol.stats}, {sol.events.count} dose at "
+              f"{float(sol.events.ts[0]):.6g}; K1 {got['K1']} and K2 "
+              f"{got['K2']} launches per gradient; card vs CPU u0-grad rel L2 "
+              f"{e_u:.3e}, dD rel {e_p[0]:.3e}, dk rel {e_p[1]:.3e} (tol "
+              f"{F64_GRAD_TOL:g}); p-grad {gp.tolist()}")
+        check(sol.retcode == 0 and sol_c.retcode == 0,
+              f"PDE dose {name} retcode {sol.retcode}/{sol_c.retcode}")
+        check(sol.events.count == 1 == sol_c.events.count,
+              f"PDE dose {name}: {sol.events.count} doses recorded")
+        if sensealg is None:
+            check(isinstance(sol.sensealg, P.GaussAdjoint),
+                  f"PDE dose sensealg=None ran {sol.sensealg!r}")
+        check(got["K1"] > 0 and got["K2"] > 0,
+              f"PDE dose {name} did not launch K1 and K2: {got}")
+        check(e_u <= F64_GRAD_TOL and max(e_p) <= F64_GRAD_TOL,
+              f"PDE dose {name} f64 card gradient off the CPU run")
+    del u0c, pc, gu_c, gp_c
+    n = EV_N[torch.float32]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    for name, sensealg in dose_rules.items():
+        u0, p = flagship_inputs(n, torch.float64, dev)
+        gu64, gp64, sol64 = dose_gradient(P, field, u0, p, sensealg)
+        u0, p = flagship_inputs(n, torch.float32, dev)
+        rd1d.rd1d_fwd_cuda.launches = 0
+        rd1d.rd1d_vjp_cuda.launches = 0
+        gu, gp, sol = dose_gradient(P, field, u0, p, sensealg)
+        torch.cuda.synchronize()
+        got = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+        e_u = rel_l2(gu, gu64)
+        e_dk = abs(float(gp[1]) - float(gp64[1])) / abs(float(gp64[1]))
+        print(f"[events f32] PDE dose n={n} {name} vs card f64: u0-grad rel "
+              f"L2 {e_u:.3e} (tol {F32_U0_TOL:g}), dk rel {e_dk:.3e} (not "
+              f"gated); forward {sol.stats} (f64 {sol64.stats}); "
+              f"{sol.events.count} dose; K1 {got[0]} and K2 {got[1]} launches")
+        check(sol.retcode == 0 and sol64.retcode == 0 and sol.events.count
+              == 1, f"f32 PDE dose {name}: retcode {sol.retcode}, "
+              f"{sol.events.count} doses")
+        check(min(got) > 0, f"f32 PDE dose {name} launched K1, K2 {got}")
+        check(e_u <= F32_U0_TOL, f"PDE dose {name} f32 gradient off the f64 one")
+    del u0, p, gu, gp, gu64, gp64
+    print(f"[events f64] PDE dose card and CPU runs: "
+          f"{time.perf_counter() - t:.1f} s")
+
+    # the spiral with a continuous event (‖u‖² = c, u ← 0.8u) at S2's
+    # setting: K3 in every stage and for f⁻/f⁺ at the event, K4 at every
+    # reverse stage or quadrature node
+    event_rules = {"S2e None (-> GaussAdjoint)": None,
+                   "S2e InterpolatingAdjoint": P.InterpolatingAdjoint(),
+                   "S2e BacksolveAdjoint": P.BacksolveAdjoint(),
+                   "S2e QuadratureAdjoint": P.QuadratureAdjoint(),
+                   "S2e DirectAdjoint": P.DirectAdjoint()}
+    event_arms = {name: spiral_event_kw(P, dict(SPIRAL_ADAPTIVE, sensealg=s))
+                  for name, s in event_rules.items()}
+    dense_arms = {"S2d GaussAdjoint dense": dict(
+                      SPIRAL_ADAPTIVE, sensealg=P.GaussAdjoint()),
+                  "S2d InterpolatingAdjoint dense": dict(
+                      SPIRAL_ADAPTIVE, sensealg=P.InterpolatingAdjoint())}
+    saveat_kw = dict(SPIRAL_ADAPTIVE, sensealg=P.GaussAdjoint())
+    event_node_launches = {}
+    t = time.perf_counter()
+    runs = [(name, kw, spiral_gradient) for name, kw in event_arms.items()]
+    runs += [(name, kw, spiral_dense_gradient)
+             for name, kw in dense_arms.items()]
+    runs.append(("S2t GaussAdjoint saveat", saveat_kw, spiral_saveat_gradient))
+    for name, kw, grad_fn in runs:
+        (g_card, sol), got = count_path(
+            lambda: grad_fn(P, setup_card, kw))
+        g_cpu, sol_c = grad_fn(P, setup_cpu, kw)
+        errs = leaf_errors(g_card, g_cpu)
+        event_node_launches[name.split(" ")[0] + " " + name.split(" ")[1]] = got
+        ev = ("" if sol.events is None else
+              f"; {sol.events.count} events (CPU {sol_c.events.count}) at "
+              f"{[round(float(x), 6) for x in sol.events.ts[:sol.events.count]]}")
+        print(f"[events f64] {name}: {type(sol.sensealg).__name__}; forward "
+              f"{sol.stats}{ev}; K3 {got[0]} and K4 {got[1]} launches per "
+              f"gradient; card vs CPU rel L2 {fmt_errors(errs)} (tol "
+              f"{NODE_F64_TOL:g})")
+        check(sol.retcode == 0 and sol_c.retcode == 0, f"{name} retcode")
+        if sol.events is not None:
+            check(sol.events.count == sol_c.events.count >= 1,
+                  f"{name}: {sol.events.count} events on the card, "
+                  f"{sol_c.events.count} on the CPU")
+        if "None" in name:
+            check(isinstance(sol.sensealg, P.GaussAdjoint),
+                  f"{name} ran {sol.sensealg!r}")
+        check(max(errs.values()) <= NODE_F64_TOL,
+              f"{name}: f64 card gradient off the CPU run")
+    print(f"[events f64] spiral event, dense and saveat card and CPU runs: "
+          f"{time.perf_counter() - t:.1f} s")
+
+    # the bouncing ball (bench.py:289-316) in float64, a field of plain
+    # tensor operations on the card: GaussAdjoint against ForwardDiff
+    g_gauss, sol_b = ball_solve(P, dev, P.GaussAdjoint(), grad=True)
+    g_fds, _ = ball_solve(P, dev, P.ForwardDiffSensitivity(), grad=True)
+    err = max_rel(g_gauss, g_fds)
+    print(f"[events f64] bouncing ball: {sol_b.events.count} bounces at "
+          f"{[round(float(x), 6) for x in sol_b.events.ts[:sol_b.events.count]]}"
+          f"; forward {sol_b.stats}; GaussAdjoint against "
+          f"ForwardDiffSensitivity max relative difference per entry "
+          f"{err:.2e} (tol {EV_RULE_TOL:g}); p-grad {g_gauss.tolist()}")
+    check(sol_b.retcode == 0 and sol_b.events.count >= 1, "ball retcode")
+    check(err <= EV_RULE_TOL, "ball GaussAdjoint off ForwardDiffSensitivity")
+    elapsed("phase 5f [events f64]")
+
     # -- 6. timings: the megakernel path first ---------------------------------
     u0, p = flagship_inputs(MEGA_N, torch.float32, dev)
     arms = {
@@ -1505,12 +1755,13 @@ def main() -> int:
     for arm, kw in spiral_arms.items():
         arms[arm.split(" ")[0] + " gradient"] = (
             lambda kw=kw: spiral_gradient(P, setup32, kw))
-    med = interleaved_ms(arms, rounds=10)
+    # 5 rounds (10 until phase 5f's timings took their time)
+    med = interleaved_ms(arms, rounds=5)
     for name, fn in arms.items():
         busy, wall = profiled_ms(fn)
         print(f"[time] {card}: spiral f32 {name}: {med[name]:.3f} ms "
               f"({med[name] / med['S1 forward']:.2f}x S1 forward; CUDA events, "
-              f"median of 10 interleaved); profiled run: kernels {busy:.3f} ms "
+              f"median of 5 interleaved); profiled run: kernels {busy:.3f} ms "
               f"of {wall:.3f} ms wall, device idle "
               f"{100 * (1 - busy / wall):.1f}%")
 
@@ -1694,7 +1945,7 @@ def main() -> int:
     for name, kw in spiral_timed.items():
         arms[name] = lambda kw=kw: spiral_gradient(P, setup32, kw)
     ran = {}
-    med = interleaved_ms(arms, rounds=3, outputs=ran)
+    med = interleaved_ms(arms, rounds=2, outputs=ran)  # 3 before phase 5f
     for name in arms:
         extra = ""
         if name in spiral_timed:
@@ -1702,9 +1953,77 @@ def main() -> int:
             extra = f"; {rec.reverse} reverse {rec.stats}"
         print(f"[time] {card}: spiral f32 {name}: {med[name]:.3f} ms "
               f"({med[name] / med['S1 forward']:.2f}x S1 forward; CUDA events, "
-              f"median of 3 interleaved){extra}")
+              f"median of 2 interleaved){extra}")
     del setup32
     elapsed("phase 6e [interp] timings")
+
+    # -- 6f. [events] timings: each arm against its own forward, CUDA events
+    # (median of EV_TIMING_ROUNDS interleaved rounds after a warm-up round,
+    # whose results the float32 checks read) and one profiled run for the
+    # device's idle share, for the arms that `traced` names: not the
+    # spiral's gradients (~1-3 s each, idle 95-97% as PERF.md records),
+    # whose profiled runs pay for the third round
+    def ev_time(tag, arms, checks=None, traced=lambda name: True):
+        out = {}
+        med = interleaved_ms(arms, rounds=EV_TIMING_ROUNDS, outputs=out)
+        fwd = next(iter(arms))
+        for name, fn in arms.items():
+            idle = "not traced"
+            if traced(name):
+                busy, wall = profiled_ms(fn)
+                idle = (f"profiled run: kernels {busy:.3f} ms of {wall:.3f} "
+                        f"ms wall, device idle {100 * (1 - busy / wall):.1f}%")
+            extra = "" if checks is None else checks(name, out[name])
+            print(f"[time] {card}: {tag} {name}: {med[name]:.3f} ms "
+                  f"({med[name] / med[fwd]:.2f}x its forward; CUDA events, "
+                  f"median of {EV_TIMING_ROUNDS} interleaved); {idle}{extra}")
+
+    n = EV_N[torch.float32]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0, p = flagship_inputs(n, torch.float32, dev)
+    arms = {"forward": lambda: dose_forward(P, field, u0, p)}
+    for name, sensealg in dose_rules.items():
+        arms[f"{name} gradient"] = (lambda s=sensealg: dose_gradient(
+            P, field, u0, p, s))
+    ev_time(f"PDE dose n={n} f32", arms)
+    del u0, p
+
+    setup32 = spiral_setup(P, torch.float32, dev, data64)
+
+    def spiral_checks(name, out):
+        if "forward" in name:
+            return ""
+        sol = out[1]
+        ev = sol.events
+        check(sol.retcode == 0 and (ev is None or ev.count >= 1),
+              f"f32 {name}: retcode {sol.retcode}")
+        return (f"; forward {sol.stats}"
+                + ("" if ev is None else f", {ev.count} events"))
+
+    arms = {"S2e forward": lambda: spiral_forward(
+        P, setup32, spiral_event_kw(P, SPIRAL_ADAPTIVE))}
+    for name, kw in event_arms.items():
+        arms[f"{name} gradient"] = (lambda kw=kw: spiral_gradient(
+            P, setup32, kw))
+    ev_time("spiral f32", arms, spiral_checks,
+            traced=lambda name: "forward" in name)
+    arms = {"S2d forward (dense)": lambda: spiral_forward(
+        P, setup32, dict(SPIRAL_ADAPTIVE, dense=True))}
+    for name, kw in dense_arms.items():
+        arms[f"{name} gradient"] = (lambda kw=kw: spiral_dense_gradient(
+            P, setup32, kw))
+    arms["S2t GaussAdjoint saveat gradient"] = (
+        lambda: spiral_saveat_gradient(P, setup32, saveat_kw))
+    ev_time("spiral f32", arms, spiral_checks,
+            traced=lambda name: "forward" in name)
+    del setup32
+    arms = {"forward": lambda: ball_solve(P, dev, None, grad=False),
+            "GaussAdjoint gradient": lambda: ball_solve(
+                P, dev, P.GaussAdjoint(), grad=True),
+            "ForwardDiffSensitivity gradient": lambda: ball_solve(
+                P, dev, P.ForwardDiffSensitivity(), grad=True)}
+    ev_time("bouncing ball f64", arms)
+    elapsed("phase 6f [events] timings")
 
     # Lotka-Volterra last: its traces hold the most launches of any
     for name, sensealg in [("forward", None)] + list(lv_runs.items()):
@@ -1727,16 +2046,22 @@ def main() -> int:
                 for k in ("K1", "K2")}
     interp_node = [sum(got[i] for got in interp_node_launches.values())
                    for i in (0, 1)]
+    dose_k = {k: sum(got[k] for got in dose_launches.values())
+              for k in ("K1", "K2")}
+    event_node = [sum(got[i] for got in event_node_launches.values())
+                  for i in (0, 1)]
     kernels = [
         {"name": "rd1d_fwd (K1)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:58",
          "launches": (launches["K1"] + pde_c_launches["K1"]
-                      + interp_k["K1"]),
+                      + interp_k["K1"] + dose_k["K1"]),
          "paths": {"PDE (a)+(b)": launches["K1"],
                    "PDE (c) QuadratureAdjoint": pde_c_launches["K1"],
                    **{f"PDE {arm}": got["K1"]
-                      for arm, got in interp_launches.items()}},
+                      for arm, got in interp_launches.items()},
+                   **{f"PDE dose {arm}": got["K1"]
+                      for arm, got in dose_launches.items()}},
          "max_abs_err": max_abs["K1"],
          "ms": timing[n]["K1"], "plain_ms": timing[n]["K1_plain"],
          "cold_ms": timing[n]["K1_cold"],
@@ -1746,11 +2071,13 @@ def main() -> int:
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:66",
          "launches": (launches["K2"] + pde_c_launches["K2"]
-                      + interp_k["K2"]),
+                      + interp_k["K2"] + dose_k["K2"]),
          "paths": {"PDE (a)+(b)": launches["K2"],
                    "PDE (c) QuadratureAdjoint": pde_c_launches["K2"],
                    **{f"PDE {arm}": got["K2"]
-                      for arm, got in interp_launches.items()}},
+                      for arm, got in interp_launches.items()},
+                   **{f"PDE dose {arm}": got["K2"]
+                      for arm, got in dose_launches.items()}},
          "max_abs_err": max_abs["K2"],
          "ms": timing[n]["K2"], "plain_ms": timing[n]["K2_plain"],
          "cold_ms": timing[n]["K2_cold"],
@@ -1760,11 +2087,13 @@ def main() -> int:
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:53",
          "launches": (s1_s5_launches["K3"] + s2q_launches[0]
-                      + interp_node[0]),
+                      + interp_node[0] + event_node[0]),
          "paths": {"S1-S5": s1_s5_launches["K3"],
                    "S2q QuadratureAdjoint": s2q_launches[0],
                    **{arm: got[0]
-                      for arm, got in interp_node_launches.items()}},
+                      for arm, got in interp_node_launches.items()},
+                   **{arm: got[0]
+                      for arm, got in event_node_launches.items()}},
          "max_abs_err": max_abs["K3"],
          "ms": s4["K3"], "plain_ms": s4["K3_plain"],
          "bound_ms": s4["bound"]["K3"][0], "bound_by": s4["bound"]["K3"][1],
@@ -1773,11 +2102,13 @@ def main() -> int:
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:68",
          "launches": (s1_s5_launches["K4"] + s2q_launches[1]
-                      + interp_node[1]),
+                      + interp_node[1] + event_node[1]),
          "paths": {"S1-S5": s1_s5_launches["K4"],
                    "S2q QuadratureAdjoint": s2q_launches[1],
                    **{arm: got[1]
-                      for arm, got in interp_node_launches.items()}},
+                      for arm, got in interp_node_launches.items()},
+                   **{arm: got[1]
+                      for arm, got in event_node_launches.items()}},
          "max_abs_err": max_abs["K4"],
          "ms": s4["K4"], "plain_ms": s4["K4_plain"],
          "bound_ms": s4["bound"]["K4"][0], "bound_by": s4["bound"]["K4"][1],

@@ -3,7 +3,10 @@
 Counterpart of `scimlsensitivity_jl_tpu/__init__.py`, the public subset that
 is ported: `ODEProblem`, `solve`, the explicit Runge-Kutta solvers, and the
 sensealg configurations, the direct forward-sensitivity API
-(`ODEForwardSensitivityProblem`, `extract_local_sensitivities`). Gradients
+(`ODEForwardSensitivityProblem`, `extract_local_sensitivities`) and the
+callbacks (`ContinuousCallback`, `DiscreteCallback`,
+`VectorContinuousCallback`, `PresetTimeCallback`, `PeriodicCallback`,
+`TerminateSteadyState`, `CallbackSet`). Gradients
 run under `ForwardDiffSensitivity`, `ForwardSensitivity`,
 `BacksolveAdjoint`, `GaussAdjoint` (without checkpointing),
 `QuadratureAdjoint` and `DirectAdjoint` (fixed grid and adaptive, with
@@ -19,6 +22,15 @@ kernel: the CUDA kernels of `ops/rd1d.py` and `ops/mlp.py` are compiled at
 their first launch on a CUDA tensor.
 """
 
+from .callbacks import (
+    CallbackSet,
+    ContinuousCallback,
+    DiscreteCallback,
+    PeriodicCallback,
+    PresetTimeCallback,
+    TerminateSteadyState,
+    VectorContinuousCallback,
+)
 from .adjoints.forward import (
     ODEForwardSensitivityProblem,
     extract_local_sensitivities,
@@ -83,6 +95,9 @@ __all__ = [
     "ForwardLSS", "AdjointLSS", "NILSS", "NILSAS",
     "default_sensealg", "setvjp",
     "ODEForwardSensitivityProblem", "extract_local_sensitivities",
+    "ContinuousCallback", "DiscreteCallback", "VectorContinuousCallback",
+    "PresetTimeCallback", "PeriodicCallback", "TerminateSteadyState",
+    "CallbackSet",
     "lotka_volterra", "lotka_volterra_problem", "robertson",
     "robertson_problem", "lorenz", "lorenz_problem",
     "fused_mlp2", "mlp_init", "mlp_apply", "neural_ode_field", "spiral_data",

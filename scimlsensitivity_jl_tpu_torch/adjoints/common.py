@@ -1,10 +1,11 @@
 """Shared adjoint machinery (PyTorch port).
 
 Counterpart of `scimlsensitivity_jl_tpu/adjoints/common.py`:
-`forward_saveat_solve` (:430) with `save_hook_factory` (:407) and its
-`extra_hook`, `reverse_joined_solve` (:185) with loss-cotangent jumps,
-checkpoint snaps, the per-accepted-step hook and the reverse dense output
-(`collect_dense`; event arguments wait for ROADMAP M8),
+`forward_saveat_solve` (:430) with `save_hook_factory` (:407), its
+`extra_hook` and the event set, `reverse_joined_solve` (:185) with
+loss-cotangent jumps, checkpoint snaps, the per-accepted-step hook, the
+reverse dense output (`collect_dense`) and the recorded events' reverse
+transforms (`event_times`, `event_count`, `event_apply`),
 `reverse_pinned_solve` (:35, without `collect_lam_nodes`, which nothing
 calls) and `match_cotangents` (:551).
 
@@ -45,6 +46,8 @@ class ForwardResult(NamedTuple):
     t_final: np.floating
     u_final: torch.Tensor
     stats: Stats
+    events: Any = None  # solvers.events.EventRecord with an event set
+    event_log: Any = None  # per firing step: (accepted-step index, events)
 
 
 def save_hook_factory(saveat: np.ndarray, tdir, span):
@@ -113,11 +116,16 @@ def forward_saveat_solve(
     fixed_dt=None,
     fixed_trip: bool = False,
     extra_hook: Optional[Callable] = None,
+    event_set=None,
+    saveat_offsets=None,
 ) -> ForwardResult:
-    """Forward solve capturing the saveat states exactly; `fixed_trip` as in
-    `integrate`. `extra_hook(step_record)` runs on every accepted step
-    (the JAX function threads a carry through it; a Python closure keeps
-    its own state)."""
+    """Forward solve capturing the saveat states exactly; `fixed_trip` and
+    `event_set` as in `integrate`. `extra_hook(step_record)` runs on every
+    accepted step (the JAX function threads a carry through it; a Python
+    closure keeps its own state). saveat_offsets: (nt,) zero-valued tensor
+    carrying the save times' derivatives (DirectAdjoint), passed to
+    `integrate` as its stop offsets. Save times past a terminal stop hold
+    the terminal state."""
     kind = time_dtype(u0vec.dtype)
     t0, t1 = kind(t0), kind(t1)
     saveat = np.asarray(saveat, dtype=kind)
@@ -125,6 +133,14 @@ def forward_saveat_solve(
 
     all_stops = saveat if tstops is None else np.sort(
         np.concatenate([saveat, np.asarray(tstops, dtype=kind)]))
+    stop_offsets = None
+    if saveat_offsets is not None:
+        # a stop that is both a save time and a tstop takes the save time's
+        # derivative (JAX's stop is the saveat entry, traced)
+        stop_offsets = {}
+        for i, s_i in enumerate(saveat):
+            j = int(np.flatnonzero(all_stops == s_i)[0])
+            stop_offsets.setdefault(j, saveat_offsets[i])
 
     hook = save_hook_factory(saveat, tdir, t1 - t0)
     if extra_hook is not None:
@@ -140,12 +156,14 @@ def forward_saveat_solve(
         tstops=all_stops, hook=hook,
         hook_carry=save_carry0(saveat, t0, tdir, u0vec, t1 - t0),
         store_dense=store_dense, dtmax=dtmax, fixed_dt=fixed_dt,
-        fixed_trip=fixed_trip,
+        fixed_trip=fixed_trip, event_set=event_set,
+        stop_offsets=stop_offsets,
     )
     ys_save = saved_rows(res.hook_carry, res.u_final)
     return ForwardResult(ys_save=ys_save, dense=res.dense,
                          t_final=res.t_final, u_final=res.u_final,
-                         stats=res.stats)
+                         stats=res.stats, events=res.events,
+                         event_log=res.event_log)
 
 
 def reverse_joined_solve(
@@ -167,6 +185,10 @@ def reverse_joined_solve(
     err_weights=None,
     t_span=None,
     collect_dense: bool = False,
+    event_times=None,
+    event_count: int = 0,
+    event_apply: Optional[Callable] = None,
+    event_unroll: int = 3,
 ) -> Tuple[torch.Tensor, Any, Stats, Optional[DenseOutput]]:
     """ONE adaptive reverse solve over [t_hi -> t_lo], adding the loss
     cotangents `lam_jumps[k]` into z[:n_lam] exactly when the integrator lands
@@ -188,6 +210,14 @@ def reverse_joined_solve(
     collect_dense: keep the reverse solve's dense output over z (every
     accepted step, and a zero-width row with the post-jump state at each
     stop where a jump fired), as QuadratureAdjoint's λ interpolant.
+
+    event_times (host, ascending, the first min(event_count, max_events)
+    recorded times), event_apply(i, t, z, hc) -> (z, hc): the reverse
+    transform of recorded event i, applied when the reverse lands on its
+    time, after the loss jumps there and last-recorded first, at most
+    `event_unroll` per stop (JAX: max(3, callbacks)). Events at or above
+    t_hi fire before the reverse starts (an event at t1, or the terminal
+    event at a dynamic t_final).
 
     Returns (z at t_lo after all jumps, the hook's carry, reverse Stats,
     the dense output or None). The JAX function returns the retcode where
@@ -219,27 +249,41 @@ def reverse_joined_solve(
         add_row(z0, k0)
         k0 -= 1
 
+    have_events = event_apply is not None and event_count > 0
+    ev_t = (np.asarray(event_times, dtype=kind)[:event_count] if have_events
+            else np.zeros(0, dtype=kind))
+    ke0 = ev_t.shape[0] - 1
+    while ke0 >= 0 and ev_t[ke0] >= kind(t_hi - tol0):
+        z0, hook_carry = event_apply(ke0, t_hi, z0, hook_carry)
+        ke0 -= 1
+
     def stop_transform(t, z, carry):
         # every row that coincides with this stop fires (a save time that
-        # duplicates the t0 extension gives two)
-        hc, k = carry
+        # duplicates the t0 extension gives two), then the events there
+        hc, k, ke = carry
         tol = match_tol(kind, span, t, t_hi)
-        k_start = k
+        k_start, ke_start = k, ke
         while k >= 0 and abs(kind(times[k] - t)) <= tol:
             if k == k_start:
                 z = z.clone()
             add_row(z, k)
             k -= 1
-        return z, (hc, k), k != k_start
+        for _ in range(event_unroll):
+            if ke >= 0 and abs(kind(ev_t[ke] - t)) <= tol:
+                z, hc = event_apply(ke, t, z, hc)
+                ke -= 1
+        return z, (hc, k, ke), k != k_start or ke != ke_start
 
     wrapped_hook = None
     if hook is not None:
-        wrapped_hook = lambda rec, carry: (hook(rec, carry[0]), carry[1])
+        wrapped_hook = lambda rec, carry: (hook(rec, carry[0]), *carry[1:])
 
+    all_stops = times if not have_events else np.sort(
+        np.concatenate([times, ev_t]))
     res = integrate(
         stepper, aug_rhs, t_hi, t_lo, z0,
-        rtol=rtol, atol=atol, max_steps=max_steps + m + 4, tstops=times,
-        hook=wrapped_hook, hook_carry=(hook_carry, k0),
+        rtol=rtol, atol=atol, max_steps=max_steps + m + 4, tstops=all_stops,
+        hook=wrapped_hook, hook_carry=(hook_carry, k0, ke0),
         stop_transform=stop_transform, store_dense=collect_dense,
         err_weights=err_weights,
     )
@@ -260,6 +304,7 @@ def reverse_pinned_solve(
     hook: Optional[Callable] = None,
     hook_carry: Any = None,
     err_weights: Optional[torch.Tensor] = None,
+    jump_unroll: int = 3,
 ) -> Tuple[torch.Tensor, Any, Stats]:
     """Reverse solve PINNED to the forward's accepted grid: one `stepper`
     step per stored forward interval, walking the dense buffer backwards by
@@ -269,8 +314,9 @@ def reverse_pinned_solve(
     with y from that interval's directly indexed Hermite rows. The loss
     cotangents `lam_jumps[k]` are added into z[:n_lam] when the walk
     reaches a node matching times[k], with the matcher and tolerance of
-    `reverse_joined_solve`, at most three rows per node (JAX's
-    `jump_unroll` without events); the FSAL derivative is evaluated again
+    `reverse_joined_solve`, at most `jump_unroll` rows per node (JAX's
+    default 3, 4 with dense-node cotangents, whose node rows join the save
+    rows); the FSAL derivative is evaluated again
     after a jump. Rows no wider than the matching tolerance are zero-width:
     they step nowhere and add nothing (neither step nor hook runs there;
     JAX steps and masks the result).
@@ -323,7 +369,7 @@ def reverse_pinned_solve(
                 hook_carry = hook((ta, tb, z, f, z1, f1, i), hook_carry)
         tol = match_tol(kind, span, tb, t_hi)
         fired = False
-        for _ in range(3):
+        for _ in range(jump_unroll):
             if k >= 0 and abs(kind(times[k] - tb)) <= tol:
                 if not fired:
                     z1 = z1.clone()

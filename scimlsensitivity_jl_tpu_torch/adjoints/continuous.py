@@ -12,9 +12,11 @@ events), `BacksolveAdjoint` (`_bwd_backsolve`, :1402-1467), `GaussAdjoint`
 and `GaussKronrodAdjoint` (`_bwd_gauss`, :1471-1568, adaptive or pinned,
 with `make_gauss_quad_hook` :290-423), `QuadratureAdjoint`
 (`_bwd_quadrature`, :1572-1650, the ODE branch, with `adaptive_gk_dp`
-:426-518) and `ForwardDiffSensitivity` (`_bwd_forwarddiff`, :1653-1766,
-without events and dense-output cotangents). The JAX `custom_vjp` becomes
-a `torch.autograd.Function` whose backward is another solve:
+:426-518) and `ForwardDiffSensitivity` (`_bwd_forwarddiff`, :1653-1766),
+the shared setup `_common_bwd_setup` (:861-1050: save-time gradients,
+dense-output cotangents) and the event jumps (`_make_event_apply`,
+`_event_kwargs`, :519-617). The JAX `custom_vjp` becomes a
+`torch.autograd.Function` whose backward is another solve:
 
   InterpolatingAdjoint — reverse solve of the joined z = [λ; q] over the
                       forward's dense output, q with error weight 0. Auto
@@ -65,13 +67,25 @@ Sign conventions (continuous adjoint with discrete cost injections):
   dλ/dt = -(∂f/∂u)ᵀλ,   λ(t_i⁻) += Δᵢ   (loss cotangent at save time i)
   dq/dt = -λᵀ∂f/∂p from q(T) = 0  ⇒  q(t0) = dL/dp,   dL/du0 = λ(t0).
 
-The forward solve is shared by every rule; only the backward differs.
-Save times are host values and get no gradient, and gradients through
-dense output `sol(t)` wait (ROADMAP M4). In the checkpointed reverse,
-intervals at or above the forward's t_final are skipped and the top one
-is clamped to t_final, as in JAX (:1311-1332): that covers the zero-width
-top interval when saveat ends at t1, and a truncated forward; the event
-matching at those boundaries waits for M8.
+  Save times:  dL/dtᵢ = Δᵢ·f(u(tᵢ), p, tᵢ), 0 past a terminal stop.
+  Dense nodes: node k of sol(t) is an output at tₖ: a λ jump
+               Δyₖ + f_uᵀΔfₖ there, and f_pᵀΔfₖ into dL/dp (node times
+               are not differentiated: the step grid is frozen;
+               ForwardDiffSensitivity differentiates those that
+               continuous events move).
+  Events:      λ⁻ = (∂A/∂u)ᵀλ⁺ − ∇g·((∂A/∂u·f⁻ − f⁺)·λ⁺)/ġ at each
+               recorded continuous event (f⁺ = 0 at a terminal one; the
+               first product is f⁻·(∂A/∂u)ᵀλ⁺, so no forward mode is
+               needed), dL/dp += (∂A/∂p)ᵀλ⁺ for a p-dependent affect.
+
+The forward solve is shared by every rule; only the backward differs. Save
+times are host values for the solve; a saveat tensor that requires grad
+gets the cotangent above. In the checkpointed reverse, intervals at or
+above the forward's t_final are skipped and the top one is clamped to
+t_final, as in JAX (:1311-1332): that covers the zero-width top interval
+when saveat ends at t1, a truncated forward and a terminal stop; each live
+interval's local forward re-fires its events, and the local reverse
+applies the recorded ones.
 
 Deliberate divergences from the JAX package (ROADMAP §3): times match
 relative to the solve's span where it is below 1 (`match_tol`; JAX's
@@ -92,7 +106,7 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..ops.interp import dense_eval, hermite_eval
+from ..ops.interp import dense_eval, hermite_at, hermite_eval
 from ..ops.quadrature import gauss_kronrod_01, gl_01
 from ..ops.vjp import make_vjp_kernels
 from ..sensealg import (BacksolveAdjoint, ForwardDiffSensitivity, GaussAdjoint,
@@ -100,7 +114,8 @@ from ..sensealg import (BacksolveAdjoint, ForwardDiffSensitivity, GaussAdjoint,
                         QuadratureAdjoint)
 from ..solvers.explicit import ExplicitRK
 from ..solvers.integrate import (RETCODE_TERMINATED, Stats, integrate,
-                                 match_tol, time_dtype)
+                                 kind_torch_dtype, match_tol, next_stop,
+                                 time_dtype)
 from ..utils.pytree import ravel_pytree
 from .common import (augmented_fvec, forward_saveat_solve,
                      match_cotangents, reverse_joined_solve,
@@ -136,6 +151,8 @@ class SolveOptions:
     # fixed-grid forward under a continuous sensealg: the forward marches
     # this dt, the reverse adapts at adj_rtol / adj_atol
     fixed_dt: Any = None
+    callback: Any = None  # callbacks.CallbackSet, lowered
+    max_events: int = 32
 
 
 @dataclass
@@ -160,6 +177,7 @@ class AuxOut(NamedTuple):
     u_final: torch.Tensor
     stats: Stats
     adjoint: Optional[AdjointRecord] = None
+    events: Any = None  # solvers.events.EventRecord with callbacks
 
 
 def _flat(tree, like: torch.Tensor) -> torch.Tensor:
@@ -180,9 +198,10 @@ class _StepLog:
         self.last = None
         self.steps = []
 
-    def step(self, fvec, t, dt, u, f0, need_err: bool = True):
+    def step(self, fvec, t, dt, u, f0, need_err: bool = True, ddt=None):
         self.last = (t, dt)
-        return self.stepper.step(fvec, t, dt, u, f0, need_err)
+        kw = {} if ddt is None else {"ddt": ddt}
+        return self.stepper.step(fvec, t, dt, u, f0, need_err, **kw)
 
     def accepted(self, _rec):
         self.steps.append(self.last)
@@ -210,12 +229,23 @@ class _ContinuousRule:
                        and not self.checkpointed)
         self.store_dense = bool(needs_dense or opts.dense)
         self.dense = self.stats = self.t_final = None
+        self.events = self.event_log = None
+        self.node_times = False
         self.step_log = (_StepLog(solver)
                          if isinstance(sensealg, ForwardDiffSensitivity)
                          else None)
 
     def _p(self, pflat):
         return self.unravel_p(pflat) if self.has_p else None
+
+    def _event_set(self, p):
+        if self.opts.callback is None:
+            return None
+        from ..callbacks import build_event_set
+
+        return build_event_set(self.opts.callback, p,
+                               ravel_pytree(self.u0_tree)[1],
+                               self.opts.max_events)
 
     def _kern(self, p):
         vjp_choice = getattr(self.sensealg, "autojacvec", None)
@@ -226,6 +256,7 @@ class _ContinuousRule:
         p = self._p(pflat)
         kern = self._kern(p)
         opts, log = self.opts, self.step_log
+        event_set = self._event_set(p)
         fwd = forward_saveat_solve(
             log or self.solver, lambda uv, t: kern.fvec(uv, p, t), u0vec,
             self.t0, self.t1, self.saveat,
@@ -234,22 +265,36 @@ class _ContinuousRule:
             store_dense=self.store_dense, dtmax=opts.dtmax,
             fixed_dt=opts.fixed_dt,
             extra_hook=None if log is None else log.accepted,
+            event_set=event_set,
         )
+        # ForwardDiffSensitivity differentiates the node times, which a
+        # continuous event moves (JAX's jvp through its dense ts); the
+        # continuous rules freeze the grid
+        self.node_times = bool(log is not None and event_set is not None
+                               and event_set.n_cont)
         self.dense, self.stats, self.t_final = fwd.dense, fwd.stats, fwd.t_final
+        self.events, self.event_log = fwd.events, fwd.event_log
         return fwd
 
-    def backward(self, u0vec, pflat, ys_save, u_final, d_ys, d_uf):
-        """The reverse pass of the rule: the cotangents of the save rows and
-        of u_final -> those of u0 and p."""
+    def backward(self, u0vec, pflat, sv, ys_save, u_final, d_ys, d_uf,
+                 d_dys, d_dfs, want_sv, d_dts=None):
+        """The reverse pass of the rule: the cotangents of the save rows, of
+        u_final and of the dense nodes' states, slopes and (node_times)
+        times -> those of u0, p and (want_sv) the save times `sv`."""
         n, nt = u0vec.numel(), ys_save.shape[0]
         lam_jumps = (d_ys.reshape(nt, n) if d_ys is not None
                      else u0vec.new_zeros(nt, n))
         p = self._p(pflat)
         kern = self._kern(p)
+        d_saveat = None
+        if want_sv and d_ys is not None:
+            d_saveat = self._saveat_grad(kern, p, ys_save, lam_jumps, sv)
+        have_dense = d_dys is not None or d_dfs is not None
         if self.step_log is not None:
             du0, dp = self._backward_forwarddiff(u0vec, pflat, p, kern,
-                                                 lam_jumps, d_uf)
-            return match_cotangents(du0, dp, (u0vec, pflat))
+                                                 lam_jumps, d_uf, d_dys, d_dfs,
+                                                 d_dts)
+            return (*match_cotangents(du0, dp, (u0vec, pflat)), d_saveat)
         kind = time_dtype(u0vec.dtype)
         # loss cotangents as λ jumps at [t0, saveat..., t1]
         times = np.concatenate([[self.t0], self.saveat, [self.t1]]).astype(kind)
@@ -257,6 +302,15 @@ class _ContinuousRule:
         jumps = torch.cat([zero, lam_jumps, zero])
         if d_uf is not None:  # sol.u_final cotangent: a λ jump at t1
             jumps[-1] += d_uf.reshape(-1)
+        # Backsolve's snap rows, aligned with `times`
+        snaps = torch.cat([u0vec[None], ys_save, u_final[None]])
+        q_extra, jump_unroll = None, 3
+        if have_dense:
+            times, jumps, snaps, q_extra = self._merge_dense_nodes(
+                kern, p, times, jumps, snaps, d_dys, d_dfs)
+            # every save time is also a step node: one more coincident row
+            jump_unroll = 4
+        event_set = self._event_set(p)
         opts = self.opts
         self.record.reverse, self.record.resolves = "adaptive", 0
         adj = dict(
@@ -265,18 +319,21 @@ class _ContinuousRule:
             max_steps=(opts.adj_max_steps if opts.adj_max_steps is not None
                        else opts.max_steps),
             t_span=(self.t0, self.t_final))
+        args = (u0vec, pflat, p, kern, times, jumps, adj, event_set)
         if isinstance(self.sensealg, BacksolveAdjoint):
             lam0, q, rstats, worst = self._backward_backsolve(
-                u0vec, pflat, p, kern, times, jumps, ys_save, u_final, adj)
+                *args, snaps, u_final)
         elif self.checkpointed:
             lam0, q, rstats, worst = self._backward_checkpointed(
-                u0vec, pflat, p, kern, times, jumps, ys_save, u_final, adj)
+                *args, snaps)
         elif isinstance(self.sensealg, InterpolatingAdjoint):
             lam0, q, rstats, worst = self._backward_interpolating(
-                u0vec, pflat, p, kern, times, jumps, adj)
+                *args, jump_unroll)
         else:
-            lam0, q, rstats, worst = self._backward_lambda(
-                u0vec, pflat, p, kern, times, jumps, adj)
+            lam0, q, rstats, worst = self._backward_lambda(*args,
+                                                           jump_unroll)
+        if q_extra is not None:
+            q = q + q_extra.to(q.dtype)
 
         fwd_rc = self.stats.retcode
         retcode = max(0 if fwd_rc == RETCODE_TERMINATED else fwd_rc, worst)
@@ -284,14 +341,91 @@ class _ContinuousRule:
         if retcode != 0:
             if opts.verbose:
                 print(f"adjoint: non-success retcode {retcode} in the forward "
-                      "or reverse solve (1=MaxIters, 2=DtMin, 6=Backsolve "
-                      "u-reconstruction drift); gradients are NaN")
+                      "or reverse solve (1=MaxIters, 2=DtMin, 4=event record "
+                      "overflow, 6=Backsolve u-reconstruction drift); "
+                      "gradients are NaN")
             lam0 = torch.full_like(lam0, float("nan"))
             q = torch.full_like(q, float("nan"))
-        return match_cotangents(lam0, q, (u0vec, pflat))
+            if d_saveat is not None:
+                d_saveat = torch.full_like(d_saveat, float("nan"))
+        return (*match_cotangents(lam0, q, (u0vec, pflat)), d_saveat)
 
-    def _backward_backsolve(self, u0vec, pflat, p, kern, times, jumps,
-                            ys_save, u_final, adj):
+    def _saveat_grad(self, kern, p, ys_save, lam_jumps, sv):
+        """dL/dtᵢ = Δᵢ·f(u(tᵢ), p, tᵢ) (JAX :906-930), 0 for save times past
+        a terminal stop: those rows hold u(t_final) whatever their time."""
+        kind = type(self.t0)
+        tdir = kind(1.0) if self.t1 >= self.t0 else kind(-1.0)
+        tf = self.t_final
+        tol = match_tol(kind, self.t1 - self.t0, tf)
+        out = []
+        for i, t_i in enumerate(self.saveat):
+            if kind(kind(t_i - tf) * tdir) <= tol:
+                fv = kern.fvec(ys_save[i], p, t_i)
+                out.append(torch.sum(lam_jumps[i] * fv.to(lam_jumps.dtype)))
+            else:
+                out.append(lam_jumps.new_zeros(()))
+        return torch.stack(out).to(dtype=sv.dtype, device=sv.device)
+
+    def _merge_dense_nodes(self, kern, p, times, jumps, snaps, d_dys, d_dfs):
+        """The dense-output cotangents as λ jumps (JAX :962-1050): node k is
+        an output at tₖ, with the jump Δyₖ + f_uᵀΔfₖ and f_pᵀΔfₖ into
+        dL/dp, merged with the save rows by a stable sort on time (the port's
+        dense output has no padding rows). Returns (times, jumps, snaps,
+        the summed f_pᵀΔfₖ)."""
+        if self.checkpointed:
+            raise NotImplementedError(
+                "gradients through sol(t) (dense output) are not supported "
+                "with checkpointing=True; use the dense (non-checkpointed) "
+                "variant or ForwardDiffSensitivity")
+        if self.opts.callback is not None:
+            raise NotImplementedError(
+                "gradients through sol(t) combined with callbacks are not "
+                "supported by the continuous adjoints (jump/event "
+                "composition order at coincident times); use "
+                "ForwardDiffSensitivity or DirectAdjoint")
+        if float(self.t1) < float(self.t0):
+            raise NotImplementedError(
+                "gradients through sol(t) need a forward-time solve "
+                "(t1 >= t0)")
+        dense = self.dense
+        n_nodes, n = dense.ys.shape
+        d_nys = d_dys if d_dys is not None else dense.ys.new_zeros(n_nodes, n)
+        q_extra = None
+        njumps = d_nys
+        if d_dfs is not None:
+            # a zero slope cotangent adds nothing: only the nodes that a
+            # query touched call the field's pullback (one read to find them)
+            touched = (d_dfs != 0).any(dim=1).tolist()
+            njumps = d_nys.clone()
+            for k in (k for k, hit in enumerate(touched) if hit):
+                _, ubar, pbar = kern.f_and_vjp(dense.ys[k], p, dense.ts[k],
+                                               d_dfs[k])
+                njumps[k] += ubar.to(njumps.dtype)
+                if pbar is not None:
+                    qk = _flat(pbar, ubar)
+                    q_extra = qk if q_extra is None else q_extra + qk
+        all_t = np.concatenate([dense.ts, times]).astype(times.dtype)
+        order = np.argsort(all_t, kind="stable")
+        idx = torch.from_numpy(order).to(jumps.device)
+        all_j = torch.cat([njumps.to(jumps.dtype), jumps])[idx]
+        all_s = torch.cat([dense.ys.to(snaps.dtype), snaps])[idx]
+        return all_t[order], all_j, all_s, q_extra
+
+    def _event_kwargs(self, kern, p, event_set, n, npf, **where):
+        """reverse_joined_solve's event arguments (JAX `_event_kwargs`):
+        the recorded times, their count and the jump transform."""
+        if event_set is None:
+            return {}
+        ev = self.events
+        count = min(ev.count, event_set.max_events)
+        return dict(
+            event_times=ev.ts.numpy()[:count], event_count=count,
+            event_unroll=max(3, event_set.n_cont + event_set.n_disc),
+            event_apply=_make_event_apply(kern, p, event_set, ev, n, npf,
+                                          **where))
+
+    def _backward_backsolve(self, u0vec, pflat, p, kern, times, jumps, adj,
+                            event_set, snaps, u_final):
         """(λ(t0), q(t0), reverse Stats, worst retcode) of BacksolveAdjoint."""
         sensealg = self.sensealg
         n, npf = u0vec.numel(), pflat.numel()
@@ -310,7 +444,9 @@ class _ContinuousRule:
         drifts = []
         guard = sensealg.recon_guard
         if sensealg.checkpointing:
-            snap_values = torch.cat([u0vec[None], ys_save, u_final[None]])
+            # snap the u block back to the stored forward value at each save
+            # time (and at each dense node when those cotangents joined)
+            snap_values = snaps
             snap_start = n + npf
             if guard is not None:
                 on_snap = lambda u_rec, u_true: drifts.append(
@@ -320,7 +456,9 @@ class _ContinuousRule:
         z, _, rstats, _ = reverse_joined_solve(
             self.bwd_stepper, aug_rhs, times, jumps, z0, n,
             snap_values=snap_values, snap_start=snap_start, on_snap=on_snap,
-            err_weights=wts, **adj)
+            err_weights=wts, **adj,
+            **self._event_kwargs(kern, p, event_set, n, npf, q_slice=n,
+                                 u_snap_start=n + npf))
         worst = rstats.retcode
         # A drifted reconstruction means Jᵀλ and f_pᵀλ were taken on the
         # wrong trajectory. Without checkpoints the reverse ends at t0, where
@@ -335,14 +473,15 @@ class _ContinuousRule:
                 worst = max(worst, RETCODE_RECON_DRIFT)
         return z[:n], z[n:n + npf], rstats, worst
 
-    def _pinned_on(self) -> bool:
+    def _pinned_on(self, event_set) -> bool:
         """Whether the reverse rides the forward's grid (JAX `_pinned_on`):
-        only with an explicit-RK reverse stepper; auto (pinned_reverse=None)
-        pins InterpolatingAdjoint alone."""
+        only with an explicit-RK reverse stepper and no events; auto
+        (pinned_reverse=None) pins InterpolatingAdjoint alone."""
         want = getattr(self.sensealg, "pinned_reverse", None)
         if want is False:
             return False
-        eligible = isinstance(self.bwd_stepper, ExplicitRK)
+        eligible = (isinstance(self.bwd_stepper, ExplicitRK)
+                    and event_set is None)
         if want is True and not eligible:
             raise NotImplementedError(
                 "pinned_reverse=True needs an explicit-RK reverse stepper "
@@ -353,7 +492,7 @@ class _ContinuousRule:
         return eligible
 
     def _backward_interpolating(self, u0vec, pflat, p, kern, times, jumps,
-                                adj):
+                                adj, event_set, jump_unroll):
         """(λ(t0), q(t0), reverse Stats, worst retcode) of the dense
         InterpolatingAdjoint: the joined z = [λ; q] runs backwards over the
         forward's dense output with aug_rhs = −[ūᵀ, p̄ᵀ] from one
@@ -367,12 +506,12 @@ class _ContinuousRule:
         aug_rhs = _joined_rhs(kern, p, n, lambda t: dense_eval(dense, t))
         z0 = u0vec.new_zeros(n + npf)
         wts = torch.cat([u0vec.new_ones(n), u0vec.new_zeros(npf)])
-        if self._pinned_on():
+        if self._pinned_on(event_set):
             z, _, rstats = reverse_pinned_solve(
                 self.bwd_stepper,
                 lambda i: _joined_rhs(kern, p, n, _interval_y(dense, i)),
                 dense, times, jumps, z0, n, rtol=adj["rtol"],
-                atol=adj["atol"], err_weights=wts)
+                atol=adj["atol"], err_weights=wts, jump_unroll=jump_unroll)
             self.record.reverse = "pinned"
             if (rstats.retcode != 0 and self.sensealg.pinned_reverse is None
                     and self.sensealg.pinned_fallback):
@@ -383,31 +522,49 @@ class _ContinuousRule:
         else:
             z, _, rstats, _ = reverse_joined_solve(
                 self.bwd_stepper, aug_rhs, times, jumps, z0, n,
-                err_weights=wts, **adj)
+                err_weights=wts, **adj,
+                **self._event_kwargs(kern, p, event_set, n, npf, q_slice=n))
         return z[:n], z[n:], rstats, rstats.retcode
 
     def _backward_checkpointed(self, u0vec, pflat, p, kern, times, jumps,
-                               ys_save, u_final, adj):
+                               adj, event_set, snaps):
         """(λ(t0), q(t0), summed reverse Stats, worst retcode) of
         InterpolatingAdjoint(checkpointing=True), which
         GaussAdjoint/GaussKronrodAdjoint(checkpointing=True) share (JAX
-        :1252-1398, without events): for each inter-save interval from the
-        top down, add its jump, solve the interval forward again from the
-        stored save value with dense output, then run the adaptive joined
-        reverse over that local interpolant. The local forward gets
-        opts.max_steps under a fixed grid, else max(max_steps // 8, 64)
-        steps; the worst retcode of every local solve poisons the
-        gradient."""
+        :1252-1398): for each inter-save interval from the top down, add
+        its jump, solve the interval forward again from the stored save
+        value with dense output (re-firing its events), then run the
+        adaptive joined reverse over that local interpolant, applying the
+        recorded events at their times (and one at the interval's top
+        first). The local forward gets opts.max_steps under a fixed grid,
+        else max(max_steps // 8, 64) steps; the worst retcode of every local
+        solve poisons the gradient."""
         opts, n, npf = self.opts, u0vec.numel(), pflat.numel()
         kind = type(self.t0)
-        ckpt = torch.cat([u0vec[None], ys_save, u_final[None]])
+        ckpt = snaps
         seg_max_steps = (opts.max_steps if opts.fixed_dt is not None
                          else max(opts.max_steps // 8, 64))
         wts = torch.cat([u0vec.new_ones(n), u0vec.new_zeros(npf)])
         tf = self.t_final
         tdir = kind(1.0) if self.t1 >= self.t0 else kind(-1.0)
-        tol_tf = match_tol(kind, self.t1 - self.t0, tf)
+        span = self.t1 - self.t0
+        tol_tf = match_tol(kind, span, tf)
         fvec = lambda uv, t: kern.fvec(uv, p, t)
+        ev_kw = self._event_kwargs(kern, p, event_set, n, npf, q_slice=n)
+        ev_t = ev_kw.get("event_times", np.zeros(0, dtype=kind))
+        ke = ev_t.shape[0] - 1
+
+        def match_events(t, zz, ke):
+            """Every recorded event at time t, last recorded first."""
+            tol = match_tol(kind, span, t)
+            fired = False
+            for _ in range(ev_kw.get("event_unroll", 0)):
+                if ke >= 0 and abs(kind(ev_t[ke] - t)) <= tol:
+                    zz, _ = ev_kw["event_apply"](ke, t, zz, None)
+                    ke -= 1
+                    fired = True
+            return zz, ke, fired
+
         z = u0vec.new_zeros(n + npf)
         worst = n_acc = n_rej = n_fev = resolves = 0
         for i in range(times.shape[0] - 1, 0, -1):
@@ -419,16 +576,30 @@ class _ContinuousRule:
                 continue
             if kind(kind(t_hi - tf) * tdir) > 0:
                 t_hi = tf
+            # an event recorded at this save time, or the terminal one at
+            # t_final
+            z, ke, _ = match_events(t_hi, z, ke)
             local = integrate(self.solver, fvec, t_lo, t_hi, ckpt[i - 1],
                               rtol=opts.rtol, atol=opts.atol,
                               max_steps=seg_max_steps, store_dense=True,
-                              fixed_dt=opts.fixed_dt)
+                              fixed_dt=opts.fixed_dt, event_set=event_set)
             aug_rhs = _joined_rhs(
                 kern, p, n, lambda t, d=local.dense: dense_eval(d, t))
+            stop_kw = {}
+            if event_set is not None:
+                def stop_tr(t, zz, kec):
+                    return match_events(t, zz, kec)
+
+                stop_kw = dict(tstops=ev_t, stop_transform=stop_tr,
+                               hook_carry=ke)
             rev = integrate(self.bwd_stepper, aug_rhs, t_hi, t_lo, z,
                             rtol=adj["rtol"], atol=adj["atol"],
                             max_steps=adj["max_steps"], store_dense=False,
-                            err_weights=wts)
+                            err_weights=wts, **stop_kw)
+            if event_set is not None:
+                ke = rev.hook_carry
+            # the local re-solve of the interval that ends at a terminal
+            # stop reports Terminated: that is success
             fwd_rc = local.stats.retcode
             worst = max(worst, 0 if fwd_rc == RETCODE_TERMINATED else fwd_rc,
                         rev.stats.retcode)
@@ -444,17 +615,20 @@ class _ContinuousRule:
                        retcode=worst)
         return z[:n], z[n:], rstats, worst
 
-    def _backward_lambda(self, u0vec, pflat, p, kern, times, jumps, adj):
+    def _backward_lambda(self, u0vec, pflat, p, kern, times, jumps, adj,
+                         event_set, jump_unroll):
         """(λ(t0), dL/dp, reverse Stats, worst retcode) of GaussAdjoint,
         GaussKronrodAdjoint and QuadratureAdjoint: λ alone runs backwards
         over the forward's dense output (no error weights: every row is
         controlled). The Gauss hooks integrate λᵀ∂f/∂p on each accepted
         step, and with pinned_reverse=True the reverse walks the forward's
         grid (no fallback: auto never pins these rules); Quadrature keeps
-        λ's dense output and integrates afterwards."""
+        λ's dense output and integrates afterwards. An event's (∂A/∂p)ᵀλ⁺
+        goes into the hook's carry (Quadrature: into the sum that the
+        quadrature adds to)."""
         dense, n, npf = self.dense, u0vec.numel(), pflat.numel()
         quadrature = isinstance(self.sensealg, QuadratureAdjoint)
-        pinned = not quadrature and self._pinned_on()
+        pinned = not quadrature and self._pinned_on(event_set)
         aug_rhs = _lam_rhs(kern, p, lambda t: dense_eval(dense, t))
         qdtype = torch.promote_types(u0vec.dtype, torch.float32)
         q0 = torch.zeros(npf, dtype=qdtype, device=u0vec.device)
@@ -469,52 +643,264 @@ class _ContinuousRule:
                 self.bwd_stepper,
                 lambda i: _lam_rhs(kern, p, _interval_y(dense, i)), dense,
                 times, jumps, lam0, n, rtol=adj["rtol"], atol=adj["atol"],
-                hook=hook, hook_carry=q0)
+                hook=hook, hook_carry=q0, jump_unroll=jump_unroll)
             self.record.reverse = "pinned"
         else:
             lam, q, rstats, lam_dense = reverse_joined_solve(
                 self.bwd_stepper, aug_rhs, times, jumps, lam0, n,
-                hook=hook, hook_carry=q0, collect_dense=quadrature, **adj)
+                hook=hook, hook_carry=q0, collect_dense=quadrature, **adj,
+                **self._event_kwargs(kern, p, event_set, n, npf,
+                                     q_in_hc=True))
         if quadrature:
             q = adaptive_gk_dp(kern, p, dense, lam_dense, self.sensealg, q)
         elif finish is not None:
             q = finish(q)
         return lam, q, rstats, rstats.retcode
 
-    def _backward_forwarddiff(self, u0vec, pflat, p, kern, lam, d_uf):
+    def _backward_forwarddiff(self, u0vec, pflat, p, kern, lam, d_uf,
+                              d_dys=None, d_dfs=None, d_dts=None):
         """(dL/du0, dL/dp) of ForwardDiffSensitivity: the tangents of the
         forward's discrete program, contracted with the cotangents. Each
         chunk of chunk_size seed directions replays the recorded steps on
         the tangent system [u; S] (`augmented_fvec`): an explicit RK step is
         the same linear combination of its stages for u and for each
         tangent, so this is exactly the jvp of the replayed program, without
-        tracing the stepper's arithmetic."""
+        tracing the stepper's arithmetic. With events, time has a tangent
+        too, as in JAX's jvp through its loop: each row's σ, the derivative
+        of the current time, set by an event (`_replay_events`) and spent
+        by the next step clipped to a stop, whose length stop - t moves by
+        -σ (the step's derivative in dt, one jvp through the stepper).
+        Dense-node cotangents contract with the tangents of the node states
+        and slopes, and, where a continuous event moves them (d_dts), of
+        the node times: the rows' σ at each node. The nodes mirror the
+        forward's rows, an event's pre- and post-affect rows included."""
         n, npf, dtype = u0vec.numel(), pflat.numel(), u0vec.dtype
         saveat, t0 = self.saveat, self.t0
-        tdir = type(t0)(1.0) if self.t1 >= t0 else type(t0)(-1.0)
+        kind = type(t0)
+        tdir = kind(1.0) if self.t1 >= t0 else kind(-1.0)
         span = self.t1 - t0
+        use_dense = (d_dys is not None or d_dfs is not None
+                     or d_dts is not None)
+        event_set = self._event_set(p)
+        ev_at = dict(self.event_log or [])
+        stops = saveat if self.opts.tstops is None else np.sort(
+            np.concatenate([saveat, np.asarray(self.opts.tstops, dtype=kind)]))
+        fvec = lambda uv, t: kern.fvec(uv, p, t)
         save_hook = save_hook_factory(saveat, tdir, span)
         seeds = torch.eye(n + npf, dtype=dtype, device=u0vec.device)
         parts = []
         for block in torch.split(seeds, self.sensealg.chunk_size or n + npf):
+            k = block.shape[0]
             aug = augmented_fvec(kern, p, n, block[:, n:])
             z = torch.cat([u0vec, block[:, :n].reshape(-1)])
             fz = aug(z, t0).to(dtype)
             carry = save_carry0(saveat, t0, tdir, z, span)
-            for t, dt in self.step_log.steps:
+            nodes = [(z, fz, None)] if use_dense else None
+            sigma = None  # per-row tangent of the current time, or None
+            for i, (t, dt) in enumerate(self.step_log.steps):
+                t_b = kind(t + dt)
                 z1, f1, _ = self.solver.step(aug, t, dt, z, fz,
                                              need_err=False)
                 z1, f1 = z1.to(dtype), f1.to(dtype)
-                carry = save_hook((t, type(t)(t + dt), z, fz, z1, f1), carry)
+                delta = None
+                if sigma is not None and dt == kind(
+                        next_stop(t, self.t1, stops, tdir)[0] - t):
+                    # a clipped step's length stop - t moves by -σ
+                    delta = -sigma
+                    z1, f1 = _shift_step(self.solver, fvec, t, dt, z, fz, z1,
+                                         f1, delta, n, k)
+                se = ev_at.get(i)
+                if se is not None:
+                    z_pre, z1, sigma = self._replay_events(
+                        kern, p, event_set, se, t, dt, z, fz, z1, f1, sigma,
+                        delta, block[:, n:], n, k)
+                    if use_dense:  # the pre-affect row at the event time
+                        f_pre = (f1 if se.theta is None
+                                 else aug(z_pre, se.t_e).to(dtype))
+                        nodes.append((z_pre, f_pre, sigma))
+                    f1 = aug(z1, se.t_e).to(dtype)
+                    t_b = se.t_e
+                elif delta is not None:
+                    sigma = None  # landed on the stop: σ + δ = 0
+                carry = save_hook((t, t_b, z, fz, z1, f1), carry)
                 z, fz = z1, f1
-            k = block.shape[0]
+                if use_dense:
+                    nodes.append((z, fz, sigma))
             tangents = saved_rows(carry, z)[:, n:].reshape(-1, k, n)
             part = torch.einsum("ti,tki->k", lam, tangents)
             if d_uf is not None:
                 part = part + z[n:].reshape(k, n) @ d_uf.reshape(-1)
+            if use_dense:
+                for j, (zj, fj, sj) in enumerate(nodes):
+                    if d_dys is not None:
+                        part = part + zj[n:].reshape(k, n) @ d_dys[j]
+                    if d_dfs is not None:
+                        part = part + fj[n:].reshape(k, n) @ d_dfs[j]
+                    if d_dts is not None and sj is not None:
+                        part = part + (sj * d_dts[j]).to(part.dtype)
             parts.append(part)
         contracted = torch.cat(parts)
         return contracted[:n], contracted[n:]
+
+    def _replay_events(self, kern, p, event_set, se, t_a, dt, z_a, fz_a, z_b,
+                       fz_b, sigma, delta, seeds_p, n, k):
+        """The tangents through the events of one replayed step, as JAX's
+        jvp through `process_step_events` gives them: z = [u; S] with k
+        tangent rows, seeds_p their parameter directions, sigma / delta the
+        rows' tangents of the step's start and length (None: zero).
+        A continuous event at θ: dθ = -ġ_fixed / (∂g/∂θ) (the Newton
+        polish's derivative), the event time's tangent σ + θδ + dθ·dt, the
+        pre-event state's the interpolant's at fixed θ plus ∂y/∂θ·dθ. A
+        discrete one at the step end: t_b's tangent σ + δ. Each affect then
+        maps (u, p, t) by its jvp. Forward mode runs through the
+        interpolant, the condition and the affect only. Returns (z before
+        and after the events, the rows' time tangent)."""
+        kind = type(t_a)
+        tdt = kind_torch_dtype(kind)
+        dev = z_a.device
+        _, unravel_p = ravel_pytree(p)
+        as_t = lambda v: torch.tensor(v, dtype=tdt, device=dev)
+        zero_k = torch.zeros(k, dtype=tdt, device=dev)
+        sig = zero_k if sigma is None else sigma.to(tdt)
+        dlt = zero_k if delta is None else delta.to(tdt)
+        if se.theta is not None:
+            ua, fa = z_a[:n], fz_a[:n]
+            ub, fb = z_b[:n], fz_b[:n]
+            rows = lambda zz: zz[n:].reshape(k, n)
+            Sa, Fa, Sb, Fb = rows(z_a), rows(fz_a), rows(z_b), rows(fz_b)
+            th, ta, h = as_t(se.theta), as_t(t_a), as_t(dt)
+            i = se.cause
+
+            def g_and_y(th_, ta_, h_, ua_, fa_, ub_, fb_, pp_):
+                tt = ta_ + th_ * h_
+                y = hermite_at(tt, ta_, ta_ + h_, ua_, fa_, ub_, fb_)
+                return event_set.cond_j(y, pp_, tt, i), y
+
+            prim = (th, ta, h, ua, fa, ub, fb, p)
+            _, (g_th, y_th) = torch.func.jvp(
+                lambda th_: g_and_y(th_, *prim[1:]), (th,),
+                (torch.ones_like(th),))
+            u_tan, t_tan = [], []
+            for r in range(k):
+                tan = (sig[r], dlt[r], Sa[r], Fa[r], Sb[r], Fb[r],
+                       None if p is None else unravel_p(seeds_p[r]))
+                if p is None:
+                    _, (dg, dy) = torch.func.jvp(
+                        lambda *a: g_and_y(th, *a, None), prim[1:7], tan[:6])
+                else:
+                    _, (dg, dy) = torch.func.jvp(
+                        lambda *a: g_and_y(th, *a), prim[1:], tan)
+                safe = g_th.abs() > 1e-30
+                dth = torch.where(safe, -dg / torch.where(
+                    safe, g_th, torch.ones_like(g_th)), torch.zeros_like(dg))
+                t_tan.append(sig[r] + th * dlt[r] + dth * h)
+                u_tan.append(dy + y_th * dth)
+            u = hermite_at(as_t(se.t_e), ta, ta + h, ua, fa, ub, fb).to(
+                z_a.dtype)
+            U = torch.stack(u_tan).to(z_a.dtype)
+            T = torch.stack(t_tan)
+        else:
+            u, U = z_b[:n], z_b[n:].reshape(k, n)
+            T = sig + dlt
+        z_pre = torch.cat([u, U.reshape(-1)])
+        tt = as_t(se.t_e)
+        for j in se.fired:
+            rows_out = []
+            for r in range(k):
+                if p is None:
+                    _, d_u = torch.func.jvp(
+                        lambda uu, t_: event_set.affect_p(uu, None, t_, j),
+                        (u, tt), (U[r], T[r]))
+                else:
+                    _, d_u = torch.func.jvp(
+                        lambda uu, pp, t_: event_set.affect_p(uu, pp, t_, j),
+                        (u, p, tt), (U[r], unravel_p(seeds_p[r]), T[r]))
+                rows_out.append(d_u)
+            u = event_set.affect_p(u, p, se.t_e, j)
+            U = torch.stack(rows_out)
+        return z_pre, torch.cat([u, U.reshape(-1)]), T
+
+
+def _shift_step(stepper, fvec, t, dt, z, fz, z1, f1, delta, n, k):
+    """z1, f1 of a replayed step whose length moves by delta (per tangent
+    row): the step's derivative in dt, one jvp of the stepper's u-part
+    through its `ddt` (forward mode through the field), times delta, added
+    to each row's state and slope tangents."""
+    u, f = z[:n], fz[:n]
+    zero = torch.zeros((), dtype=delta.dtype, device=z.device)
+    _, (du, df) = torch.func.jvp(
+        lambda d: stepper.step(fvec, t, dt, u, f, need_err=False,
+                               ddt=d)[:2], (zero,), (torch.ones_like(zero),))
+    dz = torch.cat([torch.zeros_like(u), (delta[:, None] * du).reshape(-1)])
+    dfz = torch.cat([torch.zeros_like(f), (delta[:, None] * df).reshape(-1)])
+    return z1 + dz.to(z1.dtype), f1 + dfz.to(f1.dtype)
+
+
+def _make_event_apply(kern, p, event_set, events, n, npf, q_slice=None,
+                      u_snap_start=None, q_in_hc=False):
+    """The reverse jump of recorded event i (JAX `_make_event_apply`):
+
+        λ⁻ = (∂A/∂u)ᵀλ⁺ − ∇g·((∂A/∂u·f⁻ − f⁺)·λ⁺)/ġ,   ġ = ∇g·f⁻ + ∂g/∂t
+        dq += (∂A/∂p)ᵀλ⁺
+
+    with f⁺ = 0 at a terminal event (the trajectory stops at τ). Discrete
+    callbacks skip the event-time correction (their time is the grid's).
+    (∂A/∂u·f⁻)·λ⁺ is taken as f⁻·((∂A/∂u)ᵀλ⁺), so only the affect's and the
+    condition's pullbacks run, and the field is called for f⁻ and f⁺ alone.
+    q_slice: q's offset in z (Interpolating, Backsolve); u_snap_start:
+    Backsolve's u block, snapped to the recorded pre-event state; q_in_hc:
+    q is the hook's carry (Gauss: q, GaussKronrod: (q, error),
+    Quadrature: the sum its quadrature adds to).
+    apply(i, t, z, hc) -> (z, hc)."""
+    ev_upre = events.u_pre
+    ev_idx = events.idx.tolist()
+    n_cont = event_set.n_cont
+    tdt = kind_torch_dtype(time_dtype(ev_upre.dtype))
+
+    def apply(i, t, z, hc):
+        u_pre = ev_upre[i]
+        j = ev_idx[i]
+        lam = z[:n]
+        if p is None:
+            u_post, pull = torch.func.vjp(
+                lambda uu: event_set.affect_p(uu, None, t, j), u_pre)
+            (ubar,), pbar = pull(lam.to(u_post.dtype)), None
+        else:
+            u_post, pull = torch.func.vjp(
+                lambda uu, pp: event_set.affect_p(uu, pp, t, j), u_pre, p)
+            ubar, pbar = pull(lam.to(u_post.dtype))
+        lam_new = ubar.to(z.dtype)
+        if j < n_cont:
+            f_m = kern.fvec(u_pre, p, t)
+            terminal = (event_set.terminals is not None
+                        and event_set.terminals[j])
+            tt = torch.tensor(t, dtype=tdt, device=z.device)
+            gu, gt = torch.func.grad(
+                lambda uu, t_: event_set.cond_j(uu, p, t_, j),
+                argnums=(0, 1))(u_pre, tt)
+            gdot = gu @ f_m.to(gu.dtype) + gt.to(gu.dtype)
+            term = f_m.to(lam.dtype) @ lam_new
+            if not terminal:
+                term = term - kern.fvec(u_post, p, t).to(lam.dtype) @ lam
+            safe = gdot.abs() > 1e-300
+            corr = torch.where(safe, term / torch.where(
+                safe, gdot, torch.ones_like(gdot)), torch.zeros_like(term))
+            lam_new = lam_new - gu.to(z.dtype) * corr
+        z = z.clone()
+        z[:n] = lam_new
+        pbar_flat = None if pbar is None else ravel_pytree(pbar)[0]
+        if q_slice is not None and npf > 0 and pbar_flat is not None:
+            z[q_slice:q_slice + npf] += pbar_flat.to(z.dtype)
+        if u_snap_start is not None:
+            z[u_snap_start:] = u_pre
+        if q_in_hc and pbar_flat is not None:
+            if isinstance(hc, tuple):
+                hc = (hc[0] + pbar_flat.to(hc[0].dtype),) + hc[1:]
+            else:
+                hc = hc + pbar_flat.to(hc.dtype)
+        return z, hc
+
+    return apply
 
 
 def _joined_rhs(kern, p, n: int, y_of):
@@ -713,30 +1099,51 @@ def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init):
 
 
 class _ContinuousSolve(torch.autograd.Function):
-    """(u0vec, pflat) -> (saveat rows, u_final); backward = reverse solve."""
+    """(u0vec, pflat, save times) -> (saveat rows, u_final, and with dense
+    output the nodes' states and slopes, so that sol(t) is
+    differentiable, and where events move them (`rule.node_times`) the
+    node times' zero-valued offsets); backward = reverse solve."""
 
     @staticmethod
-    def forward(ctx, u0vec, pflat, rule):
+    def forward(ctx, u0vec, pflat, sv, rule):
         fwd = rule.forward(u0vec, pflat)
         ctx.rule = rule
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(u0vec, pflat, fwd.ys_save, fwd.u_final)
-        return fwd.ys_save, fwd.u_final
+        dense = fwd.dense
+        nodes = () if dense is None else (dense.ys, dense.fs)
+        ctx.save_for_backward(u0vec, pflat, sv, fwd.ys_save, fwd.u_final,
+                              *nodes)
+        if dense is None:
+            return fwd.ys_save, fwd.u_final, None, None, None
+        # the rule keeps the node times only: the nodes are outputs now,
+        # and a rule that held them would close a cycle through the graph
+        rule.dense = dense._replace(ys=None, fs=None)
+        dts = None
+        if rule.node_times:
+            dts = dense.ys.new_zeros(len(dense.ts), dtype=kind_torch_dtype(
+                type(dense.ts[0])))
+        return fwd.ys_save, fwd.u_final, dense.ys, dense.fs, dts
 
     @staticmethod
-    def backward(ctx, d_ys, d_uf):
-        if d_ys is None and d_uf is None:
-            return None, None, None
-        du0, dp = ctx.rule.backward(*ctx.saved_tensors, d_ys, d_uf)
-        return du0, dp, None
+    def backward(ctx, d_ys, d_uf, d_dys, d_dfs, d_dts):
+        if all(d is None for d in (d_ys, d_uf, d_dys, d_dfs, d_dts)):
+            return None, None, None, None
+        saved = ctx.saved_tensors
+        rule = ctx.rule
+        if len(saved) > 5:
+            rule.dense = rule.dense._replace(ys=saved[5], fs=saved[6])
+        du0, dp, d_sv = rule.backward(*saved[:5], d_ys, d_uf, d_dys, d_dfs,
+                                      ctx.needs_input_grad[2], d_dts=d_dts)
+        return du0, dp, d_sv, None
 
 
 def make_ode_solve_fn(f, solver, sensealg, opts: SolveOptions, t0, t1, *,
                       user_jac=None, user_vjp=None, user_paramjac=None,
                       bwd_solver=None):
     """Build `fn(u0, p, saveat) -> (ys, AuxOut)` whose gradient follows
-    `sensealg`. saveat: host array of save times. user_*: the problem's
-    jac / vjp / paramjac hooks (`ops.vjp.make_vjp_kernels`)."""
+    `sensealg`. saveat: save times, host values or a tensor (which then
+    gets its gradient). user_*: the problem's jac / vjp / paramjac hooks
+    (`ops.vjp.make_vjp_kernels`)."""
     if not isinstance(sensealg, _RULES):
         raise NotImplementedError(
             f"no ODE adjoint rule for {sensealg!r}; the port has "
@@ -752,19 +1159,24 @@ def make_ode_solve_fn(f, solver, sensealg, opts: SolveOptions, t0, t1, *,
         pflat, unravel_p = ravel_pytree(p)
         if p is None:
             pflat = u0vec.new_zeros(0)
-        wants_grad = torch.is_grad_enabled() and (u0vec.requires_grad
-                                                  or pflat.requires_grad)
-        if wants_grad and opts.dense:
-            raise NotImplementedError(
-                "gradients through dense output sol(t): ROADMAP M4")
         kind = time_dtype(u0vec.dtype)
+        if isinstance(saveat, torch.Tensor):
+            sv = saveat
+            saveat = saveat.detach().cpu().numpy()
+        else:
+            sv = torch.from_numpy(np.asarray(saveat, dtype=kind))
         record = AdjointRecord() if reverse_solve else None
         rule = _ContinuousRule(f, solver, sensealg, opts, kind(t0), kind(t1),
                                np.asarray(saveat, dtype=kind), u0, unravel_p,
                                p is not None, bwd_solver, record, hooks)
-        ys_save, u_final = _ContinuousSolve.apply(u0vec, pflat, rule)
-        aux = AuxOut(dense=rule.dense, t_final=rule.t_final, u_final=u_final,
-                     stats=rule.stats, adjoint=record)
+        ys_save, u_final, dys, dfs, dts = _ContinuousSolve.apply(
+            u0vec, pflat, sv, rule)
+        dense = rule.dense
+        if dense is not None:
+            dense = dense._replace(ys=dys, fs=dfs, ts_off=(
+                dense.ts_off if dts is None else list(dts.unbind())))
+        aux = AuxOut(dense=dense, t_final=rule.t_final, u_final=u_final,
+                     stats=rule.stats, adjoint=record, events=rule.events)
         return unravel_u(ys_save), aux
 
     return solve_fn

@@ -2,7 +2,8 @@
 
 Counterpart of `scimlsensitivity_jl_tpu/adjoints/direct.py`:
 `make_fixed_grid_solve_fn` (direct.py:28) and the adaptive
-`make_direct_solve_fn` (:109). The JAX package differentiates a `lax.scan`
+`make_direct_solve_fn` (:109, with events, :141-186). The JAX package
+differentiates a `lax.scan`
 of the steps (the masked fixed-trip `integrate_scan` when adaptive, or an
 unrolled trace); here the eager step loop records the autograd graph
 itself, so the gradient is the exact discrete adjoint of the scheme on the
@@ -13,6 +14,13 @@ never used, so it leaves no node behind. `unroll=` is kept for API parity
 (the fixed grid takes the JAX unrolled path's stage times from it; the
 adaptive path runs the same loop either way, behind the same
 max_steps <= 256 guard).
+
+Save times and event times carry derivatives as JAX's traced times do:
+a saveat tensor that requires grad reaches the gradient through the
+length of each step clipped to it (`remaining = stop - t`, JAX
+direct.py:131), and an event time through its Newton-polished θ
+(`solvers/events.py`); the integrator carries both as zero-valued tensors
+beside its host clock, and so do the dense nodes whose times they move.
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.vjp import make_vjp_kernels
-from ..solvers.integrate import RETCODE_TERMINATED, Stats, state_kind
+from ..solvers.integrate import (RETCODE_TERMINATED, Stats, kind_torch_dtype,
+                                 state_kind, time_dtype)
 from ..utils.pytree import ravel_pytree
 from .common import forward_saveat_solve
 from .continuous import AuxOut, SolveOptions
@@ -91,9 +100,10 @@ class _RematStepper:
         self.order = stepper.order
         self.n_stages = getattr(stepper, "n_stages", 1)
 
-    def step(self, fvec, t, dt, u, f0, need_err: bool = True):
+    def step(self, fvec, t, dt, u, f0, need_err: bool = True, ddt=None):
+        kw = {} if ddt is None else {"ddt": ddt}
         return checkpoint(self.stepper.step, fvec, t, dt, u, f0, need_err,
-                          use_reentrant=False, preserve_rng_state=False)
+                          use_reentrant=False, preserve_rng_state=False, **kw)
 
 
 def make_direct_solve_fn(f, solver, sensealg, opts: SolveOptions, t0, t1,
@@ -115,10 +125,24 @@ def make_direct_solve_fn(f, solver, sensealg, opts: SolveOptions, t0, t1,
     def solve_fn(u0, p, saveat):
         u0vec, unravel_u = ravel_pytree(u0)
         kern = make_vjp_kernels(f, u0, p)
+        sv_off = None
+        if isinstance(saveat, torch.Tensor):
+            if saveat.requires_grad and torch.is_grad_enabled():
+                tdt = kind_torch_dtype(time_dtype(u0vec.dtype))
+                sv = saveat.to(dtype=tdt, device=u0vec.device)
+                sv_off = sv - sv.detach()
+            saveat = saveat.detach().cpu().numpy()
+        event_set = None
+        if opts.callback is not None:
+            from ..callbacks import build_event_set
+
+            event_set = build_event_set(opts.callback, p, unravel_u,
+                                        opts.max_events)
         fwd = forward_saveat_solve(
             stepper, lambda uv, t: kern.fvec(uv, p, t), u0vec, t0, t1, saveat,
             rtol=opts.rtol, atol=opts.atol, dt0=opts.dt0, max_steps=max_steps,
-            tstops=opts.tstops, store_dense=opts.dense, fixed_trip=True)
+            tstops=opts.tstops, store_dense=opts.dense, fixed_trip=True,
+            event_set=event_set, saveat_offsets=sv_off)
         ys_save, u_final, dense = fwd.ys_save, fwd.u_final, fwd.dense
         if fwd.stats.retcode not in (0, RETCODE_TERMINATED):
             # additive and tied to u_final, as direct.py:172-176: a NaN
@@ -130,7 +154,7 @@ def make_direct_solve_fn(f, solver, sensealg, opts: SolveOptions, t0, t1,
             if dense is not None:
                 dense = dense._replace(ys=dense.ys + nan_term)
         aux = AuxOut(dense=dense, t_final=fwd.t_final, u_final=u_final,
-                     stats=fwd.stats)
+                     stats=fwd.stats, events=fwd.events)
         return unravel_u(ys_save), aux
 
     return solve_fn

@@ -5,16 +5,20 @@ Counterpart of `scimlsensitivity_jl_tpu/ops/interp.py:hermite_eval` and
 `:dense_eval`. The JAX package keeps node times on the device and locates
 an interval with a masked sum; here node times live on the host (the eager
 integrator knows them), so locating an interval reads nothing from the device.
+Where a node time carries a derivative (DirectAdjoint through a save or
+event time, ForwardDiffSensitivity through an event time), `ts_off` holds
+it as a zero-valued tensor, and the interval is evaluated in tensor
+arithmetic (`hermite_at`), with the same values.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
-__all__ = ["DenseOutput", "hermite_eval", "dense_eval"]
+__all__ = ["DenseOutput", "hermite_eval", "hermite_at", "dense_eval"]
 
 
 class DenseOutput(NamedTuple):
@@ -25,6 +29,8 @@ class DenseOutput(NamedTuple):
     fs: (n_steps+1, n) du/dt at the nodes.
     n_steps: number of accepted steps.
     tdir: +1 / -1 integration direction (time dtype).
+    ts_off: None, or per node None or a zero-valued tensor carrying the
+        node time's derivative (DirectAdjoint, ForwardDiffSensitivity).
     """
 
     ts: np.ndarray
@@ -32,6 +38,7 @@ class DenseOutput(NamedTuple):
     fs: torch.Tensor
     n_steps: int
     tdir: np.floating
+    ts_off: Any = None
 
 
 def hermite_eval(t, t0, t1, y0, f0, y1, f1):
@@ -50,6 +57,22 @@ def hermite_eval(t, t0, t1, y0, f0, y1, f1):
     return y0 * float(one - theta) + y1 * float(theta) + inner * w
 
 
+def hermite_at(tt, ta, tb, y0, f0, y1, f1):
+    """Cubic Hermite on the step [ta, tb] at device times `tt` (a 0-dim
+    tensor, or (m,) for m rows), in the operation order of JAX's
+    `hermite_eval`; ta and tb are 0-dim tensors of the time dtype, and the
+    step has nonzero width."""
+    h = tb - ta
+    theta = (tt - ta) / h
+    if tt.dim():
+        theta = theta[:, None]
+    w = theta * (theta - 1.0)
+    dy = y1 - y0
+    inner = (dy * (1.0 - 2.0 * theta) + f0 * ((theta - 1.0) * h)
+             + f1 * (theta * h))
+    return y0 * (1.0 - theta) + y1 * theta + inner * w
+
+
 def _locate(dense: DenseOutput, t) -> int:
     """Index i of the step interval holding t, clipped to valid steps."""
     keys = dense.ts * dense.tdir
@@ -64,5 +87,15 @@ def dense_eval(dense: DenseOutput, t):
     if dense.n_steps == 0:
         return dense.ys[0]
     i = _locate(dense, t)
-    return hermite_eval(t, dense.ts[i], dense.ts[i + 1], dense.ys[i],
-                        dense.fs[i], dense.ys[i + 1], dense.fs[i + 1])
+    rows = (dense.ys[i], dense.fs[i], dense.ys[i + 1], dense.fs[i + 1])
+    off = dense.ts_off
+    if off is not None and (off[i] is not None or off[i + 1] is not None):
+        ta, tb = dense.ts[i], dense.ts[i + 1]
+        if ta != tb:
+            tdt = torch.float64 if type(ta) is np.float64 else torch.float32
+            new = lambda v: torch.tensor(v, dtype=tdt, device=rows[0].device)
+            ta_t = new(ta) if off[i] is None else new(ta) + off[i]
+            tb_t = new(tb) if off[i + 1] is None else new(tb) + off[i + 1]
+            return hermite_at(new(t), ta_t, tb_t, rows[0], rows[1], rows[2],
+                              rows[3])
+    return hermite_eval(t, dense.ts[i], dense.ts[i + 1], *rows)

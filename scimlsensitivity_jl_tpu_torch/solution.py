@@ -36,6 +36,8 @@ class ODESolution:
     adjoint: for continuous sensealgs, an AdjointRecord that the backward
         pass fills in with the reverse solve's Stats (the JAX package has
         no such record: under `jit` the reverse counts stay on the device).
+    events: with callbacks, the forward's `solvers.events.EventRecord`
+        (ts, u_pre, idx, count), JAX's (ev_ts, ev_upre, ev_idx, ev_count).
     """
 
     ts: torch.Tensor
@@ -50,6 +52,7 @@ class ODESolution:
     u_final: Optional[torch.Tensor] = None  # flat state at t1
     t_final: Any = None
     adjoint: Any = None
+    events: Any = None
 
     @property
     def success(self):

@@ -6,10 +6,12 @@ plain ODEs: saveat validation, the default-sensealg dispatch (solve.py:
 (solve.py:538-547), the continuous rules with the problem's jac / vjp /
 paramjac hooks and a checkpoint grid (`checkpoints=`, solve.py:548-581),
 ForwardSensitivity (solve.py:606-609)
-and adaptive DirectAdjoint (solve.py:611-619). Gradients follow
-`sensealg` through torch.autograd.
-Other problem types, callbacks, mass matrices and the sensealgs whose rules
-are not ported raise NotImplementedError naming the ROADMAP item.
+and adaptive DirectAdjoint (solve.py:611-619), with the callback dispatch
+(solve.py:327-545: lowering, terminal callbacks, p-modifying events lifted
+into the state). Gradients follow `sensealg` through torch.autograd,
+including those of a saveat tensor that requires grad.
+Other problem types, mass matrices and the sensealgs whose rules are not
+ported raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ import numpy as np
 import torch
 
 from .adjoints.continuous import SolveOptions, make_ode_solve_fn
+from .callbacks import (any_modifies_p, as_callback_set,
+                        check_callback_closures, lift_p_into_state,
+                        lower_time_callbacks)
 from .problems import ODEProblem
 from .sensealg import (AbstractSensealg, BacksolveAdjoint, DirectAdjoint,
                        ForwardDiffSensitivity, ForwardSensitivity, GaussAdjoint,
@@ -61,6 +66,7 @@ def solve(
     adj_max_steps=None,
     bwd_solver=None,
     callback=None,
+    max_events: int = 32,
     adaptive: bool = True,
     unroll: bool = False,
     verbose: bool = False,
@@ -69,14 +75,16 @@ def solve(
     """Solve an ODE problem; gradients through the result follow `sensealg`.
 
     saveat: 1-D times (default: the two endpoints), as a list, numpy array
-    or tensor. Save times get no gradient in the port.
+    or tensor; a tensor that requires grad gets dL/dtᵢ = Δᵢ·f(u(tᵢ)) under
+    the continuous rules and the discrete derivative under DirectAdjoint.
+    callback: a callback of `callbacks.py`, a list of them or a
+    CallbackSet; `sol.events` then holds the record (at most max_events
+    firings; more give retcode 4).
     """
     if not isinstance(prob, ODEProblem):
         raise NotImplementedError(
             f"solve for {type(prob).__name__}: the port solves ODEProblem "
             "only so far (ROADMAP M9-M13)")
-    if callback is not None:
-        raise NotImplementedError("callbacks and events: ROADMAP M8")
     if prob.mass_matrix is not None:
         raise NotImplementedError("mass matrices and DAEs: ROADMAP M9")
     if rtol is None:
@@ -88,7 +96,8 @@ def solve(
         max_steps=max_steps, tstops=tstops, sensealg=sensealg, dense=dense,
         adj_rtol=adj_rtol, adj_atol=adj_atol, adj_max_steps=adj_max_steps,
         bwd_solver=bwd_solver, adaptive=adaptive, unroll=unroll,
-        verbose=verbose, dtmax=dtmax,
+        verbose=verbose, dtmax=dtmax, callback=callback,
+        max_events=max_events,
     )
 
 
@@ -104,7 +113,7 @@ def _take_rows(tree, rows: torch.Tensor):
 def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
                tstops, sensealg, dense, adj_rtol, adj_atol, adj_max_steps,
                bwd_solver, adaptive=True, unroll=False, verbose=False,
-               dtmax=None):
+               dtmax=None, callback=None, max_events=32):
     solver = solver or Tsit5()
     t0, t1 = prob.tspan
     u0vec, unravel_u = ravel_pytree(prob.u0)
@@ -112,10 +121,13 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
     n = u0vec.shape[0]
     np_ = tree_size(prob.p) if prob.p is not None else 0
 
+    sv_t = None  # the caller's saveat tensor, when it wants a gradient
     if saveat is None:
         saveat = np.asarray([t0, t1], dtype=kind)
     else:
         if isinstance(saveat, torch.Tensor):
+            if saveat.requires_grad:
+                sv_t = saveat.reshape(-1)
             saveat = saveat.detach().cpu().numpy()
         saveat = np.asarray(saveat, dtype=kind).reshape(-1)
         # strictly monotone in the direction of integration: duplicates and
@@ -125,6 +137,41 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
             raise ValueError("saveat must be strictly monotone in the "
                              f"integration direction; got {saveat}")
 
+    cbs, lifted = None, False
+    if callback is not None:
+        # PresetTime/Periodic -> tstop-pinned DiscreteCallbacks;
+        # TerminateSteadyState closes over this problem's field
+        callback, extra_stops = lower_time_callbacks(callback, prob.f, t0,
+                                                     t1, kind)
+        if extra_stops is not None:
+            tstops = extra_stops if tstops is None else np.union1d(
+                np.asarray(tstops, float), extra_stops)
+        cbs = as_callback_set(callback)
+        if any(getattr(c, "terminal", False)
+               for c in tuple(cbs.continuous) + tuple(cbs.discrete)):
+            # the continuous rules reverse from the dynamic t_final; the
+            # discrete ones differentiate the truncated program
+            if sensealg is None:
+                sensealg = DirectAdjoint()
+            elif not isinstance(sensealg, (DirectAdjoint,
+                                           *_CONTINUOUS_RULES)):
+                raise NotImplementedError(
+                    "terminal callbacks (terminate!/TerminateSteadyState): "
+                    "use DirectAdjoint, ForwardDiffSensitivity, or a dense "
+                    "continuous adjoint (Interpolating/Gauss/GK/Quadrature/"
+                    "Backsolve)")
+        if isinstance(sensealg, ForwardSensitivity):
+            raise NotImplementedError(
+                "ForwardSensitivity with callbacks: the forward-sensitivity "
+                "ODE has no event tangent map; use ForwardDiffSensitivity")
+        if any_modifies_p(cbs):
+            # p joins the integration state, so conditions and affects can
+            # read and write it and every rule differentiates the swap
+            prob, cbs = lift_p_into_state(prob, cbs)
+            lifted = True
+            u0vec, unravel_u = ravel_pytree(prob.u0)
+            n, np_ = u0vec.shape[0], 0
+
     # Fixed-grid solves (adaptive=False) take the discrete-AD path, except
     # where default_sensealg picks the fixed-grid continuous Backsolve
     # (large n, few parameters), while an explicit continuous sensealg
@@ -132,7 +179,10 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
     explicit_sensealg = sensealg is not None
     if sensealg is None:
         sensealg = default_sensealg(n, np_, prob.p is not None,
+                                    has_callbacks=cbs is not None,
                                     fixed_grid=not adaptive, unroll=unroll)
+    if cbs is not None and isinstance(sensealg, _CONTINUOUS_RULES):
+        check_callback_closures(cbs)
 
     if dt is not None and dt0 is None:
         dt0 = dt
@@ -147,6 +197,7 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
         dense=dense, adj_rtol=adj_rtol, adj_atol=adj_atol,
         adj_max_steps=adj_max_steps, dtmax=dtmax, verbose=verbose,
         fixed_dt=(dt if fixed_grid_continuous else None),
+        callback=cbs, max_events=max_events,
     )
 
     # deliberate divergence on either fixed-grid path: JAX's discrete march
@@ -166,6 +217,11 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
     if fixed_grid_continuous:
         if dt is None:
             raise ValueError("adaptive=False requires dt=...")
+        if cbs is not None:
+            raise NotImplementedError(
+                "callbacks + adaptive=False + a continuous sensealg are not "
+                "supported; use the adaptive integrator (events are localized "
+                "within adaptive steps)")
         if unroll:
             raise NotImplementedError(
                 "unroll=True applies to the fixed-grid discrete path "
@@ -186,6 +242,8 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
     if not adaptive and not fixed_grid_continuous:
         if dt is None:
             raise ValueError("adaptive=False requires dt=...")
+        if cbs is not None:
+            raise NotImplementedError("callbacks need the adaptive integrator")
         from .adjoints.direct import make_fixed_grid_solve_fn
 
         n_steps = max(int(round((float(t1) - float(t0)) / float(dt))), 1)
@@ -210,6 +268,11 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
             user_rows = torch.from_numpy(
                 np.searchsorted(merged, saveat.astype(float)))
             saveat_solve = merged.astype(kind)
+        if sv_t is not None:
+            # the caller's times, differentiably, at their merged rows
+            base = torch.from_numpy(np.asarray(saveat_solve, dtype=kind))
+            saveat_solve = (sv_t.to(base.dtype) if user_rows is None else
+                            base.index_put((user_rows,), sv_t.to(base.dtype)))
         fn = make_ode_solve_fn(prob.f, solver, sensealg, opts, t0, t1,
                                user_jac=prob.jac, user_vjp=prob.vjp,
                                user_paramjac=prob.paramjac,
@@ -222,7 +285,7 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
 
         fn = make_direct_solve_fn(prob.f, solver, sensealg, opts, t0, t1,
                                   unroll=unroll)
-        ys, aux = fn(prob.u0, prob.p, saveat)
+        ys, aux = fn(prob.u0, prob.p, saveat if sv_t is None else sv_t)
     elif isinstance(sensealg, ForwardSensitivity):
         from .adjoints.forward import make_forward_sensitivity_solve_fn
 
@@ -236,6 +299,10 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
     if verbose and aux.stats.retcode != 0:
         print(f"solve: non-success retcode {aux.stats.retcode} (1=MaxIters, "
               "2=DtMin); gradients through this solution are NaN")
+    if lifted:
+        # the u-part of the lifted (u, p) rows; cotangents on it reach u0
+        # and p through the lifted initial state
+        ys = ys[0]
 
     return ODESolution(
         ts=torch.from_numpy(saveat),
@@ -250,4 +317,5 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
         u_final=aux.u_final,
         t_final=aux.t_final,
         adjoint=aux.adjoint,
+        events=getattr(aux, "events", None),
     )

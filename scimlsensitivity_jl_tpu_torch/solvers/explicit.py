@@ -40,6 +40,10 @@ class ExplicitRK:
     stages run in promote(state dtype, time dtype): a bfloat16 state under
     float32 time steps in float32, as JAX promotes it against its float32
     dt, and the integrator casts u1 and f1 back.
+    ddt: a zero-valued tensor that carries the derivative of dt (DirectAdjoint
+    through a save or event time); each coefficient dt·a becomes
+    dt·a + ddt·a, the same value, so u1 and f1 are unchanged and autograd
+    sees dt as JAX's traced step length. The stage times stay host values.
     """
 
     def __init__(self, tableau: ButcherTableau, name: str):
@@ -52,9 +56,14 @@ class ExplicitRK:
     def __repr__(self):
         return f"{self.name}()"
 
-    def step(self, fvec, t, dt, u, f0, need_err: bool = True):
+    def step(self, fvec, t, dt, u, f0, need_err: bool = True, ddt=None):
         tab = self.tableau
         kind = type(t)
+
+        def coef(c):
+            value = float(_scale(dt, c))
+            return value if ddt is None else ddt * float(c) + value
+
         wide = torch.promote_types(u.dtype, kind_torch_dtype(kind))
         if wide != u.dtype:
             u, f0 = u.to(wide), f0.to(wide)
@@ -64,7 +73,7 @@ class ExplicitRK:
             for aij, k in zip(row, ks):
                 if aij == 0.0:
                     continue
-                contrib = k * float(_scale(dt, aij))
+                contrib = k * coef(aij)
                 du = contrib if du is None else du + contrib
             ui = u if du is None else u + du
             ti = kind(t + _scale(dt, tab.c[i + 1]))
@@ -74,7 +83,7 @@ class ExplicitRK:
         for bi, k in zip(tab.b, ks):
             if bi == 0.0:
                 continue
-            u1 = u1 + k * float(_scale(dt, bi))
+            u1 = u1 + k * coef(bi)
 
         f1 = ks[-1] if tab.fsal else fvec(u1, kind(t + dt))
 

@@ -3,11 +3,13 @@
 Counterpart of `scimlsensitivity_jl_tpu/solvers/integrate.py`:
 `hairer_norm`, `initial_step_size` and `integrate` (integrate.py:118-300),
 the PI-controlled adaptive loop with its `fixed_dt=` march, tstops landed
-exactly, a per-accepted-step hook and a stop transform. `fixed_trip=True`
-gives it the budget of the masked `integrate_scan` (:498), the loop that
-DirectAdjoint differentiates; the scan itself is not needed, since autograd
-records the eager loop. Events and the unrolled integrators are not ported
-(ROADMAP M8).
+exactly, a per-accepted-step hook, a stop transform and events
+(`event_set`, `solvers/events.py`: each accepted step is truncated to its
+earliest event, and the post-event state continues from a zero-width
+dense row). `fixed_trip=True` gives it the budget of the masked
+`integrate_scan` (:498), the loop that DirectAdjoint differentiates; the
+scan itself is not needed, since autograd records the eager loop. The
+unrolled integrators are not ported (ROADMAP M3/M4).
 
 The JAX `lax.while_loop` becomes an eager Python loop. Time, step size and
 controller state stay on the host as numpy scalars of the time dtype, so
@@ -35,6 +37,7 @@ __all__ = [
     "hairer_norm",
     "error_norm",
     "match_tol",
+    "next_stop",
     "initial_step_size",
     "time_dtype",
     "state_kind",
@@ -43,14 +46,16 @@ __all__ = [
     "RETCODE_SUCCESS",
     "RETCODE_MAXITERS",
     "RETCODE_DTMIN",
+    "RETCODE_EVENT_OVERFLOW",
     "RETCODE_TERMINATED",
 ]
 
 RETCODE_SUCCESS = 0
 RETCODE_MAXITERS = 1
 RETCODE_DTMIN = 2
-# 3 (DDE lag violations) and 4 (event record overflow) wait for ROADMAP M8,
-# M13; 6: BacksolveAdjoint reconstruction drift (adjoints/continuous.py).
+# 3 (DDE lag violations) waits for ROADMAP M13; 6: BacksolveAdjoint
+# reconstruction drift (adjoints/continuous.py).
+RETCODE_EVENT_OVERFLOW = 4  # more event firings than max_events slots
 RETCODE_TERMINATED = 5
 
 # step-size controller constants of the JAX integrator's defaults: PI
@@ -74,6 +79,10 @@ class IntegrateResult(NamedTuple):
     u_final: torch.Tensor
     stats: Stats
     hook_carry: Any
+    # with an event_set: the EventRecord, and per firing step (index of the
+    # accepted step, its StepEvents), the replay of ForwardDiffSensitivity
+    events: Any = None
+    event_log: Any = None
 
 
 def _round_bf16(x: float) -> float:
@@ -158,18 +167,21 @@ def initial_step_size(fvec, t0, u0, f0, order, rtol, atol, tdir):
     return kind(tdir * min(kind(kind(100.0) * h0), h1))
 
 
-def _next_stop(t, t1, tstops, tdir):
-    """Nearest upcoming stop strictly ahead of t (including t1)."""
+def next_stop(t, t1, tstops, tdir):
+    """The stop a step from t is clipped to: the nearest of tstops strictly
+    ahead of t and before t1, else t1; and its index in tstops (None for
+    t1)."""
     if tstops is None or tstops.shape[0] == 0:
-        return t1
+        return t1, None
     kind = type(t)
     key = tstops * tdir
     ahead = key > kind(t * tdir) + kind(kind(1e-12) * max(kind(1.0), abs(t)))
     before_end = key < kind(t1 * tdir)
-    candidates = key[ahead & before_end]
-    if candidates.size == 0:
-        return t1
-    return kind(candidates.min() * tdir)
+    masked = np.where(ahead & before_end, key, np.inf)
+    i = int(np.argmin(masked))
+    if not np.isfinite(masked[i]):
+        return t1, None
+    return kind(key[i] * tdir), i
 
 
 def error_norm(err, u, u1, rtol, atol, err_weights=None,
@@ -199,6 +211,36 @@ def match_tol(kind, span, *ts):
     return kind(kind(kind(64.0) * eps) * max([floor] + [abs(t) for t in ts]))
 
 
+class _OffsetClock:
+    """The derivatives of the host clock's times, as zero-valued tensors
+    beside the host values (DirectAdjoint through save or event times),
+    with the reach of JAX's traced times: a step clipped to a stop that has
+    an offset, or taken from a time that has one, gets its length's as
+    `ddt` (stop - t); the current time keeps its offset until the next
+    clipped step, and an event time brings its own."""
+
+    def __init__(self, stop_offsets):
+        self.stop_offsets = stop_offsets or {}
+        self.t = None    # the current time's offset, or None
+        self.end = None  # the offset of this step's end
+
+    def begin(self, clipped: bool, stop_i):
+        """Start a step; returns its length's offset ddt, or None."""
+        stop_off = (self.stop_offsets.get(stop_i)
+                    if clipped and stop_i is not None else None)
+        self.end = stop_off if clipped else self.t
+        if not clipped or (stop_off is None and self.t is None):
+            return None
+        if self.t is None:
+            return stop_off
+        return -self.t if stop_off is None else stop_off - self.t
+
+    def truncate(self, se):
+        """The step ends at an event: a continuous one moves its time."""
+        if se.theta is not None:
+            self.end = se.t_e_off
+
+
 def integrate(
     stepper,
     fvec: Callable,
@@ -219,6 +261,8 @@ def integrate(
     dtmax=None,
     fixed_dt=None,
     fixed_trip: bool = False,
+    event_set=None,
+    stop_offsets=None,
 ) -> IntegrateResult:
     """Integrate du/dt = fvec(u, t) from t0 to t1 (t1 < t0 allowed).
 
@@ -237,7 +281,19 @@ def integrate(
     fixed_trip: the budget of JAX's `integrate_scan` (integrate.py:774-800):
         max_steps attempts, rejected ones included, then MaxIters; no DtMin
         check (a vanishing step runs the budget out); n_fevals reports
-        max_steps·stages, the scan's fixed trip count.
+        max_steps·stages, the scan's fixed trip count; no event-overflow
+        retcode (the scan loop has none).
+    event_set: `callbacks.EventSet`. An accepted step with an event is
+        truncated to it (its dense row holds the pre-affect state), a
+        zero-width row holds the post-affect state and counts in
+        n_accepted, and the hook sees the post-affect state. A terminal
+        event stops the loop there with retcode 5 (Terminated); more
+        firings than max_events give retcode 4 (EventRecordOverflow).
+    stop_offsets: {index into tstops: zero-valued tensor} carrying the
+        derivative of those stops (DirectAdjoint's save times): a step
+        clipped to a stop gets the length stop - t as a tensor, `ddt`, and
+        time keeps a zero-valued offset until the next clipped step, as
+        JAX's traced times do. Events add the event time's offset.
     """
     dtype = u0.dtype
     kind = time_dtype(dtype)
@@ -266,18 +322,36 @@ def integrate(
 
     t, u, f = t0, u0, f0
     err_prev = kind(1.0)
-    n_acc = n_rej = n_iter = 0
+    n_acc = n_rej = n_iter = n_steps = 0
     status = -1
-    rows_t, rows_y, rows_f = [t0], [u0], [f0]
+    rows_t, rows_y, rows_f, rows_off = [t0], [u0], [f0], [None]
+    record, event_log = None, []
+    if event_set is not None:
+        from .events import (finish_record, init_event_buffers,
+                             process_step_events)
+
+        record = init_event_buffers(event_set, t1, u0.shape[0], dtype, kind,
+                                    u0.device)
+    clock = (_OffsetClock(stop_offsets)
+             if stop_offsets is not None or event_set is not None else None)
+
+    def add_row(t_row, u_row, f_row):
+        if store_dense:
+            rows_t.append(t_row)
+            rows_y.append(u_row)
+            rows_f.append(f_row)
+            rows_off.append(None if clock is None else clock.end)
 
     while status < 0:
-        stop = _next_stop(t, t1, tstops, tdir)
+        stop, stop_i = next_stop(t, t1, tstops, tdir)
         remaining = kind(stop - t)
         clipped = abs(dt) >= abs(remaining)
         dt_eff = remaining if clipped else dt
+        ddt = None if clock is None else clock.begin(clipped, stop_i)
 
+        step_kw = {} if ddt is None else {"ddt": ddt}
         u1, f1, err = stepper.step(fvec, t, dt_eff, u, f,
-                                   need_err=fixed_dt is None)
+                                   need_err=fixed_dt is None, **step_kw)
         u1, f1 = u1.to(dtype), f1.to(dtype)
 
         if fixed_dt is None:
@@ -304,17 +378,32 @@ def integrate(
             accept = True
             dt_next = kind(tdir * abs(kind(fixed_dt)))
 
+        se = None
         if accept:
             t_new = kind(t + dt_eff)
             u_new, f_new = u1, f1
+            if event_set is not None:
+                se = process_step_events(event_set, fvec, t, dt_eff, u, f,
+                                         u1, f1, record, t_off=clock.t,
+                                         dt_off=ddt)
+            if se is not None:
+                # truncate the step to the event (pre-affect state)
+                t_new, u_new, f_new = se.t_e, se.u_pre, se.f_pre
+                clock.truncate(se)
+                event_log.append((n_steps, se))
             n_acc += 1
-            if store_dense:
-                rows_t.append(t_new)
-                rows_y.append(u_new)
-                rows_f.append(f_new)
+            add_row(t_new, u_new, f_new)
+            if se is not None:
+                # the post-affect state continues from a zero-width row
+                u_new, f_new = se.u_post, se.f_post
+                n_acc += 1
+                add_row(t_new, u_new, f_new)
             if hook is not None:
                 hook_carry = hook((t, t_new, u, f, u_new, f_new), hook_carry)
-            if stop_transform is not None and clipped:
+            n_steps += 1
+            if clock is not None:
+                clock.t = clock.end
+            if stop_transform is not None and clipped and se is None:
                 # evaluate f one stop-matching tolerance into the direction
                 # of integration, on the far side of the jump
                 t_eval = kind(t_new + kind(tdir * match_tol(
@@ -324,10 +413,7 @@ def integrate(
                 if fired:
                     f_new = fvec(u_new, t_eval).to(dtype)
                     n_acc += 1
-                    if store_dense:
-                        rows_t.append(t_new)
-                        rows_y.append(u_new)
-                        rows_f.append(f_new)
+                    add_row(t_new, u_new, f_new)
         else:
             t_new, u_new, f_new = t, u, f
             n_rej += 1
@@ -342,7 +428,9 @@ def integrate(
             underflow = abs(dt_next) < dt_floor and not done
             out_of_steps = (n_acc >= max_steps
                             or n_iter + 1 >= 4 * max_steps) and not done
-        if done:
+        if se is not None and se.terminated:
+            status = RETCODE_TERMINATED  # a deliberate stop wins
+        elif done:
             status = RETCODE_SUCCESS
         elif out_of_steps:
             status = RETCODE_MAXITERS
@@ -356,10 +444,23 @@ def integrate(
     if store_dense:
         dense = DenseOutput(ts=np.asarray(rows_t, dtype=kind),
                             ys=torch.stack(rows_y), fs=torch.stack(rows_f),
-                            n_steps=len(rows_t) - 1, tdir=tdir)
+                            n_steps=len(rows_t) - 1, tdir=tdir,
+                            ts_off=(rows_off if any(o is not None
+                                                    for o in rows_off)
+                                    else None))
     trips = max_steps if fixed_trip else n_iter
+    events = None
+    if record is not None:
+        events = finish_record(record)
+        # more firings than record slots: the extra affects were applied
+        # but are not in the record, so every record-consuming reverse pass
+        # would be wrong; the adjoint rules poison on the retcode
+        if (not fixed_trip and events.count > event_set.max_events
+                and status in (RETCODE_SUCCESS, RETCODE_TERMINATED)):
+            status = RETCODE_EVENT_OVERFLOW
     stats = Stats(n_accepted=n_acc, n_rejected=n_rej,
                   n_fevals=trips * getattr(stepper, "n_stages", 1),
                   retcode=status)
     return IntegrateResult(dense=dense, t_final=t, u_final=u, stats=stats,
-                           hook_carry=hook_carry)
+                           hook_carry=hook_carry, events=events,
+                           event_log=event_log)

@@ -342,6 +342,115 @@ def test_spiral_gradient_on_card_matches_cpu(cuda):
         assert float(rel) <= 1e-9, (k, float(rel))
 
 
+@pytest.mark.parametrize("sensealg", [None, P.InterpolatingAdjoint(),
+                                      P.DirectAdjoint()],
+                         ids=["default_gauss", "interpolating", "direct"])
+def test_dosed_pde_gradient_on_card_matches_cpu(cuda, sensealg):
+    """The flagship field at n = 16384 with one dose (PresetTimeCallback at
+    6 ns of 16, affect u ← 0.9u + 0.05u²), adaptive from dt0 = 1e-9,
+    float64: the card through K1 and K2 against the port's CPU run; one
+    dose recorded on both."""
+    n, t1 = 16384, 16e-9
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    cb = P.PresetTimeCallback([6e-9], lambda u, p, t: 0.9 * u + 0.05 * u * u)
+    grads = []
+    for device in (cuda, "cpu"):
+        x = torch.arange(n, dtype=torch.float64, device=device) / n
+        u0 = torch.exp(-((x - 0.5) ** 2) * 100.0).requires_grad_()
+        p = torch.tensor([1e-7, 1.5], dtype=torch.float64,
+                         device=device).requires_grad_()
+        before = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+        sol = P.solve(P.ODEProblem(field, u0, (0.0, t1), p), P.Tsit5(),
+                      saveat=[0.0, t1], dt0=1e-9, rtol=1e-8, atol=1e-10,
+                      callback=cb, sensealg=sensealg)
+        grads.append([g.cpu() for g in torch.autograd.grad(
+            torch.sum(sol.ys[-1] ** 2), (u0, p))])
+        after = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+        assert sol.retcode == 0 and sol.events.count == 1
+        if sensealg is None:
+            assert isinstance(sol.sensealg, P.GaussAdjoint)
+        if device != "cpu":
+            assert all(a > b for a, b in zip(after, before))
+    (gu_card, gp_card), (gu_cpu, gp_cpu) = grads
+    rel = torch.linalg.vector_norm(gu_card - gu_cpu) / torch.linalg.vector_norm(gu_cpu)
+    assert float(rel) <= 1e-9
+    assert float(((gp_card - gp_cpu).abs() / gp_cpu.abs()).max()) <= 1e-9
+
+
+@pytest.mark.parametrize("case", ["event_gauss", "event_direct",
+                                  "dense_gauss", "saveat_gauss"])
+def test_spiral_events_and_dense_on_card_match_cpu(cuda, case):
+    """The spiral's fused field (K3/K4), adaptive (rtol 1e-3, atol 1e-6) on
+    [0, 1.5], float64: with the event ‖u‖² = 3 (u ← 0.8u; ‖u‖² falls
+    from 4 to 1.8 at seed 0) under GaussAdjoint
+    and DirectAdjoint, with dense=True and Σ sol(t)² over 20 query times,
+    and with a saveat tensor's gradient; the card against the port's CPU
+    run, relative L2 <= 1e-9 per leaf, the same event count on both."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ts = torch.linspace(0.0, 1.5, 30, dtype=torch.float64).tolist()
+    tq = torch.linspace(0.01, 1.49, 20, dtype=torch.float64).tolist()
+    sensealg = P.DirectAdjoint() if case == "event_direct" else P.GaussAdjoint()
+    cb = P.ContinuousCallback(lambda u, p, t: u[0] ** 2 + u[1] ** 2 - 3.0,
+                              lambda u, p, t: 0.8 * u)
+    grads, counts = [], []
+    for device in (cuda, "cpu"):
+        gen = torch.Generator().manual_seed(0)
+        params = {k: v.requires_grad_() for k, v in P.mlp_init(
+            gen, (2, 50, 2), torch.float64, device=device).items()}
+        sv = torch.tensor(ts, dtype=torch.float64, requires_grad=True)
+        before = (mlp.mlp2_fwd_cuda.launches, mlp.mlp2_vjp_cuda.launches)
+        prob = P.ODEProblem(lambda u, p, t: mlp.fused_mlp2(p, u ** 3),
+                            torch.tensor([2.0, 0.0], dtype=torch.float64,
+                                         device=device), (0.0, 1.5), params)
+        sol = P.solve(prob, P.Tsit5(), saveat=sv, rtol=1e-3, atol=1e-6,
+                      max_steps=256, sensealg=sensealg,
+                      dense=case == "dense_gauss",
+                      callback=cb if case.startswith("event") else None)
+        loss = (torch.sum(sol(tq) ** 2) if case == "dense_gauss"
+                else torch.sum(sol.ys ** 2))
+        wrt = list(params.values()) + ([sv] if case == "saveat_gauss" else [])
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, wrt)])
+        after = (mlp.mlp2_fwd_cuda.launches, mlp.mlp2_vjp_cuda.launches)
+        assert sol.retcode == 0
+        if case.startswith("event"):
+            counts.append(sol.events.count)
+        if device != "cpu":
+            assert all(a > b for a, b in zip(after, before))
+    assert not counts or counts[0] == counts[1] >= 1
+    for g_card, g_cpu in zip(*grads):
+        rel = (torch.linalg.vector_norm(g_card - g_cpu)
+               / torch.linalg.vector_norm(g_cpu))
+        assert float(rel) <= 1e-9
+
+
+@pytest.mark.parametrize("sensealg", [P.ForwardDiffSensitivity(),
+                                      P.DirectAdjoint()],
+                         ids=["forwarddiff", "direct"])
+def test_ball_dense_through_bounces_on_card_matches_cpu(cuda, sensealg):
+    """sol(t) through the bouncing ball's bounces (continuous events, which
+    move the dense nodes after them) under the discrete rules, float64:
+    the card's gradient against the port's CPU run, 1e-12 per entry."""
+    grads = []
+    for device in (cuda, "cpu"):
+        u0 = torch.tensor([1.0, 0.0], dtype=torch.float64, device=device,
+                          requires_grad=True)
+        p = torch.tensor([0.9], dtype=torch.float64, device=device,
+                         requires_grad=True)
+        cb = P.ContinuousCallback(
+            lambda u, q, t: u[0],
+            lambda u, q, t: torch.stack([u[0], -q[0] * u[1]]), direction=-1)
+        prob = P.ODEProblem(
+            lambda u, q, t: torch.stack([u[1], -9.81 + 0.0 * u[0]]), u0,
+            (0.0, 2.0), p)
+        sol = P.solve(prob, P.Tsit5(), rtol=1e-10, atol=1e-12, dense=True,
+                      callback=cb, sensealg=sensealg)
+        assert sol.retcode == 0 and sol.events.count == 3
+        loss = torch.sum(sol([0.3, 0.7, 1.2, 1.8]) ** 2)
+        grads.append([g.cpu() for g in torch.autograd.grad(loss, (u0, p))])
+    for g_card, g_cpu in zip(*grads):
+        assert torch.allclose(g_card, g_cpu, rtol=1e-12, atol=1e-12)
+
+
 # K5, K6 vs plain, relative to max|.| (ū, u) and per entry (D̄, k̄): float64
 # to roundoff; float32 runs 4·S stages whose sums round in another order
 RK4_TOL = {torch.float64: (1e-12, 1e-10), torch.float32: (1e-5, 1e-5)}

@@ -164,17 +164,14 @@ def test_reversed_span_fixed_grid_dt_sign():
 
 def test_unported_paths_raise():
     """What the port does not have yet fails loudly, naming the ROADMAP
-    item, instead of returning a silent zero gradient: a gradient through
-    dense output sol(t), the unrolled adaptive continuous solves, and
-    callbacks."""
+    item, instead of returning a silent zero gradient: the unrolled
+    adaptive continuous solves, and mass matrices (DAEs)."""
     u0 = to_port(LV_U0).requires_grad_()
     prob = P.ODEProblem(lotka_volterra_port, u0, (0.0, 1.0), to_port(LV_P))
-    with pytest.raises(NotImplementedError, match="sol\\(t\\): ROADMAP M4"):
-        P.solve(prob, sensealg=P.InterpolatingAdjoint(), dense=True)
     with pytest.raises(NotImplementedError, match="ROADMAP M3/M4"):
         P.solve(prob, sensealg=P.GaussKronrodAdjoint(), unroll=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP M8"):
-        P.solve(prob, callback=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
+        P.solve(P.remake(prob, mass_matrix=np.eye(2)))
     # without a gradient the shared forward solve runs under any rule
     sol = P.solve(P.ODEProblem(lotka_volterra_port, to_port(LV_U0),
                                (0.0, 1.0), to_port(LV_P)))
