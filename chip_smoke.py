@@ -60,7 +60,19 @@ launch counters set to 0 just before it and read just after:
     dense=True and the loss Σ sol(t)² over 50 query times under GaussAdjoint
     and InterpolatingAdjoint (S2d), and the gradient of a saveat tensor
     under GaussAdjoint (S2t) (K3, K4); the bouncing ball of
-    bench.py:289-316 in float64 (no kernel).
+    bench.py:289-316 in float64 (no kernel);
+  * the direct APIs: the flagship PDE at (d-)'s setting with dense output,
+    the cost Σ u(t1)² given as dgdu_discrete at t1, under
+    adjoint_sensitivities with InterpolatingAdjoint (the default),
+    BacksolveAdjoint, GaussAdjoint and QuadratureAdjoint, and
+    ODEAdjointProblem's Interpolating layout solved by hand with the
+    port's solve (K1, K2); the dosed PDE under the Interpolating direct
+    API with its callback=; the spiral at S2's setting under the Gauss
+    direct API, the discrete cost 2(u − data) at its 30 save times, also
+    with the continuous cost g = Σu² (K3, K4); Lotka–Volterra's Hessian on
+    (0, 3) under DirectAdjoint and GaussAdjoint, reverse over reverse (no
+    kernel); second order through the rd1d and the fused MLP field, which
+    raises DoubleBackwardUnsupported.
 
 Phases, each printed before the last line:
 
@@ -109,6 +121,13 @@ Phases, each printed before the last line:
      the card's float64; S2e, S2d and S2t, card against CPU, with the same
      event count on both (at least one) and their K3/K4 launches; the
      bouncing ball under GaussAdjoint against ForwardDiffSensitivity;
+  5g. [direct f64]: each direct arm at n = 262,144, the card against the
+     port's CPU run and against the card's solve gradient of its rule
+     (adaptive reverse, the same reverse tolerances), its K1/K2 launches in
+     the direct call, then float32 at n = 1,048,576 against the card's
+     float64; the dosed PDE and the spiral arms, card against CPU and
+     against the solve gradient, with their launches; the two Hessians
+     symmetric and agreeing; the refusal of second order on the card;
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
      kernel device time against its bound and its plain version (K1, K2
@@ -124,7 +143,9 @@ Phases, each printed before the last line:
      S1's forward, each with the reverse that ran; phase 5f's arms (PDE
      dose f32 at n = 1,048,576, S2e, S2d, S2t in float32, the ball) each
      against its own forward, with the device's idle share (not traced
-     for the spiral's gradients).
+     for the spiral's gradients); phase 5g's PDE arms at n = 1,048,576 in
+     float32, each direct call against the dense forward it reads, with
+     the device's idle share.
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -701,6 +722,97 @@ def ball_solve(P, device, sensealg, grad):
             return sol
         (gp,) = torch.autograd.grad(torch.sum(sol.ys[:, 0] ** 2), (p,))
     return gp, sol
+
+
+# the direct APIs (phase 5g): each arm's reverse at the tolerances of the
+# solve gradient it is held to (PDE: ADJ; the dosed PDE and the spiral:
+# their forward's), so that both run the same reverse; a Lotka–Volterra
+# Hessian at the setting of the JAX package's tests/test_interface.py:98-170
+DIRECT_PDE_RULES = ("InterpolatingAdjoint", "BacksolveAdjoint",
+                    "GaussAdjoint", "QuadratureAdjoint")
+DIRECT_TOL = ADJ["adj_rtol"]  # direct call vs the solve gradient, rel L2
+LV_HESS = dict(rtol=1e-9, atol=1e-11, max_steps=1024)
+HESS_SYM_TOL = 1e-6   # max|H − Hᵀ| / max|H|, and Direct vs Gauss
+DIRECT_TIMING_ROUNDS = 3
+
+
+def pde_cost(u, p, t, i):
+    """∂/∂u of Σ u(t1)², the PDE's discrete cost at its one data time."""
+    return 2.0 * u
+
+
+def flagship_dense_forward(P, field, u0, p):
+    """The PDE's forward with dense output, the solution the direct APIs
+    read (the fixed grid of 64 steps, as PDE (d-))."""
+    t1 = STEPS * DT
+    with torch.no_grad():
+        return P.solve(P.ODEProblem(field, u0, (0.0, t1), p), P.Tsit5(),
+                       saveat=[0.0, t1], dt=DT, adaptive=False, dense=True)
+
+
+def direct_pde(P, sol, rule):
+    """(du0, dp) of Σ u(t1)² from adjoint_sensitivities under `rule` at
+    the solve gradient's reverse tolerances (ADJ)."""
+    return P.adjoint_sensitivities(
+        sol, t=[STEPS * DT], dgdu_discrete=pde_cost,
+        sensealg=getattr(P, rule)(), rtol=ADJ["adj_rtol"],
+        atol=ADJ["adj_atol"], max_steps=ADJ["adj_max_steps"])
+
+
+def adjoint_problem_pde(P, sol):
+    """(du0, dp) of the same cost from ODEAdjointProblem's Interpolating
+    layout, [λ; q] over the forward's dense output, solved by hand with
+    the port's solve at ADJ's tolerances."""
+    t1 = STEPS * DT
+    spec = P.ODEAdjointProblem(sol, P.InterpolatingAdjoint(), t=[t1],
+                               dgdu_discrete=pde_cost)
+    with torch.no_grad():
+        adj = P.solve(spec.prob, P.Tsit5(), callback=spec.callback,
+                      tstops=spec.tstops, saveat=[t1, 0.0],
+                      rtol=ADJ["adj_rtol"], atol=ADJ["adj_atol"],
+                      max_steps=ADJ["adj_max_steps"])
+    check(adj.retcode == 0, f"ODEAdjointProblem's solve retcode {adj.retcode}")
+    return spec.extract(adj.u_final)
+
+
+def direct_dose(P, field, u0, p):
+    """(du0, dp) of the dosed PDE's Σ u(t1)² under the Interpolating
+    direct API, with the forward's dose callback, at its tolerances."""
+    cb = P.PresetTimeCallback([EV_DOSE_T], dose_affect)
+    with torch.no_grad():
+        sol = P.solve(P.ODEProblem(field, u0, (0.0, EV_T1), p), P.Tsit5(),
+                      saveat=[0.0, EV_T1], dt0=DT, callback=cb, dense=True,
+                      **EV_TOL[u0.dtype])
+    return P.adjoint_sensitivities(sol, t=[EV_T1], dgdu_discrete=pde_cost,
+                                   callback=cb, **EV_TOL[u0.dtype])
+
+
+def direct_spiral(P, setup, with_g):
+    """(dp per leaf, solution) of the spiral's Σ(ys − data)² (and, with_g,
+    ∫ Σu² dt) under the Gauss direct API at S2's setting."""
+    params, _, data, ts = setup
+    sol = spiral_solve(P, setup, dict(SPIRAL_ADAPTIVE, dense=True), params)
+    _, dp = P.adjoint_sensitivities(
+        sol, t=ts, dgdu_discrete=lambda u, p, t, i: 2.0 * (u - data[i]),
+        g=(lambda u, p, t: torch.sum(u ** 2)) if with_g else None,
+        sensealg=P.GaussAdjoint(), **SPIRAL_ADAPTIVE)
+    return dp, sol
+
+
+def lv_hessian(P, device, sensealg):
+    """Lotka–Volterra's Hessian of Σ ys² in p on (0, 3), 4 save times
+    (tests/test_interface.py:98-170's setting), in float64."""
+    def lv(u, p, t):
+        return torch.stack([p[0] * u[0] - p[1] * u[0] * u[1],
+                            -p[2] * u[1] + p[3] * u[0] * u[1]])
+
+    prob = P.ODEProblem(lv, torch.tensor([1.0, 1.0], dtype=torch.float64,
+                                         device=device), (0.0, 3.0),
+                        torch.tensor([1.5, 1.0, 3.0, 1.0],
+                                     dtype=torch.float64, device=device))
+    return P.second_order_sensitivities(
+        lambda sol: torch.sum(sol.ys ** 2), prob, P.Tsit5(),
+        sensealg=sensealg, saveat=[0.0, 1.0, 2.0, 3.0], **LV_HESS)
 
 
 def main() -> int:
@@ -1607,6 +1719,188 @@ def main() -> int:
     check(err <= EV_RULE_TOL, "ball GaussAdjoint off ForwardDiffSensitivity")
     elapsed("phase 5f [events f64]")
 
+    # -- 5g. [direct f64]: adjoint_sensitivities and ODEAdjointProblem -----
+    # the flagship PDE at (d-)'s setting (64 fixed steps, dense output),
+    # the cost Σ u(t1)² given as dgdu_discrete at t1: K1 and K2 in every
+    # reverse stage (f_and_vjp, vjp_u), Gauss or Gauss–Kronrod node (vjp_p)
+    # and Backsolve's reconstruction; each arm held to the card's solve
+    # gradient of its rule (the adaptive reverse, ADJ's tolerances)
+    from scimlsensitivity_jl_tpu_torch.ops.vjp import DoubleBackwardUnsupported
+
+    solve_rule = {"InterpolatingAdjoint": P.InterpolatingAdjoint(
+                      pinned_reverse=False),
+                  "BacksolveAdjoint": P.BacksolveAdjoint(),
+                  "GaussAdjoint": P.GaussAdjoint(),
+                  "QuadratureAdjoint": P.QuadratureAdjoint()}
+    direct_arms = {rule: (lambda sol, r=rule: direct_pde(P, sol, r))
+                   for rule in DIRECT_PDE_RULES}
+    direct_arms["ODEAdjointProblem (Interpolating, by hand)"] = (
+        lambda sol: adjoint_problem_pde(P, sol))
+    direct_launches = {}
+    t = time.perf_counter()
+    n = SIZES[0]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0c, pc = flagship_inputs(n, torch.float64, "cpu")
+    sol_c = flagship_dense_forward(P, field, u0c, pc)
+    u0, p = flagship_inputs(n, torch.float64, dev)
+    sol = flagship_dense_forward(P, field, u0, p)
+    for arm, fn in direct_arms.items():
+        rd1d.rd1d_fwd_cuda.launches = 0
+        rd1d.rd1d_vjp_cuda.launches = 0
+        gu, gp = fn(sol)
+        torch.cuda.synchronize()
+        got = {"K1": rd1d.rd1d_fwd_cuda.launches,
+               "K2": rd1d.rd1d_vjp_cuda.launches}
+        direct_launches[arm] = got
+        gu_c, gp_c = fn(sol_c)
+        rule = arm if arm in solve_rule else "InterpolatingAdjoint"
+        gu_s, gp_s, _ = flagship_gradient(P, field, n, u0, p,
+                                          solve_rule[rule])
+        e_u = rel_l2(gu, gu_c)
+        e_p = ((gp.cpu() - gp_c).abs() / gp_c.abs()).tolist()
+        e_s = max([rel_l2(gu, gu_s)]
+                  + ((gp - gp_s).abs() / gp_s.abs()).tolist())
+        print(f"[direct f64] PDE n={n} {arm}: K1 {got['K1']} and K2 "
+              f"{got['K2']} launches in the direct call; card vs CPU "
+              f"u0-grad rel L2 {e_u:.3e}, dD rel {e_p[0]:.3e}, dk rel "
+              f"{e_p[1]:.3e} (tol {F64_GRAD_TOL:g}); against the card's "
+              f"solve gradient under {rule} (adaptive reverse) max rel "
+              f"{e_s:.3e} (tol {DIRECT_TOL:g}, the reverse rtol); p-grad "
+              f"{gp.tolist()}")
+        check(got["K1"] > 0 and got["K2"] > 0,
+              f"direct {arm} did not launch K1 and K2: {got}")
+        check(e_u <= F64_GRAD_TOL and max(e_p) <= F64_GRAD_TOL,
+              f"direct {arm} f64 card gradient off the CPU run")
+        check(e_s <= DIRECT_TOL, f"direct {arm} off the solve gradient")
+    del u0c, pc, sol_c, gu_c, gp_c, gu_s, gp_s, sol
+    n = SIZES[1]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    sol64 = flagship_dense_forward(P, field, *flagship_inputs(
+        n, torch.float64, dev))
+    sol32 = flagship_dense_forward(P, field, *flagship_inputs(
+        n, torch.float32, dev))
+    for arm, fn in direct_arms.items():
+        gu64, _ = fn(sol64)
+        rd1d.rd1d_fwd_cuda.launches = 0
+        rd1d.rd1d_vjp_cuda.launches = 0
+        gu, gp = fn(sol32)
+        torch.cuda.synchronize()
+        got = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+        e_u = rel_l2(gu, gu64)
+        print(f"[direct f32] PDE n={n} {arm} vs card f64: u0-grad rel L2 "
+              f"{e_u:.3e} (tol {F32_U0_TOL:g}); K1 {got[0]} and K2 {got[1]} "
+              "launches")
+        check(min(got) > 0, f"f32 direct {arm} launched K1, K2 {got}")
+        check(e_u <= F32_U0_TOL, f"direct {arm} f32 gradient off the f64 one")
+    del sol64, sol32, gu, gp, gu64
+
+    # the dosed PDE with its callback under the Interpolating direct API,
+    # against the card's solve gradient under InterpolatingAdjoint
+    n = EV_N[torch.float64]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0, p = flagship_inputs(n, torch.float64, dev)
+    rd1d.rd1d_fwd_cuda.launches = 0
+    rd1d.rd1d_vjp_cuda.launches = 0
+    gu, gp = direct_dose(P, field, u0, p)
+    torch.cuda.synchronize()
+    got = {"K1": rd1d.rd1d_fwd_cuda.launches,
+           "K2": rd1d.rd1d_vjp_cuda.launches}
+    direct_launches["dosed PDE (Interpolating, callback=)"] = got
+    gu_c, gp_c = direct_dose(P, field, *flagship_inputs(n, torch.float64,
+                                                        "cpu"))
+    gu_s, gp_s, _ = dose_gradient(P, field, u0, p, P.InterpolatingAdjoint())
+    e_u = rel_l2(gu, gu_c)
+    e_p = ((gp.cpu() - gp_c).abs() / gp_c.abs()).tolist()
+    e_s = max([rel_l2(gu, gu_s)] + ((gp - gp_s).abs() / gp_s.abs()).tolist())
+    print(f"[direct f64] PDE dose n={n} Interpolating with callback=: K1 "
+          f"{got['K1']} and K2 {got['K2']} launches (forward and reverse); "
+          f"card vs CPU u0-grad rel L2 {e_u:.3e}, dD rel {e_p[0]:.3e}, dk "
+          f"rel {e_p[1]:.3e} (tol {F64_GRAD_TOL:g}); against the solve "
+          f"gradient max rel {e_s:.3e} (tol "
+          f"{EV_TOL[torch.float64]['rtol']:g}, the reverse rtol)")
+    check(got["K1"] > 0 and got["K2"] > 0, f"direct dose launched {got}")
+    check(e_u <= F64_GRAD_TOL and max(e_p) <= F64_GRAD_TOL,
+          "direct dose f64 card gradient off the CPU run")
+    check(e_s <= EV_TOL[torch.float64]["rtol"],
+          "direct dose off the solve gradient")
+    del u0, p, gu, gp, gu_c, gp_c, gu_s, gp_s
+
+    # the spiral at S2's setting under the Gauss direct API: the discrete
+    # cost 2(u − data) at the 30 save times (against the card's solve
+    # gradient under GaussAdjoint), then with g = Σu² added (card vs CPU)
+    g_s, _ = spiral_gradient(P, setup_card, dict(SPIRAL_ADAPTIVE,
+                                                 sensealg=P.GaussAdjoint()))
+    for arm, with_g in (("S2g Gauss direct, discrete cost", False),
+                        ("S2g Gauss direct, discrete cost + g = Σu²", True)):
+        (g_card, sol), got = count_path(
+            lambda: direct_spiral(P, setup_card, with_g))
+        direct_launches[arm] = {"K3": got[0], "K4": got[1]}
+        g_cpu, _ = direct_spiral(P, setup_cpu, with_g)
+        errs = leaf_errors(g_card, g_cpu)
+        vs = ""
+        if not with_g:
+            e_s = max(leaf_errors(g_card, g_s).values())
+            vs = (f"; against the card's solve gradient under GaussAdjoint "
+                  f"max rel L2 {e_s:.3e} (tol {SPIRAL_ADAPTIVE['rtol']:g}, "
+                  "the reverse rtol)")
+            check(e_s <= SPIRAL_ADAPTIVE["rtol"],
+                  f"{arm} off the solve gradient")
+        print(f"[direct f64] {arm}: forward {sol.stats}; K3 {got[0]} and K4 "
+              f"{got[1]} launches (forward and reverse); card vs CPU rel L2 "
+              f"{fmt_errors(errs)} (tol {NODE_F64_TOL:g}){vs}")
+        check(max(errs.values()) <= NODE_F64_TOL,
+              f"{arm}: f64 card gradient off the CPU run")
+
+    # Lotka–Volterra's Hessian (no kernel) under DirectAdjoint and
+    # GaussAdjoint, reverse over reverse: symmetric, the two agreeing
+    hess = {}
+    for name, sensealg in (("DirectAdjoint", P.DirectAdjoint()),
+                           ("GaussAdjoint", P.GaussAdjoint())):
+        (H, ms) = event_ms(lambda: lv_hessian(P, dev, sensealg))
+        hess[name] = H
+        asym = float((H - H.T).abs().max() / H.abs().max())
+        print(f"[direct f64] Lotka-Volterra Hessian under {name}: "
+              f"{ms:.1f} ms; max|H - H^T| / max|H| {asym:.2e} (tol "
+              f"{HESS_SYM_TOL:g}); row 0 {H[0].tolist()}")
+        check(bool(torch.isfinite(H).all()) and asym <= HESS_SYM_TOL,
+              f"{name} Hessian not symmetric")
+    err = float((hess["GaussAdjoint"] - hess["DirectAdjoint"]).abs().max()
+                / hess["DirectAdjoint"].abs().max())
+    print(f"[direct f64] Lotka-Volterra Hessian, Gauss against Direct: max "
+          f"rel {err:.2e} (tol {HESS_SYM_TOL:g})")
+    check(err <= HESS_SYM_TOL, "Gauss Hessian off the Direct one")
+
+    # second order through a kernel field is refused by name on the card
+    n = 4096
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0, p = flagship_inputs(n, torch.float64, dev)
+    refusals = {
+        "FusedRD1D": lambda: P.second_order_sensitivity_product(
+            lambda sol: torch.sum(sol.ys[-1] ** 2),
+            P.ODEProblem(field, u0, (0.0, STEPS * DT), p), [1.0, 0.0],
+            P.Tsit5(), sensealg=P.GaussAdjoint(), saveat=[0.0, STEPS * DT],
+            dt=DT, adaptive=False),
+        "FusedMLP2": lambda: P.second_order_sensitivity_product(
+            lambda sol: torch.sum((sol.ys - setup_card[2]) ** 2),
+            P.ODEProblem(lambda u, q, t: mlp.fused_mlp2(q, u ** 3),
+                         setup_card[1], (0.0, SPIRAL_T1), setup_card[0]),
+            torch.ones(sum(v.numel() for v in setup_card[0].values()),
+                       dtype=torch.float64), P.Tsit5(),
+            sensealg=P.DirectAdjoint(), saveat=setup_card[3],
+            dt=SPIRAL_T1 / (SPIRAL_NT - 1), adaptive=False, unroll=True)}
+    for name, fn in refusals.items():
+        try:
+            fn()
+        except DoubleBackwardUnsupported as e:
+            check(name in str(e), f"the refusal does not name {name}: {e}")
+            print(f"[direct f64] second order through {name} on the card "
+                  f"raises DoubleBackwardUnsupported: {str(e)[:60]}...")
+        else:
+            raise AssertionError(f"second order through {name} returned")
+    del u0, p
+    print(f"[direct f64] phase 5g: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5g [direct f64]")
+
     # -- 6. timings: the megakernel path first ---------------------------------
     u0, p = flagship_inputs(MEGA_N, torch.float32, dev)
     arms = {
@@ -2025,6 +2319,28 @@ def main() -> int:
     ev_time("bouncing ball f64", arms)
     elapsed("phase 6f [events] timings")
 
+    # -- 6g. [direct] timings: each direct call at n = 1,048,576 f32
+    # against the dense forward it reads (CUDA events, median of
+    # DIRECT_TIMING_ROUNDS interleaved rounds after a warm-up round, and
+    # one profiled run for the device's idle share)
+    n = SIZES[1]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0, p = flagship_inputs(n, torch.float32, dev)
+    sol32 = flagship_dense_forward(P, field, u0, p)
+    arms = {"dense forward": lambda: flagship_dense_forward(P, field, u0, p)}
+    for arm, fn in direct_arms.items():
+        arms[f"{arm} direct call"] = (lambda fn=fn: fn(sol32))
+    med = interleaved_ms(arms, rounds=DIRECT_TIMING_ROUNDS)
+    for name, fn in arms.items():
+        busy, wall = profiled_ms(fn)
+        print(f"[time] {card}: PDE n={n} f32 {name}: {med[name]:.3f} ms "
+              f"({med[name] / med['dense forward']:.2f}x the dense forward; "
+              f"CUDA events, median of {DIRECT_TIMING_ROUNDS} interleaved); "
+              f"profiled run: kernels {busy:.3f} ms of {wall:.3f} ms wall, "
+              f"device idle {100 * (1 - busy / wall):.1f}%")
+    del u0, p, sol32
+    elapsed("phase 6g [direct] timings")
+
     # Lotka-Volterra last: its traces hold the most launches of any
     for name, sensealg in [("forward", None)] + list(lv_runs.items()):
         ms = lv_times[name]
@@ -2050,18 +2366,22 @@ def main() -> int:
               for k in ("K1", "K2")}
     event_node = [sum(got[i] for got in event_node_launches.values())
                   for i in (0, 1)]
+    direct_k = {k: sum(got.get(k, 0) for got in direct_launches.values())
+                for k in ("K1", "K2", "K3", "K4")}
     kernels = [
         {"name": "rd1d_fwd (K1)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:58",
          "launches": (launches["K1"] + pde_c_launches["K1"]
-                      + interp_k["K1"] + dose_k["K1"]),
+                      + interp_k["K1"] + dose_k["K1"] + direct_k["K1"]),
          "paths": {"PDE (a)+(b)": launches["K1"],
                    "PDE (c) QuadratureAdjoint": pde_c_launches["K1"],
                    **{f"PDE {arm}": got["K1"]
                       for arm, got in interp_launches.items()},
                    **{f"PDE dose {arm}": got["K1"]
-                      for arm, got in dose_launches.items()}},
+                      for arm, got in dose_launches.items()},
+                   **{f"direct {arm}": got["K1"]
+                      for arm, got in direct_launches.items() if "K1" in got}},
          "max_abs_err": max_abs["K1"],
          "ms": timing[n]["K1"], "plain_ms": timing[n]["K1_plain"],
          "cold_ms": timing[n]["K1_cold"],
@@ -2071,13 +2391,15 @@ def main() -> int:
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:66",
          "launches": (launches["K2"] + pde_c_launches["K2"]
-                      + interp_k["K2"] + dose_k["K2"]),
+                      + interp_k["K2"] + dose_k["K2"] + direct_k["K2"]),
          "paths": {"PDE (a)+(b)": launches["K2"],
                    "PDE (c) QuadratureAdjoint": pde_c_launches["K2"],
                    **{f"PDE {arm}": got["K2"]
                       for arm, got in interp_launches.items()},
                    **{f"PDE dose {arm}": got["K2"]
-                      for arm, got in dose_launches.items()}},
+                      for arm, got in dose_launches.items()},
+                   **{f"direct {arm}": got["K2"]
+                      for arm, got in direct_launches.items() if "K2" in got}},
          "max_abs_err": max_abs["K2"],
          "ms": timing[n]["K2"], "plain_ms": timing[n]["K2_plain"],
          "cold_ms": timing[n]["K2_cold"],
@@ -2087,13 +2409,15 @@ def main() -> int:
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:53",
          "launches": (s1_s5_launches["K3"] + s2q_launches[0]
-                      + interp_node[0] + event_node[0]),
+                      + interp_node[0] + event_node[0] + direct_k["K3"]),
          "paths": {"S1-S5": s1_s5_launches["K3"],
                    "S2q QuadratureAdjoint": s2q_launches[0],
                    **{arm: got[0]
                       for arm, got in interp_node_launches.items()},
                    **{arm: got[0]
-                      for arm, got in event_node_launches.items()}},
+                      for arm, got in event_node_launches.items()},
+                   **{f"direct {arm}": got["K3"]
+                      for arm, got in direct_launches.items() if "K3" in got}},
          "max_abs_err": max_abs["K3"],
          "ms": s4["K3"], "plain_ms": s4["K3_plain"],
          "bound_ms": s4["bound"]["K3"][0], "bound_by": s4["bound"]["K3"][1],
@@ -2102,13 +2426,15 @@ def main() -> int:
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:68",
          "launches": (s1_s5_launches["K4"] + s2q_launches[1]
-                      + interp_node[1] + event_node[1]),
+                      + interp_node[1] + event_node[1] + direct_k["K4"]),
          "paths": {"S1-S5": s1_s5_launches["K4"],
                    "S2q QuadratureAdjoint": s2q_launches[1],
                    **{arm: got[1]
                       for arm, got in interp_node_launches.items()},
                    **{arm: got[1]
-                      for arm, got in event_node_launches.items()}},
+                      for arm, got in event_node_launches.items()},
+                   **{f"direct {arm}": got["K4"]
+                      for arm, got in direct_launches.items() if "K4" in got}},
          "max_abs_err": max_abs["K4"],
          "ms": s4["K4"], "plain_ms": s4["K4_plain"],
          "bound_ms": s4["bound"]["K4"][0], "bound_by": s4["bound"]["K4"][1],

@@ -1,27 +1,44 @@
 """PyTorch port of scimlsensitivity_jl_tpu, for NVIDIA Hopper GPUs.
 
 Counterpart of `scimlsensitivity_jl_tpu/__init__.py`, the public subset that
-is ported: `ODEProblem`, `solve`, the explicit Runge-Kutta solvers, and the
-sensealg configurations, the direct forward-sensitivity API
-(`ODEForwardSensitivityProblem`, `extract_local_sensitivities`) and the
-callbacks (`ContinuousCallback`, `DiscreteCallback`,
-`VectorContinuousCallback`, `PresetTimeCallback`, `PeriodicCallback`,
-`TerminateSteadyState`, `CallbackSet`). Gradients
-run under `ForwardDiffSensitivity`, `ForwardSensitivity`,
-`BacksolveAdjoint`, `GaussAdjoint` (without checkpointing),
-`QuadratureAdjoint` and `DirectAdjoint` (fixed grid and adaptive, with
-`remat`), so `sensealg=None` differentiates every plain ODE; see
-ROADMAP.md for the rest. Beside them: the classic, neural-ODE and PDE
-models (`models/classic.py`, `models/neural_ode.py`, `models/pde.py`), the
-fused MLP field `fused_mlp2` (`ops/mlp.py`) and the RK4 block megakernel
-`make_rd1d_rk4_block` (`ops/rd1d.py`), which the JAX package keeps in its
-submodules.
+is ported: `ODEProblem`, `solve` (real and complex states, `save_idxs`),
+the explicit Runge-Kutta solvers, the sensealg configurations with the
+reference's aliases (`ZygoteAdjoint` ... -> `DirectAdjoint`, `ZygoteVJP`
+... -> `AutoVJP`, `supports_functor_params`), the direct APIs
+(`adjoint_sensitivities`, `ODEAdjointProblem`,
+`AdjointSensitivityIntegrand`, `ODEForwardSensitivityProblem`,
+`extract_local_sensitivities`, `second_order_sensitivities`,
+`second_order_sensitivity_product`) and the callbacks
+(`ContinuousCallback`, `DiscreteCallback`, `VectorContinuousCallback`,
+`PresetTimeCallback`, `PeriodicCallback`, `TerminateSteadyState`,
+`CallbackSet`). Gradients run under `ForwardDiffSensitivity`,
+`ForwardSensitivity`, `BacksolveAdjoint`, `InterpolatingAdjoint`,
+`GaussAdjoint`, `GaussKronrodAdjoint`, `QuadratureAdjoint` and
+`DirectAdjoint` (fixed grid and adaptive, with `remat`), so
+`sensealg=None` differentiates every plain ODE; `SDEAdjointProblem` and
+`RODEAdjointProblem` raise (ROADMAP M12), and ROADMAP.md lists the rest.
+Beside them: the classic, neural-ODE and PDE models (`models/classic.py`,
+`models/neural_ode.py`, `models/pde.py`), the fused MLP field `fused_mlp2`
+(`ops/mlp.py`) and the RK4 block megakernel `make_rd1d_rk4_block`
+(`ops/rd1d.py`), which the JAX package keeps in its submodules.
 
 The package imports torch, never jax. Importing it builds and loads no
 kernel: the CUDA kernels of `ops/rd1d.py` and `ops/mlp.py` are compiled at
 their first launch on a CUDA tensor.
 """
 
+from .adjoints.adjoint_problem import (
+    AdjointProblemSpec,
+    AdjointSensitivityIntegrand,
+    ODEAdjointProblem,
+    RODEAdjointProblem,
+    SDEAdjointProblem,
+)
+from .adjoints.interface import adjoint_sensitivities
+from .adjoints.second_order import (
+    second_order_sensitivities,
+    second_order_sensitivity_product,
+)
 from .callbacks import (
     CallbackSet,
     ContinuousCallback,
@@ -62,24 +79,41 @@ from .ops.mlp import fused_mlp2
 from .ops.rd1d import make_rd1d_rk4_block
 from .problems import ODEProblem, remake
 from .sensealg import (
+    NILSAS,
+    NILSS,
     AdjointLSS,
     AutoVJP,
     BacksolveAdjoint,
+    Cos2Windowing,
+    CosWindowing,
     DirectAdjoint,
+    EnzymeAdjoint,
+    EnzymeVJP,
     FiniteDiffVJP,
+    ForwardDiffOverAdjoint,
     ForwardDiffSensitivity,
+    ForwardLSS,
     ForwardSensitivity,
     GaussAdjoint,
     GaussKronrodAdjoint,
     InterpolatingAdjoint,
     JacVJP,
-    NILSAS,
-    NILSS,
-    ForwardLSS,
+    MooncakeAdjoint,
+    MooncakeVJP,
     QuadratureAdjoint,
+    ReactantVJP,
+    ReverseDiffAdjoint,
+    ReverseDiffVJP,
     SteadyStateAdjoint,
+    TimeDilation,
+    TrackerAdjoint,
+    TrackerVJP,
+    UnconstrainedOptimizationAdjoint,
+    ZygoteAdjoint,
+    ZygoteVJP,
     default_sensealg,
     setvjp,
+    supports_functor_params,
 )
 from .solution import RETCODE_NAMES, ODESolution
 from .solve import solve
@@ -93,8 +127,18 @@ __all__ = [
     "GaussAdjoint", "GaussKronrodAdjoint", "QuadratureAdjoint",
     "ForwardSensitivity", "ForwardDiffSensitivity", "SteadyStateAdjoint",
     "ForwardLSS", "AdjointLSS", "NILSS", "NILSAS",
-    "default_sensealg", "setvjp",
+    "ForwardDiffOverAdjoint", "UnconstrainedOptimizationAdjoint",
+    "CosWindowing", "Cos2Windowing", "TimeDilation",
+    "default_sensealg", "setvjp", "supports_functor_params",
+    "TrackerAdjoint", "MooncakeAdjoint", "ReverseDiffAdjoint",
+    "ZygoteAdjoint", "EnzymeAdjoint",
+    "ZygoteVJP", "EnzymeVJP", "TrackerVJP", "ReverseDiffVJP",
+    "MooncakeVJP", "ReactantVJP",
     "ODEForwardSensitivityProblem", "extract_local_sensitivities",
+    "adjoint_sensitivities", "ODEAdjointProblem", "AdjointProblemSpec",
+    "SDEAdjointProblem", "RODEAdjointProblem",
+    "AdjointSensitivityIntegrand",
+    "second_order_sensitivities", "second_order_sensitivity_product",
     "ContinuousCallback", "DiscreteCallback", "VectorContinuousCallback",
     "PresetTimeCallback", "PeriodicCallback", "TerminateSteadyState",
     "CallbackSet",

@@ -424,9 +424,16 @@ def augmented_fvec(kern, p, n: int, seeds_p: torch.Tensor):
 
 
 def match_cotangents(du0, dp, primals):
-    """Cotangents take the dtypes of their primals."""
+    """Cotangents take the dtypes of their primals: a real primal takes the
+    real part of a complex cotangent (a complex state with real p), as JAX
+    does."""
     u0_p, p_p = primals
-    cast = lambda c, x: c.to(x.dtype)
+
+    def cast(c, x):
+        if c.is_complex() and not x.is_complex():
+            c = c.real
+        return c.to(x.dtype)
+
     return (_map2(cast, du0, u0_p),
             None if p_p is None else _map2(cast, dp, p_p))
 

@@ -123,7 +123,8 @@ from .common import (augmented_fvec, forward_saveat_solve,
                      saved_rows)
 
 __all__ = ["SolveOptions", "AuxOut", "AdjointRecord", "make_ode_solve_fn",
-           "make_gauss_quad_hook", "adaptive_gk_dp", "RETCODE_RECON_DRIFT"]
+           "make_gauss_quad_hook", "adaptive_gk_dp", "event_kwargs",
+           "RETCODE_RECON_DRIFT"]
 
 # Backsolve reconstruction drift (solution.RETCODE_NAMES[6]); the JAX
 # package reports it as 3, the code of a DDE lag violation
@@ -412,17 +413,11 @@ class _ContinuousRule:
         return all_t[order], all_j, all_s, q_extra
 
     def _event_kwargs(self, kern, p, event_set, n, npf, **where):
-        """reverse_joined_solve's event arguments (JAX `_event_kwargs`):
-        the recorded times, their count and the jump transform."""
+        """reverse_joined_solve's event arguments for this solve's record."""
         if event_set is None:
             return {}
-        ev = self.events
-        count = min(ev.count, event_set.max_events)
-        return dict(
-            event_times=ev.ts.numpy()[:count], event_count=count,
-            event_unroll=max(3, event_set.n_cont + event_set.n_disc),
-            event_apply=_make_event_apply(kern, p, event_set, ev, n, npf,
-                                          **where))
+        return event_kwargs(self.events, event_set, _make_event_apply(
+            kern, p, event_set, self.events, n, npf, **where))
 
     def _backward_backsolve(self, u0vec, pflat, p, kern, times, jumps, adj,
                             event_set, snaps, u_final):
@@ -451,8 +446,7 @@ class _ContinuousRule:
             if guard is not None:
                 on_snap = lambda u_rec, u_true: drifts.append(
                     rel_drift(u_rec, u_true))
-        wts = torch.cat([u0vec.new_ones(n), u0vec.new_zeros(npf),
-                         u0vec.new_ones(n)])
+        wts = _err_weights(u0vec, n, npf, n)
         z, _, rstats, _ = reverse_joined_solve(
             self.bwd_stepper, aug_rhs, times, jumps, z0, n,
             snap_values=snap_values, snap_start=snap_start, on_snap=on_snap,
@@ -505,7 +499,7 @@ class _ContinuousRule:
         dense, n, npf = self.dense, u0vec.numel(), pflat.numel()
         aug_rhs = _joined_rhs(kern, p, n, lambda t: dense_eval(dense, t))
         z0 = u0vec.new_zeros(n + npf)
-        wts = torch.cat([u0vec.new_ones(n), u0vec.new_zeros(npf)])
+        wts = _err_weights(u0vec, n, npf)
         if self._pinned_on(event_set):
             z, _, rstats = reverse_pinned_solve(
                 self.bwd_stepper,
@@ -544,7 +538,7 @@ class _ContinuousRule:
         ckpt = snaps
         seg_max_steps = (opts.max_steps if opts.fixed_dt is not None
                          else max(opts.max_steps // 8, 64))
-        wts = torch.cat([u0vec.new_ones(n), u0vec.new_zeros(npf)])
+        wts = _err_weights(u0vec, n, npf)
         tf = self.t_final
         tdir = kind(1.0) if self.t1 >= self.t0 else kind(-1.0)
         span = self.t1 - self.t0
@@ -673,8 +667,14 @@ class _ContinuousRule:
         Dense-node cotangents contract with the tangents of the node states
         and slopes, and, where a continuous event moves them (d_dts), of
         the node times: the rows' σ at each node. The nodes mirror the
-        forward's rows, an event's pre- and post-affect rows included."""
+        forward's rows, an event's pre- and post-affect rows included. A
+        complex state contracts the tangents with the conjugated cotangents
+        and conjugates the sum (torch's cotangents are the conjugates of
+        JAX's, which contract without conjugation)."""
         n, npf, dtype = u0vec.numel(), pflat.numel(), u0vec.dtype
+        conj = lambda c: None if c is None else c.conj()
+        lam, d_uf = conj(lam), conj(d_uf)
+        d_dys, d_dfs = conj(d_dys), conj(d_dfs)
         saveat, t0 = self.saveat, self.t0
         kind = type(t0)
         tdir = kind(1.0) if self.t1 >= t0 else kind(-1.0)
@@ -691,7 +691,9 @@ class _ContinuousRule:
         parts = []
         for block in torch.split(seeds, self.sensealg.chunk_size or n + npf):
             k = block.shape[0]
-            aug = augmented_fvec(kern, p, n, block[:, n:])
+            # the parameter directions in p's dtype (real p, complex state)
+            seeds_p = block[:, n:].real.to(pflat.dtype)
+            aug = augmented_fvec(kern, p, n, seeds_p)
             z = torch.cat([u0vec, block[:, :n].reshape(-1)])
             fz = aug(z, t0).to(dtype)
             carry = save_carry0(saveat, t0, tdir, z, span)
@@ -713,7 +715,7 @@ class _ContinuousRule:
                 if se is not None:
                     z_pre, z1, sigma = self._replay_events(
                         kern, p, event_set, se, t, dt, z, fz, z1, f1, sigma,
-                        delta, block[:, n:], n, k)
+                        delta, seeds_p, n, k)
                     if use_dense:  # the pre-affect row at the event time
                         f_pre = (f1 if se.theta is None
                                  else aug(z_pre, se.t_e).to(dtype))
@@ -739,7 +741,7 @@ class _ContinuousRule:
                     if d_dts is not None and sj is not None:
                         part = part + (sj * d_dts[j]).to(part.dtype)
             parts.append(part)
-        contracted = torch.cat(parts)
+        contracted = torch.conj_physical(torch.cat(parts))
         return contracted[:n], contracted[n:]
 
     def _replay_events(self, kern, p, event_set, se, t_a, dt, z_a, fz_a, z_b,
@@ -836,14 +838,35 @@ def _shift_step(stepper, fvec, t, dt, z, fz, z1, f1, delta, n, k):
     return z1 + dz.to(z1.dtype), f1 + dfz.to(f1.dtype)
 
 
+def _err_weights(u0vec, n, npf, n_u=0):
+    """Error weights of an augmented reverse state [λ; q; (u)]: 1 on λ and
+    u, 0 on the quadrature q; real for a complex state too."""
+    real = u0vec.real
+    return torch.cat([real.new_ones(n), real.new_zeros(npf),
+                      real.new_ones(n_u)])
+
+
+def event_kwargs(events, event_set, event_apply):
+    """reverse_joined_solve's event arguments (JAX `_event_kwargs`): the
+    recorded times, their count and the jump transform."""
+    count = min(events.count, event_set.max_events)
+    return dict(
+        event_times=events.ts.numpy()[:count], event_count=count,
+        event_unroll=max(3, event_set.n_cont + event_set.n_disc),
+        event_apply=event_apply)
+
+
 def _make_event_apply(kern, p, event_set, events, n, npf, q_slice=None,
-                      u_snap_start=None, q_in_hc=False):
+                      u_snap_start=None, q_in_hc=False, run_cost=None):
     """The reverse jump of recorded event i (JAX `_make_event_apply`):
 
-        λ⁻ = (∂A/∂u)ᵀλ⁺ − ∇g·((∂A/∂u·f⁻ − f⁺)·λ⁺)/ġ,   ġ = ∇g·f⁻ + ∂g/∂t
-        dq += (∂A/∂p)ᵀλ⁺
+        λ⁻ = (∂A/∂u)ᵀλ⁺ − ∇g·((∂A/∂u·f⁻ − f⁺)·λ⁺ + r⁻ − r⁺)/ġ,
+        ġ = ∇g·f⁻ + ∂g/∂t,   dq += (∂A/∂p)ᵀλ⁺
 
-    with f⁺ = 0 at a terminal event (the trajectory stops at τ). Discrete
+    with f⁺ = 0 at a terminal event (the trajectory stops at τ). r is the
+    running cost of the direct API (`run_cost(uvec, t)`, else 0): the
+    integrand of ∫ r dt jumps from r(u⁻) to r(u⁺) across the affect (to 0
+    at a terminal event), a moving-boundary term in τ's derivative. Discrete
     callbacks skip the event-time correction (their time is the grid's).
     (∂A/∂u·f⁻)·λ⁺ is taken as f⁻·((∂A/∂u)ᵀλ⁺), so only the affect's and the
     condition's pullbacks run, and the field is called for f⁻ and f⁺ alone.
@@ -882,6 +905,11 @@ def _make_event_apply(kern, p, event_set, events, n, npf, q_slice=None,
             term = f_m.to(lam.dtype) @ lam_new
             if not terminal:
                 term = term - kern.fvec(u_post, p, t).to(lam.dtype) @ lam
+            if run_cost is not None:
+                r_jump = torch.as_tensor(run_cost(u_pre, t))
+                if not terminal:
+                    r_jump = r_jump - torch.as_tensor(run_cost(u_post, t))
+                term = term + r_jump.to(term.dtype)
             safe = gdot.abs() > 1e-300
             corr = torch.where(safe, term / torch.where(
                 safe, gdot, torch.ones_like(gdot)), torch.zeros_like(term))
@@ -929,14 +957,15 @@ def _interval_y(dense, i: int):
 
 
 def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
-                         pinned: bool = False):
+                         pinned: bool = False, extra_p=None):
     """Per-accepted-step hook of a λ-only reverse solve that accumulates
     dL/dp = ∫ λᵀ∂f/∂p dt in its carry (JAX `make_gauss_quad_hook`). λ at a
     node comes from the step's own Hermite interpolant, u from the
     forward's dense output, or, pinned, from the rows of the forward
     interval `i` that the step walks (the record's seventh entry).
     qdtype: promote(state dtype, float32), the running sum's dtype (a
-    bfloat16 sum would lose the mantissa).
+    bfloat16 sum would lose the mantissa). extra_p(yvec, t) -> (npf,): a
+    continuous cost's ∂g/∂p, added to the integrand (the direct API).
 
     GaussAdjoint: n_nodes Gauss–Legendre nodes per step; the carry is q.
     GaussKronrodAdjoint: a GK(7,15) pair per step, and a step whose
@@ -958,8 +987,11 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
 
         def node(tj):
             lam_j = hermite_eval(tj, ta, tb, lam_a, fa, lam_b, fb)
-            return ravel_pytree(kern.vjp_p(y_of(tj), p, tj, lam_j))[0].to(
-                qdtype)
+            yj = y_of(tj)
+            out = ravel_pytree(kern.vjp_p(yj, p, tj, lam_j))[0].to(qdtype)
+            if extra_p is not None:
+                out = out + extra_p(yj, tj).to(qdtype)
+            return out
 
         return ta, tb, node
 
@@ -1011,8 +1043,10 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
                       "adj_rtol/adj_atol or raise max_depth")
             return qflat
 
-        zero = torch.zeros((), dtype=qdtype, device=device)
-        return gk_hook, (zero.new_zeros(npf), zero), finish
+        # the error sum is real, for a complex state's sum too
+        err0 = torch.zeros((), dtype=qdtype.to_real(), device=device)
+        return gk_hook, (torch.zeros(npf, dtype=qdtype, device=device),
+                         err0), finish
 
     xg, wg = gl_01(sensealg.n_nodes)
 
@@ -1030,7 +1064,8 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
         lambda q: q)
 
 
-def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init):
+def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init,
+                   extra_p=None):
     """QuadratureAdjoint's dL/dp after the λ-only reverse: h-adaptive
     Gauss–Kronrod over λ's recorded dense output (JAX `adaptive_gk_dp`).
     The base partition is one GK(7,15) panel per recorded reverse step, the
@@ -1041,7 +1076,8 @@ def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init):
     at most max_depth splits deep and 4·2^max_depth (≤ 512) splits in all.
     Each panel's estimate is kept, where the JAX loop evaluates a split
     panel once more. q_init: the running sum to add to (its dtype is the
-    sum's)."""
+    sum's). extra_p(yvec, t) -> (npf,): a continuous cost's ∂g/∂p, added
+    to the integrand."""
     if p is None:
         return q_init
     qdtype = q_init.dtype
@@ -1052,8 +1088,11 @@ def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init):
 
     def integrand(tj):
         lam_j = dense_eval(lam_dense, tj)
-        return ravel_pytree(kern.vjp_p(dense_eval(dense, tj), p, tj,
-                                       lam_j))[0].to(qdtype)
+        yj = dense_eval(dense, tj)
+        out = ravel_pytree(kern.vjp_p(yj, p, tj, lam_j))[0].to(qdtype)
+        if extra_p is not None:
+            out = out + extra_p(yj, tj).to(qdtype)
+        return out
 
     def gk_panel(ta, tb):
         width = kind(tb - ta)  # negative: the reverse orientation

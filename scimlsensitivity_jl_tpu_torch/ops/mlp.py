@@ -24,7 +24,9 @@ for aligned bfloat16 widths, WMMA tiles for other bfloat16 shapes, CUDA-core
 tiles for float32 and float64; nothing on the card falls back to the plain
 version. Each CUDA wrapper counts its calls in `.launches` and, per route,
 in `.routes`. What bounds the kernels on an H100 and what the design does
-about it is noted in `csrc/mlp2.cu`.
+about it is noted in `csrc/mlp2.cu`. The pullback operator (K4) registers a
+backward that raises `ops.vjp.DoubleBackwardUnsupported`, and `FusedMLP2`
+refuses a complex input before launch.
 
 The JAX `fused_mlp2` sends shapes above ~12 MB of TPU VMEM back to the
 plain XLA version; that gate is a TPU workaround and is not ported: every
@@ -39,7 +41,8 @@ from typing import Dict, Tuple
 import torch
 
 from .cuda_build import load_library
-from .vjp import refuse_forward_mode
+from .vjp import (refuse_complex_state, refuse_double_backward,
+                  refuse_forward_mode)
 
 __all__ = ["mlp2_reference", "mlp2_fwd_reference", "mlp2_vjp_reference",
            "mlp2_fwd", "mlp2_vjp", "mlp2_fwd_cuda", "mlp2_vjp_cuda",
@@ -261,6 +264,13 @@ mlp2_fwd.register_kernel("cuda")(mlp2_fwd_cuda)
 mlp2_vjp.register_kernel("cuda")(mlp2_vjp_cuda)
 
 
+def _refuse_k4_backward(ctx, *grads):
+    raise refuse_double_backward("FusedMLP2 (K3/K4)")
+
+
+mlp2_vjp.register_autograd(_refuse_k4_backward)
+
+
 # -- the field ---------------------------------------------------------------------
 
 
@@ -272,6 +282,8 @@ class FusedMLP2(torch.autograd.Function):
 
     @staticmethod
     def forward(x, w0, b0, w1, b1):
+        if x.is_complex():
+            raise refuse_complex_state("FusedMLP2 (K3/K4)", x.dtype)
         return mlp2_fwd(x, w0, b0, w1, b1)
 
     @staticmethod

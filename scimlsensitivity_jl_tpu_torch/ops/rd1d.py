@@ -25,7 +25,11 @@ Each kernel sits behind a `torch.library` operator, `rd1d_fwd` (K1) and
 `csrc/rd1d.cu` (`rd1d_fwd_cuda`, `rd1d_vjp_cuda`) or raises. Being
 dispatcher operators, they receive plain tensors even inside
 `torch.func.vjp`, whose own wrappers have no data pointer to hand a kernel.
-Each CUDA wrapper counts its launches in `.launches`.
+Each CUDA wrapper counts its launches in `.launches`. The pullback
+operators (K2, K6) register a backward that raises
+`ops.vjp.DoubleBackwardUnsupported`, so a second derivative through a
+kernel fails by name instead of missing the kernel's terms, and the
+Functions refuse a complex input before launch.
 
 What bounds the kernels on an H100, and what the design does about it, is
 noted in `csrc/rd1d.cu` and `csrc/rd1d_rk4.cu`: K1 and K2 stream memory
@@ -49,7 +53,8 @@ from typing import Tuple
 import torch
 
 from .cuda_build import load_library
-from .vjp import refuse_forward_mode
+from .vjp import (refuse_complex_state, refuse_double_backward,
+                  refuse_forward_mode)
 
 __all__ = ["rd1d_reference", "rd1d_vjp_reference", "rd1d_fwd", "rd1d_vjp",
            "rd1d_fwd_cuda", "rd1d_vjp_cuda", "fused_rd1d", "FusedRD1D",
@@ -232,6 +237,13 @@ rd1d_fwd.register_kernel("cuda")(rd1d_fwd_cuda)
 rd1d_vjp.register_kernel("cuda")(rd1d_vjp_cuda)
 
 
+def _refuse_k2_backward(ctx, *grads):
+    raise refuse_double_backward("FusedRD1D (K1/K2)")
+
+
+rd1d_vjp.register_autograd(_refuse_k2_backward)
+
+
 # -- the field ---------------------------------------------------------------------
 
 
@@ -241,6 +253,8 @@ class FusedRD1D(torch.autograd.Function):
 
     @staticmethod
     def forward(u, p, inv_dx2):
+        if u.is_complex():
+            raise refuse_complex_state("FusedRD1D (K1/K2)", u.dtype)
         return rd1d_fwd(u, p, float(inv_dx2))
 
     @staticmethod
@@ -523,6 +537,13 @@ rd1d_rk4_fwd.register_kernel("cuda")(rd1d_rk4_fwd_cuda)
 rd1d_rk4_vjp.register_kernel("cuda")(rd1d_rk4_vjp_cuda)
 
 
+def _refuse_k6_backward(ctx, *grads):
+    raise refuse_double_backward("RD1DRK4Block (K5/K6)")
+
+
+rd1d_rk4_vjp.register_autograd(_refuse_k6_backward)
+
+
 class RD1DRK4Block(torch.autograd.Function):
     """S RK4 steps through K5 with the exact discrete pullback through K6.
     Only the block's entry state is kept for the backward pass: K6 steps
@@ -530,6 +551,8 @@ class RD1DRK4Block(torch.autograd.Function):
 
     @staticmethod
     def forward(u, p, inv_dx2, h, S, chunk, bwd_chunk):
+        if u.is_complex():
+            raise refuse_complex_state("RD1DRK4Block (K5/K6)", u.dtype)
         return rd1d_rk4_fwd(u, p, float(inv_dx2), float(h), int(S), int(chunk))
 
     @staticmethod

@@ -13,7 +13,10 @@ A field whose pullback is a kernel (`ops.rd1d.fused_rd1d`,
 `setup_context` form, which is the form `torch.func.vjp` accepts; its
 backward then runs inside every pullback here. Such a Function has no
 forward-mode rule: its `jvp` raises `ForwardModeUnsupported`, as the JAX
-package's `custom_vjp` kernels refuse `jax.jvp`.
+package's `custom_vjp` kernels refuse `jax.jvp`. Its pullback has no
+derivative either: a second derivative through it raises
+`DoubleBackwardUnsupported`, and a complex input `ComplexStateUnsupported`
+before launch.
 """
 
 from __future__ import annotations
@@ -26,11 +29,44 @@ from ..sensealg import AutoVJP, FiniteDiffVJP, JacVJP, VJPChoice
 from ..utils.pytree import ravel_pytree
 
 __all__ = ["VJPKernels", "make_vjp_kernels", "ForwardModeUnsupported",
-           "refuse_forward_mode"]
+           "refuse_forward_mode", "DoubleBackwardUnsupported",
+           "refuse_double_backward", "ComplexStateUnsupported",
+           "refuse_complex_state"]
 
 
 class ForwardModeUnsupported(NotImplementedError):
     """Forward-mode AD reached a kernel Function that has only a pullback."""
+
+
+class DoubleBackwardUnsupported(NotImplementedError):
+    """A second derivative reached a kernel's pullback, which has none."""
+
+
+class ComplexStateUnsupported(TypeError):
+    """A complex tensor reached a kernel Function, whose kernels take real
+    dtypes only."""
+
+
+def refuse_double_backward(function: str):
+    """The error that the backward of a kernel's pullback raises: the
+    pullback kernel computes its result outside autograd, so a second
+    derivative through it would miss its terms."""
+    return DoubleBackwardUnsupported(
+        f"{function} has no second derivative: its pullback is a kernel "
+        "with no derivative of its own, as the JAX package's custom_vjp "
+        "kernels have no higher-order rule. second_order_sensitivities, "
+        "second_order_sensitivity_product and torch.autograd.grad(..., "
+        "create_graph=True) followed by a second grad need a field of plain "
+        "tensor operations")
+
+
+def refuse_complex_state(function: str, dtype):
+    """The error that a kernel Function raises on a complex input, before
+    any launch."""
+    return ComplexStateUnsupported(
+        f"{function} takes real float32/float64/bfloat16 tensors, got "
+        f"{dtype}: its kernels have no complex arithmetic. Solve a complex "
+        "state with a field of plain tensor operations")
 
 
 def refuse_forward_mode(function: str):

@@ -307,3 +307,55 @@ def setvjp(sensealg: AbstractSensealg, vjp: VJPChoice) -> AbstractSensealg:
     if hasattr(sensealg, "autojacvec"):
         return dataclasses.replace(sensealg, autojacvec=vjp)
     return sensealg
+
+
+# -- aliases of the reference's names (JAX sensealg.py:463-538) -----------------
+# The port differentiates with torch.autograd alone, so the reference's five
+# discrete-AD adjoints collapse onto DirectAdjoint and its per-backend VJP
+# menu onto AutoVJP. The factories accept and ignore the reference's
+# configuration arguments (compile=, mode=, allow_nothing=, ...).
+
+
+def _alias(ref_name, ref_line, target, what):
+    def make(*_args, **_kwargs):
+        return target()
+
+    make.__name__ = make.__qualname__ = ref_name
+    make.__doc__ = (
+        f"Reference {what} (sensitivity_algorithms.jl:{ref_line}): an alias "
+        f"of {target.__name__}(); its configuration arguments are accepted "
+        "and ignored.")
+    return make
+
+
+TrackerAdjoint = _alias("TrackerAdjoint", 744, DirectAdjoint,
+                        "discrete-AD adjoint")
+MooncakeAdjoint = _alias("MooncakeAdjoint", 769, DirectAdjoint,
+                         "discrete-AD adjoint")
+ReverseDiffAdjoint = _alias("ReverseDiffAdjoint", 791, DirectAdjoint,
+                            "discrete-AD adjoint")
+ZygoteAdjoint = _alias("ZygoteAdjoint", 814, DirectAdjoint,
+                       "discrete-AD adjoint")
+EnzymeAdjoint = _alias("EnzymeAdjoint", 845, DirectAdjoint,
+                       "discrete-AD adjoint")
+ZygoteVJP = _alias("ZygoteVJP", 1454, AutoVJP, "VJP backend")
+EnzymeVJP = _alias("EnzymeVJP", 1488, AutoVJP, "VJP backend")
+TrackerVJP = _alias("TrackerVJP", 1522, AutoVJP, "VJP backend")
+ReverseDiffVJP = _alias("ReverseDiffVJP", 1555, AutoVJP, "VJP backend")
+MooncakeVJP = _alias("MooncakeVJP", 1574, AutoVJP, "VJP backend")
+ReactantVJP = _alias("ReactantVJP", 1599, AutoVJP, "VJP backend")
+
+
+def supports_functor_params(_sensealg) -> bool:
+    """Reference trait (sensitivity_algorithms.jl:1697): whether a sensealg
+    takes structured parameters. Every rule here takes a tree `p`, so the
+    answer is always True (JAX sensealg.py:530-534)."""
+    return True
+
+
+__all__ += [
+    "TrackerAdjoint", "MooncakeAdjoint", "ReverseDiffAdjoint",
+    "ZygoteAdjoint", "EnzymeAdjoint",
+    "ZygoteVJP", "EnzymeVJP", "TrackerVJP", "ReverseDiffVJP",
+    "MooncakeVJP", "ReactantVJP", "supports_functor_params",
+]

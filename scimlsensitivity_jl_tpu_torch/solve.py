@@ -71,6 +71,7 @@ def solve(
     unroll: bool = False,
     verbose: bool = False,
     dtmax=None,
+    save_idxs=None,
 ):
     """Solve an ODE problem; gradients through the result follow `sensealg`.
 
@@ -80,6 +81,9 @@ def solve(
     callback: a callback of `callbacks.py`, a list of them or a
     CallbackSet; `sol.events` then holds the record (at most max_events
     firings; more give retcode 4).
+    save_idxs: state components to keep in ys (indices into the second
+    axis of every leaf, JAX solve.py:654-662); gradients flow through the
+    gather. The dense output and u_final keep the whole state.
     """
     if not isinstance(prob, ODEProblem):
         raise NotImplementedError(
@@ -97,23 +101,25 @@ def solve(
         adj_rtol=adj_rtol, adj_atol=adj_atol, adj_max_steps=adj_max_steps,
         bwd_solver=bwd_solver, adaptive=adaptive, unroll=unroll,
         verbose=verbose, dtmax=dtmax, callback=callback,
-        max_events=max_events,
+        max_events=max_events, save_idxs=save_idxs,
     )
 
 
-def _take_rows(tree, rows: torch.Tensor):
-    """The rows `rows` of every leaf of a tree of (nt, ...) tensors."""
+def _take_rows(tree, rows: torch.Tensor, axis: int = 0):
+    """`leaf[rows]` (axis 0) or `leaf[:, rows]` (axis 1) of every leaf of a
+    tree of (nt, ...) tensors; a 0-dim `rows` drops the axis."""
     if isinstance(tree, dict):
-        return {key: _take_rows(tree[key], rows) for key in tree}
+        return {key: _take_rows(tree[key], rows, axis) for key in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_take_rows(x, rows) for x in tree)
-    return tree[rows.to(tree.device)]
+        return type(tree)(_take_rows(x, rows, axis) for x in tree)
+    rows = rows.to(tree.device)
+    return tree[rows] if axis == 0 else tree[:, rows]
 
 
 def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
                tstops, sensealg, dense, adj_rtol, adj_atol, adj_max_steps,
                bwd_solver, adaptive=True, unroll=False, verbose=False,
-               dtmax=None, callback=None, max_events=32):
+               dtmax=None, callback=None, max_events=32, save_idxs=None):
     solver = solver or Tsit5()
     t0, t1 = prob.tspan
     u0vec, unravel_u = ravel_pytree(prob.u0)
@@ -303,6 +309,9 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
         # the u-part of the lifted (u, p) rows; cotangents on it reach u0
         # and p through the lifted initial state
         ys = ys[0]
+    if save_idxs is not None:
+        ys = _take_rows(ys, torch.as_tensor(np.asarray(save_idxs),
+                                            dtype=torch.long), axis=1)
 
     return ODESolution(
         ts=torch.from_numpy(saveat),

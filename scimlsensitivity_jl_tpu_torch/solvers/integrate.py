@@ -108,25 +108,35 @@ _KIND_TORCH = {np.float16: torch.float16, np.float32: torch.float32,
 _STATE_KIND = {dtype: kind for kind, dtype in _KIND_TORCH.items()}
 
 
+def _real_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a complex state's real part; a real dtype itself."""
+    return {torch.complex64: torch.float32,
+            torch.complex128: torch.float64}.get(dtype, dtype)
+
+
 def time_dtype(dtype: torch.dtype):
     """numpy scalar type of the time and controller variables of a solve
     whose state has `dtype`: promote(real(dtype), float32), as the JAX
-    integrator keeps it (integrate.py:180). A bfloat16 or float16 state
-    keeps float32 time, and its stage arithmetic runs promoted."""
+    integrator keeps it (integrate.py:175-180). A bfloat16 or float16 state
+    keeps float32 time, and its stage arithmetic runs promoted; a complex
+    state keeps the time of its real part."""
+    dtype = _real_dtype(dtype)
     if dtype in (torch.float16, torch.bfloat16, torch.float32):
         return np.float32
     if dtype == torch.float64:
         return np.float64
     raise NotImplementedError(
-        f"state dtype {dtype}: the port solves real floating-point states")
+        f"state dtype {dtype}: the port solves floating-point states")
 
 
 def state_kind(dtype: torch.dtype):
-    """Host scalar type of the state dtype itself: the fixed-grid discrete
-    path keeps dt and the grid times in it (JAX adjoints/direct.py:44-48)."""
+    """Host scalar type of the state dtype itself (of its real part for a
+    complex state): the fixed-grid discrete path keeps dt and the grid
+    times in it (JAX adjoints/direct.py:44-48)."""
+    dtype = _real_dtype(dtype)
     if dtype not in _STATE_KIND:
         raise NotImplementedError(
-            f"state dtype {dtype}: the port solves real floating-point states")
+            f"state dtype {dtype}: the port solves floating-point states")
     return _STATE_KIND[dtype]
 
 

@@ -80,19 +80,25 @@ def ravel_pytree(tree) -> Tuple[torch.Tensor, Callable]:
     return flat, unravel
 
 
+_COMPLEX_OF = {torch.float32: torch.complex64,
+               torch.float64: torch.complex128}
+
+
 def from_numpy_tree(tree, device, dtype: torch.dtype):
     """numpy arrays / Python numbers (and dicts, lists, tuples of them) ->
-    tensors on `device` in `dtype`. Tensors pass through converted."""
+    tensors on `device` in `dtype`. Tensors pass through converted. A
+    complex input stays complex, in the complex dtype whose parts are
+    `dtype`."""
     def convert(x):
         if isinstance(x, torch.Tensor):
-            return x.to(device=device, dtype=dtype)
-        if isinstance(x, (int, float)) or (isinstance(x, np.ndarray)
-                                           and x.ndim == 0):
-            return torch.tensor(float(x), device=device, dtype=dtype)
+            return x.to(device=device, dtype=_like(x.is_complex()))
         a = np.asarray(x)
         if a.dtype.kind == "V":  # ml_dtypes' bfloat16 and kin
             a = a.astype(np.float32)
-        return torch.as_tensor(a, dtype=dtype).to(device)
+        return torch.as_tensor(a, dtype=_like(a.dtype.kind == "c")).to(device)
+
+    def _like(is_complex):
+        return _COMPLEX_OF.get(dtype, dtype) if is_complex else dtype
 
     if isinstance(tree, dict):
         return {key: from_numpy_tree(tree[key], device, dtype) for key in tree}
@@ -104,5 +110,5 @@ def from_numpy_tree(tree, device, dtype: torch.dtype):
 def _is_number_sequence(seq) -> bool:
     """A flat list of numbers (e.g. `p=[D, k]`) is one vector, not a tree."""
     return len(seq) > 0 and all(
-        isinstance(x, (int, float, np.number)) and not isinstance(x, bool)
-        for x in seq)
+        isinstance(x, (int, float, complex, np.number))
+        and not isinstance(x, bool) for x in seq)

@@ -542,3 +542,97 @@ def test_rk4_block_gradient_on_card_matches_cpu(cuda):
     for got, ref in zip(*grads):
         rel = torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)
         assert float(rel) <= 1e-9
+
+
+def _second_pass_through(field, device):
+    """The gradient of a loss through one kernel field, taken with
+    create_graph=True, then differentiated again: rd1d under GaussAdjoint
+    (the continuous rule's backward), the fused MLP under DirectAdjoint
+    (autograd through the fixed grid), the RK4 block chained twice."""
+    if field == "rd1d":
+        n, dt = 16384, 1e-9
+        x = torch.arange(n, dtype=torch.float64, device=device) / n
+        u0 = torch.exp(-((x - 0.5) ** 2) * 100.0)
+        p = torch.tensor([1e-7, 1.5], dtype=torch.float64, device=device,
+                         requires_grad=True)
+        sol = P.solve(P.ODEProblem(rd1d.make_rd1d_field(n, 1.0 / n), u0,
+                                   (0.0, 8 * dt), p), P.Tsit5(),
+                      saveat=[0.0, 8 * dt], dt=dt, adaptive=False,
+                      sensealg=P.GaussAdjoint())
+        loss = torch.sum(sol.ys[-1] ** 2)
+    elif field == "mlp":
+        gen = torch.Generator().manual_seed(0)
+        p = {k: v.requires_grad_() for k, v in P.mlp_init(
+            gen, (2, 50, 2), torch.float64, device=device).items()}
+        sol = P.solve(P.ODEProblem(
+            lambda u, q, t: mlp.fused_mlp2(q, u ** 3),
+            torch.tensor([2.0, 0.0], dtype=torch.float64, device=device),
+            (0.0, 0.3), p), P.Tsit5(), saveat=[0.0, 0.3], dt=0.1,
+            adaptive=False, unroll=True)
+        loss = torch.sum(sol.ys ** 2)
+        p = p["W0"]
+    else:
+        n = 65536
+        u, _, p, inv_dx2, h = _rk4_inputs(n, torch.float64, device)
+        p.requires_grad_()
+        blk = rd1d.make_rd1d_rk4_block(n, 16)
+        loss = torch.sum(blk(blk(u, p, inv_dx2, h), p, inv_dx2, h) ** 2)
+    (g,) = torch.autograd.grad(loss, p, create_graph=True)
+    return torch.autograd.grad(g.sum(), p)
+
+
+@pytest.mark.parametrize("field,name", [("rd1d", "FusedRD1D"),
+                                        ("mlp", "FusedMLP2"),
+                                        ("rk4_block", "RD1DRK4Block")])
+def test_second_derivative_through_kernel_raises(cuda, field, name):
+    """Through each kernel Function, a gradient taken with
+    create_graph=True and differentiated again raises
+    DoubleBackwardUnsupported naming the Function: its pullback kernel has
+    no derivative, so a second derivative would miss its terms (the JAX
+    package's custom_vjp kernels refuse jvp the same way)."""
+    from scimlsensitivity_jl_tpu_torch.ops.vjp import DoubleBackwardUnsupported
+
+    with pytest.raises(DoubleBackwardUnsupported, match=name):
+        _second_pass_through(field, cuda)
+
+
+@pytest.mark.parametrize("arm", ["InterpolatingAdjoint", "BacksolveAdjoint",
+                                 "GaussAdjoint", "QuadratureAdjoint",
+                                 "ODEAdjointProblem"])
+def test_direct_api_on_card_matches_cpu(cuda, arm):
+    """adjoint_sensitivities under each rule family, and ODEAdjointProblem's
+    Interpolating layout solved by hand, on the flagship field (n = 16384,
+    64 fixed steps of 1e-9, dense output, Σ u(t1)² as dgdu_discrete at
+    t1), float64: the card through K1 and K2 against the port's CPU run,
+    relative L2 <= 1e-9; the direct call alone launches both kernels."""
+    n, dt, steps = 16384, 1e-9, 64
+    t1 = steps * dt
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    cost = lambda u, p, t, i: 2.0 * u
+    adj = dict(rtol=1e-3, atol=1e-8, max_steps=128)
+    grads = []
+    for device in (cuda, "cpu"):
+        x = torch.arange(n, dtype=torch.float64, device=device) / n
+        u0 = torch.exp(-((x - 0.5) ** 2) * 100.0)
+        p = torch.tensor([1e-7, 1.5], dtype=torch.float64, device=device)
+        sol = P.solve(P.ODEProblem(field, u0, (0.0, t1), p), P.Tsit5(),
+                      saveat=[0.0, t1], dt=dt, adaptive=False, dense=True,
+                      sensealg=P.BacksolveAdjoint())
+        before = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+        if arm == "ODEAdjointProblem":
+            spec = P.ODEAdjointProblem(sol, t=[t1], dgdu_discrete=cost)
+            rev = P.solve(spec.prob, P.Tsit5(), callback=spec.callback,
+                          tstops=spec.tstops, saveat=[t1, 0.0], **adj)
+            assert rev.retcode == 0
+            du0, dp = spec.extract(rev.u_final)
+        else:
+            du0, dp = P.adjoint_sensitivities(
+                sol, t=[t1], dgdu_discrete=cost,
+                sensealg=getattr(P, arm)(), **adj)
+        after = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+        if device != "cpu":
+            assert all(a > b for a, b in zip(after, before))
+        grads.append([du0.cpu(), dp.cpu()])
+    for got, ref in zip(*grads):
+        rel = torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)
+        assert float(rel) <= 1e-9
