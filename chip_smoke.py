@@ -464,20 +464,26 @@ def spiral_data64(P):
     return sol.ys
 
 
-def spiral_solve(P, setup, kw, params):
-    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2
+def spiral_solve(P, setup, kw, params, solver=None, plain=False):
+    """The spiral through K3/K4 (fused_mlp2) or, plain, through the plain
+    version of the same MLP (forward mode, which the kernels refuse)."""
+    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2, mlp2_reference
 
     _, u0, _, ts = setup
-    prob = P.ODEProblem(lambda u, p, t: fused_mlp2(p, u ** 3), u0,
-                        (0.0, SPIRAL_T1), params)
-    return P.solve(prob, P.Tsit5(), saveat=ts, **kw)
+    if plain:
+        field = lambda u, p, t: mlp2_reference(u ** 3, p["W0"], p["b0"],
+                                               p["W1"], p["b1"])
+    else:
+        field = lambda u, p, t: fused_mlp2(p, u ** 3)
+    prob = P.ODEProblem(field, u0, (0.0, SPIRAL_T1), params)
+    return P.solve(prob, solver or P.Tsit5(), saveat=ts, **kw)
 
 
-def spiral_gradient(P, setup, kw):
+def spiral_gradient(P, setup, kw, solver=None, plain=False):
     """(d/dp of Σ(ys - data)² per leaf, solution)."""
     params = {k: v.detach().clone().requires_grad_()
               for k, v in setup[0].items()}
-    sol = spiral_solve(P, setup, kw, params)
+    sol = spiral_solve(P, setup, kw, params, solver, plain)
     grads = torch.autograd.grad(torch.sum((sol.ys - setup[2]) ** 2),
                                 list(params.values()))
     return dict(zip(params, grads)), sol
@@ -645,18 +651,18 @@ def dose_affect(u, p, t):
     return 0.9 * u + 0.05 * u * u
 
 
-def dose_solve(P, field, u0, p, sensealg, dtype):
+def dose_solve(P, field, u0, p, sensealg, dtype, **extra):
     cb = P.PresetTimeCallback([EV_DOSE_T], dose_affect)
     return P.solve(P.ODEProblem(field, u0, (0.0, EV_T1), p), P.Tsit5(),
                    saveat=[0.0, EV_T1], dt0=DT, callback=cb,
-                   sensealg=sensealg, **EV_TOL[dtype])
+                   sensealg=sensealg, **EV_TOL[dtype], **extra)
 
 
-def dose_gradient(P, field, u0, p, sensealg):
+def dose_gradient(P, field, u0, p, sensealg, **extra):
     """(u0-grad, p-grad, solution) of Σ ys[-1]² of the dosed PDE."""
     uu = u0.clone().requires_grad_()
     pp = p.clone().requires_grad_()
-    sol = dose_solve(P, field, uu, pp, sensealg, u0.dtype)
+    sol = dose_solve(P, field, uu, pp, sensealg, u0.dtype, **extra)
     gu, gp = torch.autograd.grad(torch.sum(sol.ys[-1] ** 2), (uu, pp))
     return gu, gp, sol
 
@@ -813,6 +819,122 @@ def lv_hessian(P, device, sensealg):
     return P.second_order_sensitivities(
         lambda sol: torch.sum(sol.ys ** 2), prob, P.Tsit5(),
         sensealg=sensealg, saveat=[0.0, 1.0, 2.0, 3.0], **LV_HESS)
+
+
+# the unrolled continuous rules (phase 5h): the spiral at bench.py:1121-1150's
+# setting (gauss_unrolled), the dosed PDE of phase 5f with the scan's
+# budget, and GBS as the forward and reverse stepper of the spiral at a
+# tolerance where the continuous Backsolve meets the discrete
+# ForwardDiffSensitivity (the plain MLP, since the kernels refuse forward
+# mode); F1's save-time field u' = −a·u + sin(3t) under DirectAdjoint
+UNROLL_SPIRAL = dict(rtol=1e-3, atol=1e-6, max_steps=64)
+UNROLL_DOSE_MAX_STEPS = 256
+GBS_SPIRAL = dict(rtol=1e-8, atol=1e-10, max_steps=256)
+GBS_TOL = 1e-6        # Backsolve (GBS) vs ForwardDiff, per entry / max|leaf|
+F1_A, F1_U0, F1_SV = 0.7, 1.3, (0.2, 0.5, 0.9)
+F1_TOL = 1e-8         # DirectAdjoint dL/dtᵢ against the closed form
+
+# the stiff arms (phase 5i): Robertson at bench.py:262-285's setting
+# (p = [k1, k2 (y2·y3), k3 (y2²)], saves [0, 10, 100], Σ y1², FBDF under
+# GaussAdjoint), its oracle ForwardDiffSensitivity on Rosenbrock23 at rtol
+# 1e-6 (exact to ~1e-6; at the bench's 1e-4 it is 1.8e-4 off), and
+# Rosenbrock23 under InterpolatingAdjoint over the stiff transient (0,
+# 1e-2) with tests/test_stiff.py's loss 1e4·Σ y2 in log p (at the bench's
+# 1e-3 reverse tolerance Interpolating's uncontrolled q is 60% off);
+# tests/test_stiff.py:93's gate; bench.py:318's nonlinear residual
+ROB_P, ROB_TS, ROB_T1 = (0.04, 1e4, 3e7), (0.0, 10.0, 100.0), 100.0
+ROB_BENCH = dict(rtol=1e-4, atol=1e-8, adj_rtol=1e-3, adj_atol=1e-6,
+                 max_steps=2048)
+ROB_ORACLE = dict(rtol=1e-6, atol=1e-10, max_steps=4096)
+ROB_R23 = dict(rtol=1e-6, atol=1e-10, adj_rtol=1e-5, adj_atol=1e-8,
+               max_steps=4096)
+ROB_R23_TS, ROB_R23_T1 = (1e-3, 1e-2), 1e-2
+STIFF_GATE = dict(rtol=2e-4, atol=1e-8)
+NL_H, NL_FD_TOL = 1e-6, 1e-6  # central differences of Σu*², per entry / max
+
+
+def f1_closed_form(ts):
+    """dL/dtᵢ = f(u(tᵢ), tᵢ) of u' = −a·u + sin(3t), u(0) = u0."""
+    import math
+
+    a = F1_A
+    c = F1_U0 + 3.0 / (a * a + 9.0)
+    out = []
+    for t in ts:
+        u = c * math.exp(-a * t) + (a * math.sin(3 * t)
+                                    - 3 * math.cos(3 * t)) / (a * a + 9.0)
+        out.append(-a * u + math.sin(3 * t))
+    return out
+
+
+def f1_saveat_gradient(P, device):
+    """DirectAdjoint's dL/dtᵢ of Σ ys on F1's save-time case."""
+    a = torch.tensor([F1_A], dtype=torch.float64, device=device)
+    sv = torch.tensor(F1_SV, dtype=torch.float64, device=device,
+                      requires_grad=True)
+    prob = P.ODEProblem(
+        lambda u, p, t: -p[0] * u + torch.sin(
+            3 * torch.as_tensor(t, dtype=u.dtype, device=u.device)),
+        torch.tensor([F1_U0], dtype=torch.float64, device=device), (0.0, 1.0),
+        a)
+    sol = P.solve(prob, P.Tsit5(), saveat=sv, rtol=1e-10, atol=1e-12,
+                  sensealg=P.DirectAdjoint(), max_steps=256)
+    (g,) = torch.autograd.grad(sol.ys.sum(), sv)
+    return g, sol
+
+
+def rob_field(u, p, t):
+    return torch.stack([-p[0] * u[0] + p[1] * u[1] * u[2],
+                        p[0] * u[0] - p[1] * u[1] * u[2] - p[2] * u[1] ** 2,
+                        p[2] * u[1] ** 2])
+
+
+def rob_bench(P, device, solver, sensealg, kw, grad=True):
+    """Robertson at the bench's setting: (d/dp of Σ y1², solution) or the
+    solution."""
+    p = torch.tensor(ROB_P, dtype=torch.float64, device=device)
+    p.requires_grad_(grad)
+    u0 = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=device)
+    with torch.set_grad_enabled(grad):
+        sol = P.solve(P.ODEProblem(rob_field, u0, (0.0, ROB_T1), p), solver,
+                      saveat=list(ROB_TS), sensealg=sensealg, **kw)
+        if not grad:
+            return sol
+        (g,) = torch.autograd.grad(torch.sum(sol.ys[:, 0] ** 2), p)
+    return g, sol
+
+
+def rob_transient(P, device, sensealg):
+    """Rosenbrock23 on Robertson's transient: (d/dlog p of 1e4·Σ y2,
+    solution)."""
+    logp = torch.log(torch.tensor(ROB_P, dtype=torch.float64, device=device))
+    logp.requires_grad_()
+    u0 = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=device)
+    sol = P.solve(P.ODEProblem(rob_field, u0, (0.0, ROB_R23_T1),
+                               torch.exp(logp)), P.Rosenbrock23(),
+                  saveat=list(ROB_R23_TS), sensealg=sensealg, **ROB_R23)
+    (g,) = torch.autograd.grad(1e4 * torch.sum(sol.ys[:, 1]), logp)
+    return g, sol
+
+
+def nl_residual(u, q):
+    return torch.tanh(q[:, None] * u[None, :]).sum(0) + u - 1.0
+
+
+def nl_solve(P, device, p=None, grad=True):
+    """bench.py:318's residual (8 unknowns, p of 4): (d/dp of Σu*²,
+    solution), or the loss alone for grad=False."""
+    if p is None:
+        p = torch.linspace(0.1, 0.5, 4, dtype=torch.float64, device=device)
+    p = p.detach().clone().requires_grad_(grad)
+    u0 = torch.zeros(8, dtype=torch.float64, device=device)
+    with torch.set_grad_enabled(grad):
+        sol = P.solve_nonlinear(P.NonlinearProblem(nl_residual, u0, p))
+        loss = torch.sum(sol.u ** 2)
+        if not grad:
+            return loss, sol
+        (g,) = torch.autograd.grad(loss, p)
+    return g, sol
 
 
 def main() -> int:
@@ -1901,6 +2023,206 @@ def main() -> int:
     print(f"[direct f64] phase 5g: {time.perf_counter() - t:.1f} s")
     elapsed("phase 5g [direct f64]")
 
+    # -- 5h. [unroll f64]: the unrolled continuous rules and GBS -------------
+    # unroll=True runs the while driver's eager loop with the masked scan's
+    # budget, so every arm should equal its rule's while driver bit for bit
+    t = time.perf_counter()
+    unroll_launches = {}
+    for rule in ("GaussAdjoint", "BacksolveAdjoint"):
+        name = f"S2u {rule} unroll"
+        kw_u = dict(UNROLL_SPIRAL, sensealg=getattr(P, rule)(), unroll=True)
+        kw_w = dict(UNROLL_SPIRAL, sensealg=getattr(P, rule)())
+        (g_u, sol), got = count_path(lambda: spiral_gradient(P, setup_card,
+                                                             kw_u))
+        g_w, sol_w = spiral_gradient(P, setup_card, kw_w)
+        g_c, sol_c = spiral_gradient(P, setup_cpu, kw_u)
+        diff = max(float((g_u[k] - g_w[k]).abs().max()) for k in g_u)
+        errs = leaf_errors(g_u, g_c)
+        unroll_launches[name] = {"K3": got[0], "K4": got[1]}
+        print(f"[unroll f64] {name}: forward {sol.stats} (while {sol_w.stats})"
+              f"; reverse {sol.adjoint.stats}; against the while driver max "
+              f"|diff| {diff:.3e} (bit for bit: 0); card vs CPU rel L2 "
+              f"{fmt_errors(errs)} (tol {NODE_F64_TOL:g}); K3 {got[0]} and K4 "
+              f"{got[1]} launches per gradient")
+        check(sol.retcode == 0 and sol_w.retcode == 0 and sol_c.retcode == 0,
+              f"{name} retcode")
+        check(sol.stats.n_accepted == sol_w.stats.n_accepted,
+              f"{name} took other steps than its while driver")
+        check(diff == 0.0, f"{name} differs from its while driver")
+        check(max(errs.values()) <= NODE_F64_TOL,
+              f"{name}: f64 card gradient off the CPU run")
+    # the dosed PDE (phase 5f's f64 arm) under Backsolve and the adaptive
+    # Interpolating reverse, which unroll runs instead of the pinned one
+    n = EV_N[torch.float64]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    for rule, while_alg in (("BacksolveAdjoint", P.BacksolveAdjoint()),
+                            ("InterpolatingAdjoint",
+                             P.InterpolatingAdjoint(pinned_reverse=False))):
+        name = f"PDE dose {rule} unroll"
+        extra = dict(unroll=True, max_steps=UNROLL_DOSE_MAX_STEPS)
+        u0, p = flagship_inputs(n, torch.float64, dev)
+        rd1d.rd1d_fwd_cuda.launches = 0
+        rd1d.rd1d_vjp_cuda.launches = 0
+        gu, gp, sol = dose_gradient(P, field, u0, p, getattr(P, rule)(),
+                                    **extra)
+        torch.cuda.synchronize()
+        got = {"K1": rd1d.rd1d_fwd_cuda.launches,
+               "K2": rd1d.rd1d_vjp_cuda.launches}
+        unroll_launches[name] = got
+        gu_w, gp_w, sol_w = dose_gradient(P, field, u0, p, while_alg,
+                                          max_steps=UNROLL_DOSE_MAX_STEPS)
+        u0c, pc = flagship_inputs(n, torch.float64, "cpu")
+        gu_c, gp_c, sol_c = dose_gradient(P, field, u0c, pc,
+                                          getattr(P, rule)(), **extra)
+        diff = max(float((gu - gu_w).abs().max()),
+                   float((gp - gp_w).abs().max()))
+        e_u = rel_l2(gu, gu_c)
+        e_p = ((gp.cpu() - gp_c).abs() / gp_c.abs()).tolist()
+        print(f"[unroll f64] {name} n={n}: forward {sol.stats}, "
+              f"{sol.events.count} dose; reverse {sol.adjoint.stats} "
+              f"({sol.adjoint.reverse}); against the while driver max |diff| "
+              f"{diff:.3e} (bit for bit: 0); card vs CPU u0-grad rel L2 "
+              f"{e_u:.3e}, dD rel {e_p[0]:.3e}, dk rel {e_p[1]:.3e} (tol "
+              f"{F64_GRAD_TOL:g}); K1 {got['K1']} and K2 {got['K2']} launches "
+              f"per gradient")
+        check(sol.retcode == 0 and sol_w.retcode == 0 and sol_c.retcode == 0,
+              f"{name} retcode")
+        check(sol.events.count == 1 == sol_c.events.count,
+              f"{name}: {sol.events.count} doses")
+        check(got["K1"] > 0 and got["K2"] > 0,
+              f"{name} did not launch K1 and K2: {got}")
+        check(diff == 0.0, f"{name} differs from its while driver")
+        check(e_u <= F64_GRAD_TOL and max(e_p) <= F64_GRAD_TOL,
+              f"{name}: f64 card gradient off the CPU run")
+    del u0, p, gu, gp, gu_w, gp_w, u0c, pc, gu_c, gp_c
+    # GBS as the forward and reverse stepper: Backsolve through K3/K4 on
+    # the card and the CPU, ForwardDiffSensitivity through the plain MLP
+    gbs_kw = dict(GBS_SPIRAL, sensealg=P.BacksolveAdjoint(),
+                  bwd_solver=P.GBS())
+    (g_g, sol), got = count_path(lambda: spiral_gradient(
+        P, setup_card, gbs_kw, solver=P.GBS()))
+    unroll_launches["S2g GBS BacksolveAdjoint"] = {"K3": got[0], "K4": got[1]}
+    g_gc, sol_c = spiral_gradient(P, setup_cpu, gbs_kw, solver=P.GBS())
+    g_f, sol_f = spiral_gradient(
+        P, setup_card, dict(GBS_SPIRAL, sensealg=P.ForwardDiffSensitivity()),
+        solver=P.GBS(), plain=True)
+    errs = leaf_errors(g_g, g_gc)
+    rule_err = max(float((g_g[k] - g_f[k]).abs().max() / g_f[k].abs().max())
+                   for k in g_f)
+    print(f"[unroll f64] S2g GBS(levels=4) BacksolveAdjoint (rtol "
+          f"{GBS_SPIRAL['rtol']:g}): forward {sol.stats}; reverse "
+          f"{sol.adjoint.stats}; card vs CPU rel L2 {fmt_errors(errs)} (tol "
+          f"{NODE_F64_TOL:g}); against ForwardDiffSensitivity on the plain "
+          f"MLP (forward {sol_f.stats}) max |diff| / max|leaf| {rule_err:.3e} "
+          f"(tol {GBS_TOL:g}); K3 {got[0]} and K4 {got[1]} launches")
+    check(sol.retcode == 0 and sol_c.retcode == 0 and sol_f.retcode == 0,
+          "S2g GBS retcode")
+    check(max(errs.values()) <= NODE_F64_TOL,
+          "S2g GBS: f64 card gradient off the CPU run")
+    check(rule_err <= GBS_TOL, "S2g GBS Backsolve off ForwardDiffSensitivity")
+    # F1's save-time case on the card (no kernel)
+    g_t, sol = f1_saveat_gradient(P, dev)
+    ref = f1_closed_form(F1_SV)
+    err = max(abs(a - b) for a, b in zip(g_t.tolist(), ref))
+    print(f"[unroll f64] F1 u' = -a u + sin(3t) DirectAdjoint dL/dt_i "
+          f"{[round(v, 6) for v in g_t.tolist()]}, closed form "
+          f"{[round(v, 6) for v in ref]}: max |diff| {err:.3e} (tol "
+          f"{F1_TOL:g}); forward {sol.stats}")
+    check(sol.retcode == 0 and err <= F1_TOL,
+          "F1 DirectAdjoint save-time gradient off the closed form")
+    print(f"[unroll f64] phase 5h: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5h [unroll f64]")
+
+    # -- 5i. [stiff f64]: the stiff solvers and the nonlinear solve (host
+    # path: no kernel; torch.linalg on the card) -----------------------------
+    t = time.perf_counter()
+    g_fb, sol_fb = rob_bench(P, dev, P.FBDF(), P.GaussAdjoint(), ROB_BENCH)
+    g_fbc, sol_fbc = rob_bench(P, "cpu", P.FBDF(), P.GaussAdjoint(),
+                               ROB_BENCH)
+    g_or, sol_or = rob_bench(P, dev, P.Rosenbrock23(),
+                             P.ForwardDiffSensitivity(), ROB_ORACLE)
+    same = (sol_fb.stats.n_accepted == sol_fbc.stats.n_accepted
+            and sol_fb.adjoint.stats.n_accepted
+            == sol_fbc.adjoint.stats.n_accepted)
+    e_c = max_rel(g_fb, g_fbc)
+    gate = bool(torch.allclose(g_fb.cpu(), g_or.cpu(), **STIFF_GATE))
+    print(f"[stiff f64] Robertson FBDF GaussAdjoint (bench setting): forward "
+          f"{sol_fb.stats} (CPU {sol_fbc.stats}); reverse "
+          f"{sol_fb.adjoint.stats} (CPU {sol_fbc.adjoint.stats}); p-grad "
+          f"{g_fb.tolist()}; card vs CPU max rel {e_c:.3e} (tol "
+          f"{F64_GRAD_TOL:g} where the step counts agree: {same}); against "
+          f"Rosenbrock23 ForwardDiffSensitivity at rtol "
+          f"{ROB_ORACLE['rtol']:g} ({g_or.tolist()}, forward "
+          f"{sol_or.stats}): max rel {max_rel(g_fb, g_or):.3e} (allclose "
+          f"rtol {STIFF_GATE['rtol']:g} atol {STIFF_GATE['atol']:g}: {gate})")
+    check(sol_fb.retcode == 0 and sol_fbc.retcode == 0
+          and sol_or.retcode == 0, "Robertson FBDF retcode")
+    check(not same or e_c <= F64_GRAD_TOL,
+          "Robertson FBDF card gradient off the CPU run")
+    check(gate, "Robertson FBDF GaussAdjoint off ForwardDiffSensitivity")
+    g_ri, sol_ri = rob_transient(P, dev, P.InterpolatingAdjoint())
+    g_ric, sol_ric = rob_transient(P, "cpu", P.InterpolatingAdjoint())
+    g_rf, sol_rf = rob_transient(P, dev, P.ForwardDiffSensitivity())
+    same = (sol_ri.stats.n_accepted == sol_ric.stats.n_accepted
+            and sol_ri.adjoint.stats.n_accepted
+            == sol_ric.adjoint.stats.n_accepted)
+    e_c = max_rel(g_ri, g_ric)
+    gate = bool(torch.allclose(g_ri.cpu(), g_rf.cpu(), **STIFF_GATE))
+    print(f"[stiff f64] Robertson transient Rosenbrock23 InterpolatingAdjoint:"
+          f" forward {sol_ri.stats} (CPU {sol_ric.stats}); reverse "
+          f"{sol_ri.adjoint.stats} ({sol_ri.adjoint.reverse}; CPU "
+          f"{sol_ric.adjoint.stats}); log p-grad {g_ri.tolist()}; card vs CPU "
+          f"max rel {e_c:.3e} (tol {F64_GRAD_TOL:g} where the step counts "
+          f"agree: {same}); against ForwardDiffSensitivity "
+          f"{g_rf.tolist()}: max rel {max_rel(g_ri, g_rf):.3e} (allclose "
+          f"rtol {STIFF_GATE['rtol']:g} atol {STIFF_GATE['atol']:g}: {gate})")
+    check(sol_ri.retcode == 0 and sol_ric.retcode == 0
+          and sol_rf.retcode == 0, "Robertson Rosenbrock23 retcode")
+    check(not same or e_c <= F64_GRAD_TOL,
+          "Robertson Rosenbrock23 card gradient off the CPU run")
+    check(gate, "Robertson Rosenbrock23 Interpolating off ForwardDiff")
+    # the nonlinear solve: IFT gradient against central differences
+    g_nl, sol_nl = nl_solve(P, dev)
+    g_nlc, _ = nl_solve(P, "cpu")
+    p_nl = torch.linspace(0.1, 0.5, 4, dtype=torch.float64, device=dev)
+    fd = []
+    for i in range(4):
+        e = torch.zeros_like(p_nl)
+        e[i] = NL_H
+        fd.append((float(nl_solve(P, dev, p_nl + e, grad=False)[0])
+                   - float(nl_solve(P, dev, p_nl - e, grad=False)[0]))
+                  / (2 * NL_H))
+    fd = torch.tensor(fd, dtype=torch.float64)
+    e_fd = float((g_nl.cpu() - fd).abs().max() / fd.abs().max())
+    e_c = rel_l2(g_nl, g_nlc)
+    print(f"[stiff f64] solve_nonlinear (bench.py:318 residual, 8 unknowns): "
+          f"retcode {sol_nl.retcode}, {sol_nl.iters} Newton iterations, "
+          f"residual {float(sol_nl.resid):.3e}; IFT p-grad {g_nl.tolist()}; "
+          f"against central differences (h {NL_H:g}) max |diff| / max "
+          f"{e_fd:.3e} (tol {NL_FD_TOL:g}); card vs CPU rel L2 {e_c:.3e} "
+          f"(tol {F64_GRAD_TOL:g})")
+    check(sol_nl.retcode == 0 and e_fd <= NL_FD_TOL
+          and e_c <= F64_GRAD_TOL, "solve_nonlinear gradient")
+    # a stiff step takes ∂f/∂u by forward mode, which the kernel refuses
+    from scimlsensitivity_jl_tpu_torch.ops.vjp import ForwardModeUnsupported
+
+    n = EV_N[torch.float64]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0, p = flagship_inputs(n, torch.float64, dev)
+    for solver in (P.Rosenbrock23(), P.FBDF()):
+        try:
+            P.solve(P.ODEProblem(field, u0, (0.0, STEPS * DT), p), solver,
+                    dt0=DT, sensealg=P.GaussAdjoint(), max_steps=4)
+        except ForwardModeUnsupported as err:
+            print(f"[stiff f64] {solver!r} on the PDE kernel field raises "
+                  f"ForwardModeUnsupported: {str(err)[:70]}...")
+        else:
+            raise AssertionError(f"{solver!r} on the kernel field did not "
+                                 "raise ForwardModeUnsupported")
+    del u0, p
+    print(f"[stiff f64] phase 5i: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5i [stiff f64]")
+
     # -- 6. timings: the megakernel path first ---------------------------------
     u0, p = flagship_inputs(MEGA_N, torch.float32, dev)
     arms = {
@@ -2341,6 +2663,32 @@ def main() -> int:
     del u0, p, sol32
     elapsed("phase 6g [direct] timings")
 
+    # -- 6h. [unroll] and [stiff] timings: each arm against its own
+    # baseline, CUDA events (median of EV_TIMING_ROUNDS interleaved rounds
+    # after a warm-up round) and one profiled run for the device's idle
+    # share: the spiral f32 with unrolled Gauss against its while driver
+    # (the gradients not traced, as in 6f), Robertson (FBDF, GaussAdjoint)
+    # against its forward, the nonlinear solve against its forward
+    setup32 = spiral_setup(P, torch.float32, dev, data64)
+    arms = {"S2u forward": lambda: spiral_forward(P, setup32, UNROLL_SPIRAL),
+            "S2u GaussAdjoint while gradient": lambda: spiral_gradient(
+                P, setup32, dict(UNROLL_SPIRAL, sensealg=P.GaussAdjoint())),
+            "S2u GaussAdjoint unroll gradient": lambda: spiral_gradient(
+                P, setup32, dict(UNROLL_SPIRAL, sensealg=P.GaussAdjoint(),
+                                 unroll=True))}
+    ev_time("spiral f32", arms, spiral_checks,
+            traced=lambda name: "forward" in name)
+    del setup32
+    arms = {"forward": lambda: rob_bench(P, dev, P.FBDF(), None, ROB_BENCH,
+                                         grad=False),
+            "FBDF GaussAdjoint gradient": lambda: rob_bench(
+                P, dev, P.FBDF(), P.GaussAdjoint(), ROB_BENCH)}
+    ev_time("Robertson f64 (bench setting)", arms)
+    arms = {"forward": lambda: nl_solve(P, dev, grad=False),
+            "IFT gradient": lambda: nl_solve(P, dev)}
+    ev_time("solve_nonlinear f64 (8 unknowns)", arms)
+    elapsed("phase 6h [unroll] and [stiff] timings")
+
     # Lotka-Volterra last: its traces hold the most launches of any
     for name, sensealg in [("forward", None)] + list(lv_runs.items()):
         ms = lv_times[name]
@@ -2368,12 +2716,15 @@ def main() -> int:
                   for i in (0, 1)]
     direct_k = {k: sum(got.get(k, 0) for got in direct_launches.values())
                 for k in ("K1", "K2", "K3", "K4")}
+    unroll_k = {k: sum(got.get(k, 0) for got in unroll_launches.values())
+                for k in ("K1", "K2", "K3", "K4")}
     kernels = [
         {"name": "rd1d_fwd (K1)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:58",
          "launches": (launches["K1"] + pde_c_launches["K1"]
-                      + interp_k["K1"] + dose_k["K1"] + direct_k["K1"]),
+                      + interp_k["K1"] + dose_k["K1"] + direct_k["K1"]
+                      + unroll_k["K1"]),
          "paths": {"PDE (a)+(b)": launches["K1"],
                    "PDE (c) QuadratureAdjoint": pde_c_launches["K1"],
                    **{f"PDE {arm}": got["K1"]
@@ -2381,7 +2732,9 @@ def main() -> int:
                    **{f"PDE dose {arm}": got["K1"]
                       for arm, got in dose_launches.items()},
                    **{f"direct {arm}": got["K1"]
-                      for arm, got in direct_launches.items() if "K1" in got}},
+                      for arm, got in direct_launches.items() if "K1" in got},
+                   **{arm: got["K1"]
+                      for arm, got in unroll_launches.items() if "K1" in got}},
          "max_abs_err": max_abs["K1"],
          "ms": timing[n]["K1"], "plain_ms": timing[n]["K1_plain"],
          "cold_ms": timing[n]["K1_cold"],
@@ -2391,7 +2744,8 @@ def main() -> int:
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:66",
          "launches": (launches["K2"] + pde_c_launches["K2"]
-                      + interp_k["K2"] + dose_k["K2"] + direct_k["K2"]),
+                      + interp_k["K2"] + dose_k["K2"] + direct_k["K2"]
+                      + unroll_k["K2"]),
          "paths": {"PDE (a)+(b)": launches["K2"],
                    "PDE (c) QuadratureAdjoint": pde_c_launches["K2"],
                    **{f"PDE {arm}": got["K2"]
@@ -2399,7 +2753,9 @@ def main() -> int:
                    **{f"PDE dose {arm}": got["K2"]
                       for arm, got in dose_launches.items()},
                    **{f"direct {arm}": got["K2"]
-                      for arm, got in direct_launches.items() if "K2" in got}},
+                      for arm, got in direct_launches.items() if "K2" in got},
+                   **{arm: got["K2"]
+                      for arm, got in unroll_launches.items() if "K2" in got}},
          "max_abs_err": max_abs["K2"],
          "ms": timing[n]["K2"], "plain_ms": timing[n]["K2_plain"],
          "cold_ms": timing[n]["K2_cold"],
@@ -2409,7 +2765,8 @@ def main() -> int:
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:53",
          "launches": (s1_s5_launches["K3"] + s2q_launches[0]
-                      + interp_node[0] + event_node[0] + direct_k["K3"]),
+                      + interp_node[0] + event_node[0] + direct_k["K3"]
+                      + unroll_k["K3"]),
          "paths": {"S1-S5": s1_s5_launches["K3"],
                    "S2q QuadratureAdjoint": s2q_launches[0],
                    **{arm: got[0]
@@ -2417,7 +2774,9 @@ def main() -> int:
                    **{arm: got[0]
                       for arm, got in event_node_launches.items()},
                    **{f"direct {arm}": got["K3"]
-                      for arm, got in direct_launches.items() if "K3" in got}},
+                      for arm, got in direct_launches.items() if "K3" in got},
+                   **{arm: got["K3"]
+                      for arm, got in unroll_launches.items() if "K3" in got}},
          "max_abs_err": max_abs["K3"],
          "ms": s4["K3"], "plain_ms": s4["K3_plain"],
          "bound_ms": s4["bound"]["K3"][0], "bound_by": s4["bound"]["K3"][1],
@@ -2426,7 +2785,8 @@ def main() -> int:
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:68",
          "launches": (s1_s5_launches["K4"] + s2q_launches[1]
-                      + interp_node[1] + event_node[1] + direct_k["K4"]),
+                      + interp_node[1] + event_node[1] + direct_k["K4"]
+                      + unroll_k["K4"]),
          "paths": {"S1-S5": s1_s5_launches["K4"],
                    "S2q QuadratureAdjoint": s2q_launches[1],
                    **{arm: got[1]
@@ -2434,7 +2794,9 @@ def main() -> int:
                    **{arm: got[1]
                       for arm, got in event_node_launches.items()},
                    **{f"direct {arm}": got["K4"]
-                      for arm, got in direct_launches.items() if "K4" in got}},
+                      for arm, got in direct_launches.items() if "K4" in got},
+                   **{arm: got["K4"]
+                      for arm, got in unroll_launches.items() if "K4" in got}},
          "max_abs_err": max_abs["K4"],
          "ms": s4["K4"], "plain_ms": s4["K4_plain"],
          "bound_ms": s4["bound"]["K4"][0], "bound_by": s4["bound"]["K4"][1],

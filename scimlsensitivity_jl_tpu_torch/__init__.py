@@ -1,8 +1,14 @@
 """PyTorch port of scimlsensitivity_jl_tpu, for NVIDIA Hopper GPUs.
 
 Counterpart of `scimlsensitivity_jl_tpu/__init__.py`, the public subset that
-is ported: `ODEProblem`, `solve` (real and complex states, `save_idxs`),
-the explicit Runge-Kutta solvers, the sensealg configurations with the
+is ported: `ODEProblem`, `SecondOrderODEProblem`, `solve` (real and
+complex states, `save_idxs`, `unroll=True` under every rule), the
+explicit Runge-Kutta solvers, the stiff solvers (`Rosenbrock23`, `TRBDF2`,
+`Kvaerno3`, `SDIRK4`, `Seulex`, `Rodas4Like`, `FBDF`) and the
+extrapolation ones (`GBS`, `Vern9Like`), the nonlinear solves
+(`NonlinearProblem`, `SteadyStateProblem`, `solve_nonlinear`,
+`solve_unconstrained_optimization`, `NonlinearSolution`) under
+`SteadyStateAdjoint`, the sensealg configurations with the
 reference's aliases (`ZygoteAdjoint` ... -> `DirectAdjoint`, `ZygoteVJP`
 ... -> `AutoVJP`, `supports_functor_params`), the direct APIs
 (`adjoint_sensitivities`, `ODEAdjointProblem`,
@@ -35,6 +41,11 @@ from .adjoints.adjoint_problem import (
     SDEAdjointProblem,
 )
 from .adjoints.interface import adjoint_sensitivities
+from .adjoints.steadystate import (
+    NonlinearSolution,
+    solve_nonlinear,
+    solve_unconstrained_optimization,
+)
 from .adjoints.second_order import (
     second_order_sensitivities,
     second_order_sensitivity_product,
@@ -77,7 +88,8 @@ from .models.pde import (
 )
 from .ops.mlp import fused_mlp2
 from .ops.rd1d import make_rd1d_rk4_block
-from .problems import ODEProblem, remake
+from .problems import (NonlinearProblem, ODEProblem, SecondOrderODEProblem,
+                       SteadyStateProblem, remake)
 from .sensealg import (
     NILSAS,
     NILSS,
@@ -118,10 +130,19 @@ from .sensealg import (
 from .solution import RETCODE_NAMES, ODESolution
 from .solve import solve
 from .solvers.explicit import BS3, Dopri5, Euler, ExplicitRK, Heun, Midpoint, Tsit5
+from .solvers.extrapolation import GBS, Vern9Like
+from .solvers.fbdf import FBDF
+from .solvers.rosenbrock import Rosenbrock23
+from .solvers.sdirk import SDIRK4, TRBDF2, Kvaerno3
+from .solvers.seulex import Rodas4Like, Seulex
 
 __all__ = [
     "ODEProblem", "remake", "solve", "ODESolution", "RETCODE_NAMES",
+    "SecondOrderODEProblem", "NonlinearProblem", "SteadyStateProblem",
+    "NonlinearSolution", "solve_nonlinear", "solve_unconstrained_optimization",
     "ExplicitRK", "Tsit5", "Dopri5", "BS3", "Heun", "Midpoint", "Euler",
+    "Rosenbrock23", "TRBDF2", "Kvaerno3", "SDIRK4", "Seulex", "Rodas4Like",
+    "GBS", "Vern9Like", "FBDF",
     "AutoVJP", "JacVJP", "FiniteDiffVJP",
     "BacksolveAdjoint", "DirectAdjoint", "InterpolatingAdjoint",
     "GaussAdjoint", "GaussKronrodAdjoint", "QuadratureAdjoint",

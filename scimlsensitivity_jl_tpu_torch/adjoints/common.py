@@ -189,6 +189,7 @@ def reverse_joined_solve(
     event_count: int = 0,
     event_apply: Optional[Callable] = None,
     event_unroll: int = 3,
+    fixed_trip: bool = False,
 ) -> Tuple[torch.Tensor, Any, Stats, Optional[DenseOutput]]:
     """ONE adaptive reverse solve over [t_hi -> t_lo], adding the loss
     cotangents `lam_jumps[k]` into z[:n_lam] exactly when the integrator lands
@@ -218,6 +219,9 @@ def reverse_joined_solve(
     `event_unroll` per stop (JAX: max(3, callbacks)). Events at or above
     t_hi fire before the reverse starts (an event at t1, or the terminal
     event at a dynamic t_final).
+
+    fixed_trip: the masked scan's budget of max_steps + m + 4 attempts
+    (`integrate(fixed_trip=True)`), JAX's unrolled reverse (`unroll_scan`).
 
     Returns (z at t_lo after all jumps, the hook's carry, reverse Stats,
     the dense output or None). The JAX function returns the retcode where
@@ -285,7 +289,7 @@ def reverse_joined_solve(
         rtol=rtol, atol=atol, max_steps=max_steps + m + 4, tstops=all_stops,
         hook=wrapped_hook, hook_carry=(hook_carry, k0, ke0),
         stop_transform=stop_transform, store_dense=collect_dense,
-        err_weights=err_weights,
+        err_weights=err_weights, fixed_trip=fixed_trip,
     )
     return res.u_final, res.hook_carry[0], res.stats, res.dense
 

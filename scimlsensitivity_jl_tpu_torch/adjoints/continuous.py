@@ -154,6 +154,9 @@ class SolveOptions:
     fixed_dt: Any = None
     callback: Any = None  # callbacks.CallbackSet, lowered
     max_events: int = 32
+    # unroll=True: the forward and the reverse take the masked scan's
+    # budget (`integrate(fixed_trip=True)`), with the while driver's steps
+    unroll: bool = False
 
 
 @dataclass
@@ -199,10 +202,9 @@ class _StepLog:
         self.last = None
         self.steps = []
 
-    def step(self, fvec, t, dt, u, f0, need_err: bool = True, ddt=None):
+    def step(self, fvec, t, dt, u, f0, need_err: bool = True, **offsets):
         self.last = (t, dt)
-        kw = {} if ddt is None else {"ddt": ddt}
-        return self.stepper.step(fvec, t, dt, u, f0, need_err, **kw)
+        return self.stepper.step(fvec, t, dt, u, f0, need_err, **offsets)
 
     def accepted(self, _rec):
         self.steps.append(self.last)
@@ -232,9 +234,13 @@ class _ContinuousRule:
         self.dense = self.stats = self.t_final = None
         self.events = self.event_log = None
         self.node_times = False
-        self.step_log = (_StepLog(solver)
-                         if isinstance(sensealg, ForwardDiffSensitivity)
-                         else None)
+        # ForwardDiffSensitivity records the forward's steps to replay them;
+        # a multistep stepper's history is not replayed (refused at the
+        # gradient, so its forward solve runs)
+        fds = isinstance(sensealg, ForwardDiffSensitivity)
+        multistep = getattr(solver, "stateful", False)
+        self.step_log = _StepLog(solver) if fds and not multistep else None
+        self.replay_refused = fds and multistep
 
     def _p(self, pflat):
         return self.unravel_p(pflat) if self.has_p else None
@@ -257,6 +263,10 @@ class _ContinuousRule:
         p = self._p(pflat)
         kern = self._kern(p)
         opts, log = self.opts, self.step_log
+        if opts.unroll and opts.dtmax is not None:
+            raise NotImplementedError(
+                "unroll=True (scan driver) does not take dtmax/fixed_dt; "
+                "use the while driver (unroll=False) for those")
         event_set = self._event_set(p)
         fwd = forward_saveat_solve(
             log or self.solver, lambda uv, t: kern.fvec(uv, p, t), u0vec,
@@ -266,7 +276,7 @@ class _ContinuousRule:
             store_dense=self.store_dense, dtmax=opts.dtmax,
             fixed_dt=opts.fixed_dt,
             extra_hook=None if log is None else log.accepted,
-            event_set=event_set,
+            event_set=event_set, fixed_trip=opts.unroll,
         )
         # ForwardDiffSensitivity differentiates the node times, which a
         # continuous event moves (JAX's jvp through its dense ts); the
@@ -282,6 +292,13 @@ class _ContinuousRule:
         """The reverse pass of the rule: the cotangents of the save rows, of
         u_final and of the dense nodes' states, slopes and (node_times)
         times -> those of u0, p and (want_sv) the save times `sv`."""
+        if self.replay_refused:
+            raise NotImplementedError(
+                f"ForwardDiffSensitivity with the multistep {self.solver!r}: "
+                "the port replays one-step steppers only; use a one-step "
+                "stiff solver (Rosenbrock23, TRBDF2, Kvaerno3, SDIRK4, "
+                "Seulex) or a reverse rule (GaussAdjoint, QuadratureAdjoint) "
+                "with FBDF")
         n, nt = u0vec.numel(), ys_save.shape[0]
         lam_jumps = (d_ys.reshape(nt, n) if d_ys is not None
                      else u0vec.new_zeros(nt, n))
@@ -319,7 +336,7 @@ class _ContinuousRule:
             atol=opts.adj_atol if opts.adj_atol is not None else opts.atol,
             max_steps=(opts.adj_max_steps if opts.adj_max_steps is not None
                        else opts.max_steps),
-            t_span=(self.t0, self.t_final))
+            t_span=(self.t0, self.t_final), fixed_trip=opts.unroll)
         args = (u0vec, pflat, p, kern, times, jumps, adj, event_set)
         if isinstance(self.sensealg, BacksolveAdjoint):
             lam0, q, rstats, worst = self._backward_backsolve(
@@ -472,7 +489,8 @@ class _ContinuousRule:
         only with an explicit-RK reverse stepper and no events; auto
         (pinned_reverse=None) pins InterpolatingAdjoint alone."""
         want = getattr(self.sensealg, "pinned_reverse", None)
-        if want is False:
+        if want is False or self.opts.unroll:
+            # unrolled: the adaptive reverse with the scan's budget, as JAX
             return False
         eligible = (isinstance(self.bwd_stepper, ExplicitRK)
                     and event_set is None)
@@ -687,6 +705,9 @@ class _ContinuousRule:
             np.concatenate([saveat, np.asarray(self.opts.tstops, dtype=kind)]))
         fvec = lambda uv, t: kern.fvec(uv, p, t)
         save_hook = save_hook_factory(saveat, tdir, span)
+        # an explicit RK step is linear in its stages, so stepping [u; S]
+        # is its jvp; any other stepper's jvp is taken through its step
+        explicit = isinstance(self.solver, ExplicitRK)
         seeds = torch.eye(n + npf, dtype=dtype, device=u0vec.device)
         parts = []
         for block in torch.split(seeds, self.sensealg.chunk_size or n + npf):
@@ -701,26 +722,37 @@ class _ContinuousRule:
             sigma = None  # per-row tangent of the current time, or None
             for i, (t, dt) in enumerate(self.step_log.steps):
                 t_b = kind(t + dt)
-                z1, f1, _ = self.solver.step(aug, t, dt, z, fz,
-                                             need_err=False)
+                if explicit:
+                    z1, f1, _ = self.solver.step(aug, t, dt, z, fz,
+                                                 need_err=False)
+                else:
+                    z1, f1 = _tangent_step(self.solver, kern, p, t, dt, z,
+                                           fz, seeds_p, n, k)
                 z1, f1 = z1.to(dtype), f1.to(dtype)
                 delta = None
-                if sigma is not None and dt == kind(
-                        next_stop(t, self.t1, stops, tdir)[0] - t):
-                    # a clipped step's length stop - t moves by -σ
-                    delta = -sigma
+                if sigma is not None:
+                    if dt == kind(next_stop(t, self.t1, stops, tdir)[0] - t):
+                        # a clipped step's length stop - t moves by -σ
+                        delta = -sigma
+                    # the step's start moves by σ (its stage times with it)
                     z1, f1 = _shift_step(self.solver, fvec, t, dt, z, fz, z1,
-                                         f1, delta, n, k)
+                                         f1, sigma, delta, n, k)
                 se = ev_at.get(i)
                 if se is not None:
                     z_pre, z1, sigma = self._replay_events(
                         kern, p, event_set, se, t, dt, z, fz, z1, f1, sigma,
                         delta, seeds_p, n, k)
                     if use_dense:  # the pre-affect row at the event time
-                        f_pre = (f1 if se.theta is None
-                                 else aug(z_pre, se.t_e).to(dtype))
+                        f_pre = f1
+                        if se.theta is not None:
+                            f_pre = _slope_time_tangent(
+                                fvec, z_pre, aug(z_pre, se.t_e).to(dtype),
+                                se.t_e, sigma, n, k)
                         nodes.append((z_pre, f_pre, sigma))
                     f1 = aug(z1, se.t_e).to(dtype)
+                    if sigma is not None:
+                        f1 = _slope_time_tangent(fvec, z1, f1, se.t_e, sigma,
+                                                 n, k)
                     t_b = se.t_e
                 elif delta is not None:
                     sigma = None  # landed on the stop: σ + δ = 0
@@ -804,6 +836,9 @@ class _ContinuousRule:
         else:
             u, U = z_b[:n], z_b[n:].reshape(k, n)
             T = sig + dlt
+        # a discrete event at a step end without time tangents keeps none
+        T_out = (None if se.theta is None and sigma is None
+                 and delta is None else T)
         z_pre = torch.cat([u, U.reshape(-1)])
         tt = as_t(se.t_e)
         for j in se.fired:
@@ -820,22 +855,72 @@ class _ContinuousRule:
                 rows_out.append(d_u)
             u = event_set.affect_p(u, p, se.t_e, j)
             U = torch.stack(rows_out)
-        return z_pre, torch.cat([u, U.reshape(-1)]), T
+        return z_pre, torch.cat([u, U.reshape(-1)]), T_out
 
 
-def _shift_step(stepper, fvec, t, dt, z, fz, z1, f1, delta, n, k):
-    """z1, f1 of a replayed step whose length moves by delta (per tangent
-    row): the step's derivative in dt, one jvp of the stepper's u-part
-    through its `ddt` (forward mode through the field), times delta, added
-    to each row's state and slope tangents."""
+def _shift_step(stepper, fvec, t, dt, z, fz, z1, f1, sigma, delta, n, k):
+    """z1, f1 of a replayed step whose start moves by sigma and whose length
+    moves by delta (per tangent row, None: zero): the step's derivatives in
+    its start (`t_off`) and its length (`ddt`), one jvp of the stepper's
+    u-part each (forward mode through the field, whose stage times carry
+    them), times sigma and delta, added to each row's state and slope
+    tangents. The first stage's slope is the caller's: its own time
+    tangent is already in fz's rows."""
     u, f = z[:n], fz[:n]
-    zero = torch.zeros((), dtype=delta.dtype, device=z.device)
-    _, (du, df) = torch.func.jvp(
-        lambda d: stepper.step(fvec, t, dt, u, f, need_err=False,
-                               ddt=d)[:2], (zero,), (torch.ones_like(zero),))
-    dz = torch.cat([torch.zeros_like(u), (delta[:, None] * du).reshape(-1)])
-    dfz = torch.cat([torch.zeros_like(f), (delta[:, None] * df).reshape(-1)])
-    return z1 + dz.to(z1.dtype), f1 + dfz.to(f1.dtype)
+    ref = sigma if sigma is not None else delta
+    zero = torch.zeros((), dtype=ref.dtype, device=z.device)
+    dz = torch.zeros(k * n, dtype=z1.dtype, device=z.device)
+    dfz = torch.zeros(k * n, dtype=f1.dtype, device=z.device)
+    for name, tan in (("t_off", sigma), ("ddt", delta)):
+        if tan is None:
+            continue
+        _, (du, df) = torch.func.jvp(
+            lambda d: stepper.step(fvec, t, dt, u, f, need_err=False,
+                                   **{name: d})[:2],
+            (zero,), (torch.ones_like(zero),))
+        dz = dz + (tan[:, None] * du).reshape(-1).to(z1.dtype)
+        dfz = dfz + (tan[:, None] * df).reshape(-1).to(f1.dtype)
+    pad = torch.zeros(n, dtype=z1.dtype, device=z.device)
+    return (z1 + torch.cat([pad, dz]),
+            f1 + torch.cat([pad.to(f1.dtype), dfz]))
+
+
+def _tangent_step(stepper, kern, p, t, dt, z, fz, seeds_p, n, k):
+    """z1, f1 of one replayed step of a stepper that is not explicit RK
+    (an implicit, Rosenbrock or extrapolation stepper) over z = [u; S]:
+    the step on u, and each tangent row's jvp through the step (its
+    Jacobian, LU and Newton iterations included, as JAX's jvp through its
+    loop), with the row's state, slope and parameter directions."""
+    _, unravel_p = ravel_pytree(p)
+    u, f = z[:n], fz[:n]
+    S, F = z[n:].reshape(k, n), fz[n:].reshape(k, n)
+
+    def run(uu, ff, pp):
+        u1, f1, _ = stepper.step(lambda uv, tt: kern.fvec(uv, pp, tt), t, dt,
+                                 uu, ff, need_err=False)
+        return u1, f1
+
+    def row(s, fr, e):
+        if p is None:
+            return torch.func.jvp(lambda a, b: run(a, b, None), (u, f),
+                                  (s, fr))[1]
+        return torch.func.jvp(run, (u, f, p), (s, fr, unravel_p(e)))[1]
+
+    u1, f1 = run(u, f, p)
+    dU, dF = torch.func.vmap(row)(S, F, seeds_p) if k else (S, F)
+    return (torch.cat([u1, dU.reshape(-1).to(u1.dtype)]),
+            torch.cat([f1, dF.reshape(-1).to(f1.dtype)]))
+
+
+def _slope_time_tangent(fvec, z, fz, t, sigma, n, k):
+    """fz = [f; F] of the tangent field at host time t, with each row's
+    ∂f/∂t·σᵣ added to F: a slope taken at a time that has a tangent (an
+    event time), by one jvp of the field in t."""
+    tt = torch.tensor(t, dtype=sigma.dtype, device=z.device)
+    _, dfdt = torch.func.jvp(lambda s: fvec(z[:n], s), (tt,),
+                             (torch.ones_like(tt),))
+    add = (sigma[:, None] * dfdt).reshape(-1).to(fz.dtype)
+    return fz + torch.cat([fz.new_zeros(n), add])
 
 
 def _err_weights(u0vec, n, npf, n_u=0):
@@ -933,17 +1018,40 @@ def _make_event_apply(kern, p, event_set, events, n, npf, q_slice=None,
 
 def _joined_rhs(kern, p, n: int, y_of):
     """The reverse field over z = [λ; q]: −[ūᵀ, p̄ᵀ] from one `f_and_vjp`
-    at u = y_of(t)."""
+    at u = y_of(t). Its `.jac` is the adjoint Jacobian [[−Jᵀ, 0],
+    [−J_pᵀ, 0]] (q never feeds back; JAX continuous.py:1110-1123), which
+    an implicit reverse stepper takes instead of forward mode through the
+    pullback."""
     def rhs(z, t):
         _, ubar, pbar = kern.f_and_vjp(y_of(t), p, t, z[:n])
         return torch.cat([-ubar, -_flat(pbar, ubar)])
 
+    def jac(z, t):
+        y = y_of(t)
+        ju = kern.jac_u(y, p, t)
+        if p is None:
+            jp = ju.new_zeros(n, 0)
+        else:
+            pflat, unravel_p = ravel_pytree(p)
+            jp = torch.func.jacrev(
+                lambda pf: kern.fvec(y, unravel_p(pf), t))(pflat)
+        npf = jp.shape[1]
+        left = torch.cat([-ju.T, -jp.T.to(ju.dtype)], dim=0)
+        return torch.cat([left, left.new_zeros(n + npf, npf)], dim=1)
+
+    rhs.jac = jac
     return rhs
 
 
 def _lam_rhs(kern, p, y_of):
-    """The reverse field over λ alone: −ūᵀ at u = y_of(t)."""
-    return lambda lam, t: -kern.vjp_u(y_of(t), p, t, lam)
+    """The reverse field over λ alone: −ūᵀ at u = y_of(t), with the
+    adjoint Jacobian −(∂f/∂u)ᵀ as its `.jac` (JAX :1486, :1587; a user's
+    prob.jac through `kern.jac_u`)."""
+    def rhs(lam, t):
+        return -kern.vjp_u(y_of(t), p, t, lam)
+
+    rhs.jac = lambda lam, t: -kern.jac_u(y_of(t), p, t).T
+    return rhs
 
 
 def _interval_y(dense, i: int):

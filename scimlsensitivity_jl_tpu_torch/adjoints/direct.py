@@ -100,10 +100,10 @@ class _RematStepper:
         self.order = stepper.order
         self.n_stages = getattr(stepper, "n_stages", 1)
 
-    def step(self, fvec, t, dt, u, f0, need_err: bool = True, ddt=None):
-        kw = {} if ddt is None else {"ddt": ddt}
+    def step(self, fvec, t, dt, u, f0, need_err: bool = True, **offsets):
         return checkpoint(self.stepper.step, fvec, t, dt, u, f0, need_err,
-                          use_reentrant=False, preserve_rng_state=False, **kw)
+                          use_reentrant=False, preserve_rng_state=False,
+                          **offsets)
 
 
 def make_direct_solve_fn(f, solver, sensealg, opts: SolveOptions, t0, t1,

@@ -30,7 +30,7 @@ they are a loop, so the user's callbacks need not be batchable. Time is a
 host value: the callbacks get t as a numpy scalar of the time dtype.
 Everything runs under `torch.no_grad()`; the results carry no graph.
 
-Not here: SDE and RODE solutions (ROADMAP M12) and mass matrices (M9)
+Not here: SDE and RODE solutions (ROADMAP M12) and mass matrices (M9b)
 raise NotImplementedError, as do parameter-modifying events (as in JAX).
 """
 
@@ -64,7 +64,7 @@ def host_times(t, kind) -> np.ndarray:
 
 
 def refuse_other_problems(sol, who: str):
-    """SDE/RODE solutions (ROADMAP M12) and mass matrices (M9) are not
+    """SDE/RODE solutions (ROADMAP M12) and mass matrices (M9b) are not
     ported."""
     prob = sol.prob
     if not isinstance(prob, ODEProblem):
@@ -75,7 +75,7 @@ def refuse_other_problems(sol, who: str):
             sol.solver, "mass_matrix", None) is not None:
         raise NotImplementedError(
             f"{who} with a mass matrix: mass matrices and DAEs are ROADMAP "
-            "M9")
+            "M9b")
 
 
 def event_set_of(sol, callback, p, unravel_u, kind, max_events, who):

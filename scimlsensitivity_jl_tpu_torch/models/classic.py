@@ -4,7 +4,8 @@ Counterpart of `scimlsensitivity_jl_tpu/models/classic.py`: the
 Lotka–Volterra, Robertson and Lorenz fields and their `*_problem` builders,
 with the JAX package's initial states, parameters and spans. The problems
 are made on the card unless the caller passes `device="cpu"`. Robertson is
-stiff: its problem is ported, its solvers wait (ROADMAP M9).
+stiff: solve it with `FBDF`, `Rosenbrock23`, the SDIRK family or `Seulex`
+(`solvers/`).
 """
 
 from __future__ import annotations

@@ -81,21 +81,28 @@ def _locate(dense: DenseOutput, t) -> int:
 
 
 def dense_eval(dense: DenseOutput, t):
-    """Evaluate the interpolant at scalar time t -> flat state vector."""
+    """Evaluate the interpolant at scalar time t -> flat state vector. A
+    0-d tensor t (a time with a derivative, e.g. a stiff stepper's ∂f/∂t
+    through the reverse field) is located by its value and evaluated in
+    tensor arithmetic, so the derivative flows through u(t)."""
     kind = type(dense.ts[0])
-    t = kind(t)
+    t_arg = t if isinstance(t, torch.Tensor) else None
+    t = kind(float(t))
     if dense.n_steps == 0:
         return dense.ys[0]
     i = _locate(dense, t)
     rows = (dense.ys[i], dense.fs[i], dense.ys[i + 1], dense.fs[i + 1])
     off = dense.ts_off
-    if off is not None and (off[i] is not None or off[i + 1] is not None):
+    off_a = None if off is None else off[i]
+    off_b = None if off is None else off[i + 1]
+    if t_arg is not None or off_a is not None or off_b is not None:
         ta, tb = dense.ts[i], dense.ts[i + 1]
         if ta != tb:
             tdt = torch.float64 if type(ta) is np.float64 else torch.float32
             new = lambda v: torch.tensor(v, dtype=tdt, device=rows[0].device)
-            ta_t = new(ta) if off[i] is None else new(ta) + off[i]
-            tb_t = new(tb) if off[i + 1] is None else new(tb) + off[i + 1]
-            return hermite_at(new(t), ta_t, tb_t, rows[0], rows[1], rows[2],
+            ta_t = new(ta) if off_a is None else new(ta) + off_a
+            tb_t = new(tb) if off_b is None else new(tb) + off_b
+            tt = new(t) if t_arg is None else t_arg.to(tdt)
+            return hermite_at(tt, ta_t, tb_t, rows[0], rows[1], rows[2],
                               rows[3])
     return hermite_eval(t, dense.ts[i], dense.ts[i + 1], *rows)

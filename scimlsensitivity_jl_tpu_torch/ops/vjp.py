@@ -29,6 +29,7 @@ from ..sensealg import AutoVJP, FiniteDiffVJP, JacVJP, VJPChoice
 from ..utils.pytree import ravel_pytree
 
 __all__ = ["VJPKernels", "make_vjp_kernels", "ForwardModeUnsupported",
+           "jacfwd",
            "refuse_forward_mode", "DoubleBackwardUnsupported",
            "refuse_double_backward", "ComplexStateUnsupported",
            "refuse_complex_state"]
@@ -78,6 +79,20 @@ def refuse_forward_mode(function: str):
         "ODEForwardSensitivityProblem need forward mode through the field; "
         "differentiate it with a reverse-mode sensealg (GaussAdjoint, "
         "QuadratureAdjoint, BacksolveAdjoint, DirectAdjoint) instead")
+
+
+def jacfwd(fn: Callable, u: torch.Tensor) -> torch.Tensor:
+    """`torch.func.jacfwd(fn)(u)`, where a kernel Function's own refusal
+    comes first: jacfwd vmaps the jvp over an n×n basis, so on a kernel
+    field torch's complaint about the Function's missing vmap rule, or at
+    a PDE's n the basis's allocation, would hide `ForwardModeUnsupported`.
+    On such an error one plain jvp probes the field, then the error
+    stands."""
+    try:
+        return torch.func.jacfwd(fn)(u)
+    except RuntimeError:
+        torch.func.jvp(fn, (u,), (torch.zeros_like(u),))
+        raise
 
 
 class VJPKernels(NamedTuple):
@@ -162,7 +177,7 @@ def make_vjp_kernels(f: Callable, u0, p_example,
                                    dtype=uvec.dtype, device=uvec.device)
     else:
         def jac_u(uvec, p, t):
-            return torch.func.jacfwd(lambda u_: fvec(u_, p, t))(uvec)
+            return jacfwd(lambda u_: fvec(u_, p, t), uvec)
 
     def vjp_u(uvec, p, t, lamvec):
         if user_vjp is not None:

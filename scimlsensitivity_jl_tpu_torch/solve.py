@@ -10,8 +10,10 @@ and adaptive DirectAdjoint (solve.py:611-619), with the callback dispatch
 (solve.py:327-545: lowering, terminal callbacks, p-modifying events lifted
 into the state). Gradients follow `sensealg` through torch.autograd,
 including those of a saveat tensor that requires grad.
-Other problem types, mass matrices and the sensealgs whose rules are not
-ported raise NotImplementedError naming the ROADMAP item.
+NonlinearProblem and SteadyStateProblem go to
+`adjoints/steadystate.solve_nonlinear` (solve.py:177-190, SteadyStateAdjoint
+only). Other problem types, mass matrices and the sensealgs whose rules
+are not ported raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,11 +28,12 @@ from .adjoints.continuous import SolveOptions, make_ode_solve_fn
 from .callbacks import (any_modifies_p, as_callback_set,
                         check_callback_closures, lift_p_into_state,
                         lower_time_callbacks)
-from .problems import ODEProblem
+from .problems import NonlinearProblem, ODEProblem, SteadyStateProblem
 from .sensealg import (AbstractSensealg, BacksolveAdjoint, DirectAdjoint,
                        ForwardDiffSensitivity, ForwardSensitivity, GaussAdjoint,
                        GaussKronrodAdjoint, InterpolatingAdjoint,
-                       QuadratureAdjoint, default_sensealg)
+                       QuadratureAdjoint, SteadyStateAdjoint,
+                       default_sensealg)
 from .solution import ODESolution
 from .solvers.explicit import Tsit5
 from .solvers.integrate import time_dtype
@@ -84,13 +87,33 @@ def solve(
     save_idxs: state components to keep in ys (indices into the second
     axis of every leaf, JAX solve.py:654-662); gradients flow through the
     gather. The dense output and u_final keep the whole state.
+    unroll: with adaptive=True, DirectAdjoint or a continuous rule runs
+    JAX's masked-scan budget: max_steps attempts (rejected ones included)
+    in the forward and adj_max_steps + |saveat| + 4 in the reverse, then
+    MaxIters, with no DtMin check. Eager torch has no loop to unroll, so
+    the steps are the while driver's and, inside the budget, so is every
+    value and gradient, bit for bit; it is not a CUDA graph. On the fixed
+    grid it takes JAX's unrolled stage times.
     """
+    if isinstance(prob, (NonlinearProblem, SteadyStateProblem)):
+        from .adjoints.steadystate import solve_nonlinear
+
+        kw = {}
+        if sensealg is not None:
+            if not isinstance(sensealg, SteadyStateAdjoint):
+                raise NotImplementedError(
+                    "nonlinear problems support SteadyStateAdjoint, got "
+                    f"{sensealg!r}")
+            kw["sensealg"] = sensealg
+        return solve_nonlinear(prob, **kw)
     if not isinstance(prob, ODEProblem):
         raise NotImplementedError(
-            f"solve for {type(prob).__name__}: the port solves ODEProblem "
-            "only so far (ROADMAP M9-M13)")
+            f"solve for {type(prob).__name__}: the port solves ODE, "
+            "nonlinear and steady-state problems so far (ROADMAP M12-M13)")
     if prob.mass_matrix is not None:
-        raise NotImplementedError("mass matrices and DAEs: ROADMAP M9")
+        raise NotImplementedError(
+            "mass matrices and DAEs: ROADMAP M9b (the solvers' "
+            "with_mass_matrix runs through solvers.integrate.integrate)")
     if rtol is None:
         rtol = 1e-7
     if atol is None:
@@ -103,6 +126,36 @@ def solve(
         verbose=verbose, dtmax=dtmax, callback=callback,
         max_events=max_events, save_idxs=save_idxs,
     )
+
+
+def _check_unrolled_continuous(solver, bwd_solver, sensealg, max_steps,
+                               adj_max_steps):
+    """JAX's four refusals of unroll=True under a continuous rule
+    (solve.py:436-485), with its messages."""
+    from .solvers.explicit import ExplicitRK
+
+    if getattr(solver, "mass_matrix", None) is not None:
+        raise NotImplementedError(
+            "unroll=True + continuous adjoints needs a plain ODE "
+            "(no mass matrix); use the while driver (unroll=False)")
+    if not isinstance(solver, ExplicitRK) or (
+            bwd_solver is not None and not isinstance(bwd_solver, ExplicitRK)):
+        raise NotImplementedError(
+            "unroll=True + continuous adjoints needs explicit-RK "
+            "forward/reverse steppers (masked-scan driver); "
+            "stiff/multistep solvers run the while driver")
+    # Backsolve's checkpointing is the snap at save times, no nested solve
+    if getattr(sensealg, "checkpointing", False) and not isinstance(
+            sensealg, BacksolveAdjoint):
+        raise NotImplementedError(
+            "unroll=True does not compose with checkpointing=True "
+            "(the checkpointed reverse nests interval re-solves); "
+            "use unroll=False")
+    if max_steps > 512 or (adj_max_steps or 0) > 512:
+        raise ValueError(
+            "unroll=True emits max_steps (and adj_max_steps + "
+            "|saveat| + 4 reverse) straight-line iterations; bound "
+            "both <= 512 (compile time grows with them)")
 
 
 def _take_rows(tree, rows: torch.Tensor, axis: int = 0):
@@ -216,9 +269,16 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
             f"({t0}, {t1}); give dt the sign of t1 - t0")
 
     if adaptive and unroll and not isinstance(sensealg, DirectAdjoint):
-        raise NotImplementedError(
-            "unroll=True with adaptive=True (the unrolled masked-scan "
-            "integrators): ROADMAP M3/M4")
+        if not isinstance(sensealg, _CONTINUOUS_RULES):
+            raise NotImplementedError(
+                "unroll=True with adaptive=True is supported by "
+                "DirectAdjoint (masked-scan driver) and the continuous "
+                "adjoints (unrolled forward+reverse); this sensealg runs "
+                "the while_loop driver. Use sensealg=DirectAdjoint() or "
+                "adaptive=False.")
+        _check_unrolled_continuous(solver, bwd_solver, sensealg, max_steps,
+                                   adj_max_steps)
+        opts = dataclasses.replace(opts, unroll=True)
 
     if fixed_grid_continuous:
         if dt is None:

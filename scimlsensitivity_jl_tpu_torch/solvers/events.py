@@ -25,9 +25,8 @@ the Newton steps. The port's times are host scalars, so `t_off` and
 zero-valued tensors, and the event time's comes back as `t_e_off`
 (value 0): the derivative reaches the pre-event state through the
 interpolant, the affect through u⁻, and later steps through the integrator's
-clipped step lengths. The field's own time argument gets host times: a
-field that depends on t explicitly does not see the event time's
-derivative (ROADMAP §3).
+clipped step lengths. The field and the affects get the event time as a
+0-d tensor with that derivative, as JAX's traced time carries it.
 """
 
 from __future__ import annotations
@@ -185,18 +184,24 @@ def process_step_events(event_set, fvec, t_a, dt_eff, u_a, f_a, u_b, f_b,
             if te_t.requires_grad:
                 t_e_off = te_t - te_t.detach()
             u_pre0 = herm(te_t).to(sd)
-            f_pre0 = fvec(u_pre0, t_e).to(sd)
+            # the field and the affects see the event time's derivative
+            te_arg = t_e if t_e_off is None else t_e_off + float(t_e)
+            f_pre0 = fvec(u_pre0, te_arg).to(sd)
             state = u_pre0
             for j in range(k_cont):
                 if crossed[j] and thetas[j] <= kind(theta_host + sqrt_eps):
                     u_pres.append(state)
                     fires.append(j)
-                    state = event_set.affect(state, t_e, j)
+                    state = event_set.affect(state, te_arg, j)
             state = state.to(sd)
-            u_post, f_post = state, fvec(state, t_e).to(sd)
+            u_post, f_post = state, fvec(state, te_arg).to(sd)
 
     if not fires and k_disc:
         t_e = t_b
+        tb_arg = t_b
+        if t_off is not None or dt_off is not None:
+            tb_off = [o for o in (t_off, dt_off) if o is not None]
+            tb_arg = sum(tb_off[1:], tb_off[0]) + float(t_b)
         dc = event_set.disc_cond(u_b, t_b)
         if any(isinstance(v, torch.Tensor) for v in dc):
             dc = torch.stack([torch.as_tensor(v, device=dev)
@@ -207,11 +212,11 @@ def process_step_events(event_set, fvec, t_a, dt_eff, u_a, f_a, u_b, f_b,
                 j = k_cont + jd
                 u_pres.append(state)
                 fires.append(j)
-                state = event_set.affect(state, t_b, j)
+                state = event_set.affect(state, tb_arg, j)
         if fires:
             u_pre0, f_pre0 = u_b, f_b
             state = state.to(sd)
-            u_post, f_post = state, fvec(state, t_b).to(sd)
+            u_post, f_post = state, fvec(state, tb_arg).to(sd)
 
     if not fires:
         return None

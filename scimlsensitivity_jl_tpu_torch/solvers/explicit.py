@@ -18,13 +18,26 @@ import torch
 from .integrate import kind_torch_dtype
 from .tableaus import BOSH3, DOPRI5, EULER, HEUN, MIDPOINT, TSIT5, ButcherTableau
 
-__all__ = ["ExplicitRK", "Tsit5", "Dopri5", "BS3", "Heun", "Midpoint", "Euler"]
+__all__ = ["ExplicitRK", "stage_time", "Tsit5", "Dopri5", "BS3", "Heun", "Midpoint", "Euler"]
 
 
 def _scale(dt, coef):
     """dt * coef in dt's own floating type (a numpy scalar)."""
     kind = type(dt)
     return kind(dt * kind(coef))
+
+
+def stage_time(t, host, c, ddt=None, t_off=None):
+    """The time a stage at t + c·dt hands the field: the host value, or,
+    where the step carries derivative offsets (`ddt` of its length, `t_off`
+    of its start, zero-valued tensors), the 0-d tensor
+    t_off + c·ddt + host, which has the host value and the derivatives."""
+    if ddt is None and t_off is None:
+        return host
+    off = None if ddt is None else ddt * float(c)
+    if t_off is not None:
+        off = t_off if off is None else t_off + off
+    return off + float(host)
 
 
 class ExplicitRK:
@@ -43,7 +56,11 @@ class ExplicitRK:
     ddt: a zero-valued tensor that carries the derivative of dt (DirectAdjoint
     through a save or event time); each coefficient dt·a becomes
     dt·a + ddt·a, the same value, so u1 and f1 are unchanged and autograd
-    sees dt as JAX's traced step length. The stage times stay host values.
+    sees dt as JAX's traced step length. t_off: the zero-valued derivative
+    of t. Where either is given, the field gets each stage time as a 0-d
+    tensor t_off + cᵢ·ddt + (t + cᵢ·dt), so a field that reads t sees the
+    derivatives as JAX's traced times carry them; without them the stage
+    times are host values.
     """
 
     def __init__(self, tableau: ButcherTableau, name: str):
@@ -56,13 +73,17 @@ class ExplicitRK:
     def __repr__(self):
         return f"{self.name}()"
 
-    def step(self, fvec, t, dt, u, f0, need_err: bool = True, ddt=None):
+    def step(self, fvec, t, dt, u, f0, need_err: bool = True, ddt=None,
+             t_off=None):
         tab = self.tableau
         kind = type(t)
 
         def coef(c):
             value = float(_scale(dt, c))
             return value if ddt is None else ddt * float(c) + value
+
+        def at(c):
+            return stage_time(t, kind(t + _scale(dt, c)), c, ddt, t_off)
 
         wide = torch.promote_types(u.dtype, kind_torch_dtype(kind))
         if wide != u.dtype:
@@ -76,8 +97,7 @@ class ExplicitRK:
                 contrib = k * coef(aij)
                 du = contrib if du is None else du + contrib
             ui = u if du is None else u + du
-            ti = kind(t + _scale(dt, tab.c[i + 1]))
-            ks.append(fvec(ui, ti))
+            ks.append(fvec(ui, at(tab.c[i + 1])))
 
         u1 = u
         for bi, k in zip(tab.b, ks):
@@ -85,7 +105,7 @@ class ExplicitRK:
                 continue
             u1 = u1 + k * coef(bi)
 
-        f1 = ks[-1] if tab.fsal else fvec(u1, kind(t + dt))
+        f1 = ks[-1] if tab.fsal else fvec(u1, at(1.0))
 
         err = None
         if tab.b_err and need_err:

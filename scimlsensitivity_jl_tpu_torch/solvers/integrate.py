@@ -7,9 +7,10 @@ exactly, a per-accepted-step hook, a stop transform and events
 (`event_set`, `solvers/events.py`: each accepted step is truncated to its
 earliest event, and the post-event state continues from a zero-width
 dense row). `fixed_trip=True` gives it the budget of the masked
-`integrate_scan` (:498), the loop that DirectAdjoint differentiates; the
-scan itself is not needed, since autograd records the eager loop. The
-unrolled integrators are not ported (ROADMAP M3/M4).
+`integrate_scan` (:498), the loop that DirectAdjoint and the unrolled
+continuous rules run; the scan itself is not needed, since autograd
+records the eager loop. Multistep (stateful) steppers thread their
+history through the loop.
 
 The JAX `lax.while_loop` becomes an eager Python loop. Time, step size and
 controller state stay on the host as numpy scalars of the time dtype, so
@@ -281,7 +282,15 @@ def integrate(
         computed, steps still clip to tstops exactly. Instability shows as
         NaN states, which the adjoint rules turn into NaN gradients.
     fvec: (uvec, t) -> duvec over flat state vectors; t is a host scalar.
-    stepper: `.order` and `.step(fvec, t, dt, u, f0, need_err)`.
+    stepper: `.order` and `.step(fvec, t, dt, u, f0, need_err)`. A stepper
+        with `stateful = True` (FBDF) has `init_state(fvec, t0, u0, f0,
+        rtol, atol)` and `step(fvec, t, dt, u, f0, state) -> (u1, f1, err,
+        state')`; the state advances on accepted steps only, restarts
+        (`reset_state(state, t, u)`) after an event or a jump,
+        `controller_order(state)` sets the PI exponents, and its
+        `factor_max` bounds the growth (JAX integrate.py:161-163,
+        :221-223, :255, :282-284, :431-441). The fixed_trip driver
+        refuses it, as JAX's scan driver does (:550).
     hook: `(step_record, carry) -> carry` on accepted steps, with
         step_record = (t_old, t_new, y0, f0, y1, f1).
     stop_transform: `(t, u, carry) -> (u', carry', fired)` when an accepted
@@ -305,6 +314,12 @@ def integrate(
         time keeps a zero-valued offset until the next clipped step, as
         JAX's traced times do. Events add the event time's offset.
     """
+    stateful = getattr(stepper, "stateful", False)
+    if stateful and fixed_trip:
+        raise NotImplementedError(
+            f"{stepper!r} is a multistep (stateful) stepper; it needs the "
+            "adaptive while_loop driver (integrate). Use a one-step stiff "
+            "solver (Rosenbrock23/TRBDF2/SDIRK4/Seulex) here.")
     dtype = u0.dtype
     kind = time_dtype(dtype)
     t0, t1 = kind(t0), kind(t1)
@@ -329,6 +344,11 @@ def integrate(
     beta2 = kind(_PI[1] / (order + 1.0))
     safety, factor_min, factor_max = (kind(_SAFETY), kind(_FACTOR_MIN),
                                       kind(_FACTOR_MAX))
+    # a multistep stepper's own growth bound, and its state
+    factor_max = min(factor_max, kind(getattr(stepper, "factor_max",
+                                              factor_max)))
+    sstate = (stepper.init_state(fvec, t0, u0, f0, rtol, atol) if stateful
+              else None)
 
     t, u, f = t0, u0, f0
     err_prev = kind(1.0)
@@ -357,11 +377,17 @@ def integrate(
         remaining = kind(stop - t)
         clipped = abs(dt) >= abs(remaining)
         dt_eff = remaining if clipped else dt
+        t_off = None if clock is None else clock.t
         ddt = None if clock is None else clock.begin(clipped, stop_i)
 
-        step_kw = {} if ddt is None else {"ddt": ddt}
-        u1, f1, err = stepper.step(fvec, t, dt_eff, u, f,
-                                   need_err=fixed_dt is None, **step_kw)
+        step_kw = {key: v for key, v in (("ddt", ddt), ("t_off", t_off))
+                   if v is not None}
+        if stateful:
+            u1, f1, err, sstate_new = stepper.step(fvec, t, dt_eff, u, f,
+                                                   sstate, **step_kw)
+        else:
+            u1, f1, err = stepper.step(fvec, t, dt_eff, u, f,
+                                       need_err=fixed_dt is None, **step_kw)
         u1, f1 = u1.to(dtype), f1.to(dtype)
 
         if fixed_dt is None:
@@ -373,8 +399,15 @@ def integrate(
             accept = bool(err_norm <= kind(1.0)) and not bad
             # PI controller on |dt| (Soderlind), from this and the last error
             err_cl = max(err_norm, kind(1e-10))
-            factor = kind(kind(safety * kind(err_cl ** -beta1))
-                          * kind(err_prev ** beta2))
+            b1, b2 = beta1, beta2
+            if stateful and hasattr(stepper, "controller_order"):
+                # a variable-order method: the exponents follow its order
+                ordd = kind(kind(stepper.controller_order(sstate_new))
+                            + kind(1.0))
+                b1 = kind(kind(_PI[0]) / ordd)
+                b2 = kind(kind(_PI[1]) / ordd)
+            factor = kind(kind(safety * kind(err_cl ** -b1))
+                          * kind(err_prev ** b2))
             if bad:
                 factor = factor_min
             factor = min(max(factor, factor_min), factor_max)
@@ -413,6 +446,7 @@ def integrate(
             n_steps += 1
             if clock is not None:
                 clock.t = clock.end
+            fired = False
             if stop_transform is not None and clipped and se is None:
                 # evaluate f one stop-matching tolerance into the direction
                 # of integration, on the far side of the jump
@@ -421,9 +455,16 @@ def integrate(
                 u_new, hook_carry, fired = stop_transform(t_new, u_new,
                                                           hook_carry)
                 if fired:
+                    if clock is not None and clock.t is not None:
+                        t_eval = clock.t + float(t_eval)
                     f_new = fvec(u_new, t_eval).to(dtype)
                     n_acc += 1
                     add_row(t_new, u_new, f_new)
+            if stateful:
+                sstate = sstate_new
+                # a jump (an event, a stop transform) restarts the history
+                if se is not None or fired:
+                    sstate = stepper.reset_state(sstate, t_new, u_new)
         else:
             t_new, u_new, f_new = t, u, f
             n_rej += 1

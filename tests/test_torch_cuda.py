@@ -636,3 +636,137 @@ def test_direct_api_on_card_matches_cpu(cuda, arm):
     for got, ref in zip(*grads):
         rel = torch.linalg.vector_norm(got - ref) / torch.linalg.vector_norm(ref)
         assert float(rel) <= 1e-9
+
+
+# -- the unrolled continuous rules and the stiff solvers ---------------------
+
+def _dose_grad(device, sensealg, unroll):
+    """(u0-grad, p-grad, solution) of the dosed PDE at n = 16384 (see
+    test_dosed_pde_gradient_on_card_matches_cpu) with max_steps 256."""
+    n, t1 = 16384, 16e-9
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    cb = P.PresetTimeCallback([6e-9], lambda u, p, t: 0.9 * u + 0.05 * u * u)
+    x = torch.arange(n, dtype=torch.float64, device=device) / n
+    u0 = torch.exp(-((x - 0.5) ** 2) * 100.0).requires_grad_()
+    p = torch.tensor([1e-7, 1.5], dtype=torch.float64,
+                     device=device).requires_grad_()
+    sol = P.solve(P.ODEProblem(field, u0, (0.0, t1), p), P.Tsit5(),
+                  saveat=[0.0, t1], dt0=1e-9, rtol=1e-8, atol=1e-10,
+                  callback=cb, sensealg=sensealg, unroll=unroll,
+                  max_steps=256)
+    gu, gp = torch.autograd.grad(torch.sum(sol.ys[-1] ** 2), (u0, p))
+    return gu, gp, sol
+
+
+def _spiral_grad(device, sensealg, unroll):
+    """d/dp of Σ(ys − data)² of the spiral through K3/K4, adaptive at
+    bench.py:1121-1150's setting (rtol 1e-3, atol 1e-6, max_steps 64)."""
+    gen = torch.Generator().manual_seed(0)
+    params = {k: v.requires_grad_() for k, v in P.mlp_init(
+        gen, (2, 50, 2), torch.float64, device=device).items()}
+    ts = torch.linspace(0.0, 1.5, 30, dtype=torch.float64).tolist()
+    data = 0.1 * torch.arange(60, dtype=torch.float64,
+                              device=device).reshape(30, 2)
+    prob = P.ODEProblem(lambda u, p, t: mlp.fused_mlp2(p, u ** 3),
+                        torch.tensor([2.0, 0.0], dtype=torch.float64,
+                                     device=device), (0.0, 1.5), params)
+    sol = P.solve(prob, P.Tsit5(), saveat=ts, rtol=1e-3, atol=1e-6,
+                  max_steps=64, sensealg=sensealg, unroll=unroll)
+    return torch.autograd.grad(torch.sum((sol.ys - data) ** 2),
+                               list(params.values())), sol
+
+
+@pytest.mark.parametrize("field,rule", [
+    ("rd1d", "BacksolveAdjoint"), ("rd1d", "InterpolatingAdjoint"),
+    ("mlp2", "GaussAdjoint"), ("mlp2", "BacksolveAdjoint")])
+def test_unrolled_equals_while_driver_on_card(cuda, field, rule):
+    """unroll=True runs the while driver's eager loop with the masked
+    scan's budget: on each kernel field the unrolled gradient equals the
+    while driver's bit for bit (Interpolating's against its unpinned
+    reverse, which unroll runs), and it launches the field's kernels."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    while_alg = (P.InterpolatingAdjoint(pinned_reverse=False)
+                 if rule == "InterpolatingAdjoint" else getattr(P, rule)())
+    run = _dose_grad if field == "rd1d" else _spiral_grad
+    counters = ((rd1d.rd1d_fwd_cuda, rd1d.rd1d_vjp_cuda) if field == "rd1d"
+                else (mlp.mlp2_fwd_cuda, mlp.mlp2_vjp_cuda))
+    before = [c.launches for c in counters]
+    got_u = run(cuda, getattr(P, rule)(), True)
+    after = [c.launches for c in counters]
+    got_w = run(cuda, while_alg, False)
+    assert all(a > b for a, b in zip(after, before))
+    sol_u, sol_w = got_u[-1], got_w[-1]
+    assert sol_u.retcode == 0 and sol_w.retcode == 0
+    assert sol_u.stats.n_accepted == sol_w.stats.n_accepted
+    grads_u = got_u[:-1] if field == "rd1d" else got_u[0]
+    grads_w = got_w[:-1] if field == "rd1d" else got_w[0]
+    for gu, gw in zip(grads_u, grads_w):
+        assert torch.equal(gu, gw)
+
+
+@pytest.mark.parametrize("solver", ["Rosenbrock23", "FBDF"])
+def test_stiff_robertson_on_card_matches_cpu(cuda, solver):
+    """Robertson on (0, 10) at rtol 1e-6 with the gradient of Σ y1² in p
+    under GaussAdjoint (torch.linalg's LU on the card): the same accepted
+    forward steps as the CPU run and the states to 1e-9 relative L2. The
+    gradient is held to the CPU's at 1e-9 relative L2 (k3's entry is ~1e-9
+    of k1's, so it is not held alone) where the reverse takes the CPU's
+    steps. cuSOLVER's LU rounds otherwise than LAPACK's, and on
+    Rosenbrock23's reverse that moved its steps (at adj_rtol 1e-5: 362
+    accepted against 368, gradients 8.8e-5 apart); there both are held to
+    one oracle instead, ForwardDiffSensitivity on the CPU (through
+    Rosenbrock23: FBDF's history is not replayed), at tests/test_stiff.py's
+    bound (rtol 2e-4, atol 1e-8). FBDF's reverse moved its steps too."""
+    def rob(u, p, t):
+        return torch.stack([-p[0] * u[0] + p[1] * u[1] * u[2],
+                            p[0] * u[0] - p[1] * u[1] * u[2]
+                            - p[2] * u[1] ** 2, p[2] * u[1] ** 2])
+
+    out = []
+    for device in (cuda, "cpu"):
+        p = torch.tensor([0.04, 1e4, 3e7], dtype=torch.float64,
+                         device=device).requires_grad_()
+        sol = P.solve(P.ODEProblem(rob, torch.tensor(
+            [1.0, 0.0, 0.0], dtype=torch.float64, device=device), (0.0, 10.0),
+            p), getattr(P, solver)(), saveat=[0.0, 1.0, 10.0], rtol=1e-6,
+            atol=1e-10, adj_rtol=1e-6, adj_atol=1e-10,
+            sensealg=P.GaussAdjoint())
+        (g,) = torch.autograd.grad(torch.sum(sol.ys[:, 0] ** 2), p)
+        out.append((sol, sol.ys.detach().cpu(), g.cpu()))
+    (s_card, y_card, g_card), (s_cpu, y_cpu, g_cpu) = out
+    assert s_card.retcode == 0 and s_cpu.retcode == 0
+    assert s_card.stats.n_accepted == s_cpu.stats.n_accepted, (
+        s_card.stats, s_cpu.stats)
+    norm = torch.linalg.vector_norm
+    assert float(norm(y_card - y_cpu) / norm(y_cpu)) <= 1e-9
+    if s_card.adjoint.stats == s_cpu.adjoint.stats:
+        assert float(norm(g_card - g_cpu) / norm(g_cpu)) <= 1e-9
+        return
+    p = torch.tensor([0.04, 1e4, 3e7], dtype=torch.float64,
+                     requires_grad=True)
+    sol = P.solve(P.ODEProblem(rob, torch.tensor([1.0, 0.0, 0.0],
+                                                 dtype=torch.float64),
+                               (0.0, 10.0), p), P.Rosenbrock23(),
+                  saveat=[0.0, 1.0, 10.0], rtol=1e-6, atol=1e-10,
+                  sensealg=P.ForwardDiffSensitivity())
+    (oracle,) = torch.autograd.grad(torch.sum(sol.ys[:, 0] ** 2), p)
+    for g in (g_card, g_cpu):
+        assert torch.allclose(g, oracle, rtol=2e-4, atol=1e-8), (g, oracle)
+
+
+@pytest.mark.parametrize("solver", ["Rosenbrock23", "TRBDF2", "Rodas4Like",
+                                    "FBDF"])
+def test_stiff_solver_on_kernel_field_raises(cuda, solver):
+    """A stiff step takes ∂f/∂u by forward mode, which the kernel Functions
+    refuse: ForwardModeUnsupported by name, on the card."""
+    from scimlsensitivity_jl_tpu_torch.ops.vjp import ForwardModeUnsupported
+
+    n = 4096
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    x = torch.arange(n, dtype=torch.float64, device=cuda) / n
+    u0 = torch.exp(-((x - 0.5) ** 2) * 100.0)
+    p = torch.tensor([1e-7, 1.5], dtype=torch.float64, device=cuda)
+    with pytest.raises(ForwardModeUnsupported, match="FusedRD1D"):
+        P.solve(P.ODEProblem(field, u0, (0.0, 16e-9), p),
+                getattr(P, solver)(), dt0=1e-9, sensealg=P.GaussAdjoint(),
+                max_steps=4)

@@ -296,3 +296,83 @@ def test_dense_gradient_refusals(case):
     with pytest.raises(NotImplementedError, match=match):
         sol = P.solve(prob, dense=True, **TOLS, **kw)
         (torch.sum(sol(0.5)) ** 2).backward()
+
+
+# -- F1: a field that reads t, through save times (ROADMAP §3) ---------------
+
+def _forced(mod, sin, as_t):
+    """u' = −a·u + sin(3t) (F1's save-time case); the autonomous control
+    with sin=None, u' = −a·u + 1."""
+    if sin is None:
+        return lambda u, p, t: -p[0] * u + 1.0
+    return lambda u, p, t: -p[0] * u + sin(3 * as_t(t, u))
+
+
+_FIELDS = {
+    "jax": {"forced": _forced(J, jnp.sin, lambda t, u: t),
+            "autonomous": _forced(J, None, None)},
+    "port": {"forced": _forced(P, torch.sin,
+                               lambda t, u: torch.as_tensor(t, dtype=u.dtype)),
+             "autonomous": _forced(P, None, None)},
+}
+
+
+@pytest.fixture(scope="module")
+def forced_saveat_ref():
+    """JAX DirectAdjoint's gradient of Σ sol.ys with respect to a, u0 and
+    the traced save times, per field."""
+    out = {}
+    for name, f in _FIELDS["jax"].items():
+        def loss(a, u0, sv, f=f):
+            sol = J.solve(J.ODEProblem(f, u0, (0.0, 1.0), a), saveat=sv,
+                          sensealg=J.DirectAdjoint(), max_steps=256, **TOLS)
+            return jnp.sum(sol.ys)
+
+        out[name] = [np.asarray(g) for g in jax_o0(
+            jax.grad(loss, argnums=(0, 1, 2)), jnp.array([0.7]),
+            jnp.array([1.3]), jnp.asarray(SV))]
+    return out
+
+
+@pytest.mark.parametrize("field", ["forced", "autonomous"])
+@pytest.mark.parametrize("rule", ["DirectAdjoint", "ForwardDiffSensitivity"])
+def test_time_dependent_field_saveat_gradient_matches_jax(forced_saveat_ref,
+                                                          rule, field):
+    """F1: the stage times of every step clipped to a save time carry the
+    save time's derivative, so a field that reads t gets dL/dtᵢ =
+    f(u(tᵢ), tᵢ) = [−0.2654, 0.1644, −0.3973] on u' = −a·u + sin(3t),
+    with JAX's DirectAdjoint (1e-8; before the repair the port's
+    DirectAdjoint gave [−0.9333, 0.6711, −0.3855]). The autonomous field
+    is the control."""
+    a = torch.tensor([0.7], dtype=DT, requires_grad=True)
+    u0 = torch.tensor([1.3], dtype=DT, requires_grad=True)
+    sv = torch.tensor(SV, dtype=DT, requires_grad=True)
+    sol = P.solve(P.ODEProblem(_FIELDS["port"][field], u0, (0.0, 1.0), a),
+                  saveat=sv, sensealg=_alg(P, rule), max_steps=256, **TOLS)
+    got = torch.autograd.grad(sol.ys.sum(), (a, u0, sv))
+    for g, r, name in zip(got, forced_saveat_ref[field], ("a", "u0", "t")):
+        np.testing.assert_allclose(g.numpy(), r, rtol=GRAD_RTOL,
+                                   atol=GRAD_RTOL * np.abs(r).max(),
+                                   err_msg=name)
+    if field == "forced":
+        np.testing.assert_allclose(got[2].numpy(),
+                                   [-0.2654, 0.1644, -0.3973], atol=1e-4)
+
+
+def test_fixed_grid_saveat_tensor_has_no_gradient():
+    """The fixed-grid discrete path gathers its rows at grid indices, as
+    JAX's does (its saveat gradient is 0): the port's saveat tensor takes
+    no part in the graph, and the rows match JAX's (1e-12)."""
+    f = _FIELDS["port"]["forced"]
+    sv = torch.tensor([0.25, 0.5, 1.0], dtype=DT, requires_grad=True)
+    a = torch.tensor([0.7], dtype=DT, requires_grad=True)
+    sol = P.solve(P.ODEProblem(f, torch.tensor([1.3], dtype=DT), (0.0, 1.0),
+                               a), saveat=sv, adaptive=False, dt=0.125)
+    g_a, g_sv = torch.autograd.grad(sol.ys.sum(), (a, sv), allow_unused=True)
+    assert g_sv is None
+    ref = J.solve(J.ODEProblem(_FIELDS["jax"]["forced"], jnp.array([1.3]),
+                               (0.0, 1.0), jnp.array([0.7])),
+                  saveat=jnp.array([0.25, 0.5, 1.0]), adaptive=False,
+                  dt=0.125)
+    np.testing.assert_allclose(sol.ys.detach().numpy(), np.asarray(ref.ys),
+                               rtol=1e-12)

@@ -135,3 +135,34 @@ def test_unroll_guard_raises_in_both():
         P.solve(prob_p, P.Tsit5(), unroll=True, max_steps=300, **KW)
     sol = P.solve(prob_p, P.Tsit5(), unroll=True, max_steps=64, **KW)
     assert isinstance(sol.sensealg, P.DirectAdjoint) and sol.retcode == 0
+
+
+def test_bf16_adaptive_direct_save_time_matching_divergence():
+    """F2, a deliberate divergence (ROADMAP §3): with a bfloat16 state the
+    port matches save times within 64 eps of its float32 time dtype
+    (`match_tol`), JAX within 64 eps of bfloat16 (0.5 at |t| ≤ 1). On
+    u' = −u from u0 = 1 with saves at [0.25, 0.5, 1.0], JAX takes the two
+    first save times as reached at t0 and its rows there hold u0; the
+    port's rows hold u(tᵢ) = e^{−tᵢ} to bfloat16 precision (2⁻⁷ relative).
+    JAX's row at t1 is the state of its first step end past t1 − 0.5, while
+    both packages' u_final is e^{−1} (2⁻⁶)."""
+    sv = [0.25, 0.5, 1.0]
+    kw = dict(saveat=sv, rtol=1e-2, atol=1e-3, max_steps=64)
+    port = P.solve(P.ODEProblem(lambda u, p, t: -p * u,
+                                torch.tensor([1.0], dtype=torch.bfloat16),
+                                (0.0, 1.0),
+                                torch.tensor(1.0, dtype=torch.bfloat16)),
+                   sensealg=P.DirectAdjoint(), **kw)
+    ref = J.solve(J.ODEProblem(lambda u, p, t: -p * u,
+                               jnp.array([1.0], jnp.bfloat16), (0.0, 1.0),
+                               jnp.asarray(1.0, jnp.bfloat16)),
+                  sensealg=J.DirectAdjoint(), **kw)
+    ys_port = port.ys.float().numpy()[:, 0]
+    ys_jax = np.asarray(ref.ys, np.float32)[:, 0]
+    np.testing.assert_array_equal(ys_jax[:2], [1.0, 1.0])
+    np.testing.assert_allclose(ys_port, np.exp(-np.asarray(sv)), rtol=2**-7)
+    assert np.all(np.abs(ys_port[:2] - 1.0) > 0.2)
+    assert abs(ys_jax[2] - np.exp(-1.0)) > 0.1
+    for uf in (port.u_final.float().numpy(), np.asarray(ref.u_final,
+                                                         np.float32)):
+        np.testing.assert_allclose(uf, [np.exp(-1.0)], rtol=2**-6)

@@ -749,3 +749,82 @@ def test_callback_refusals(case):
     with pytest.raises(NotImplementedError):
         sol = P.solve(P.remake(prob, p=p), P.Tsit5(), callback=cb, **kw)
         sol.ys.sum().backward()
+
+
+# -- F1: a field that reads t, through an event (ROADMAP §3) -----------------
+
+def _forced_event(mod, sin, as_t, forced):
+    """u' = −a·u + 2 sin(3t) with ContinuousCallback(u − 1.5, u ← 0.5u)
+    (F1's event case), or the autonomous control u' = −a·u + 1 with the
+    event at u = 1.35."""
+    if forced:
+        f = lambda u, p, t: -p[0] * u + 2 * sin(3 * as_t(t, u))
+        level = 1.5
+    else:
+        f = lambda u, p, t: -p[0] * u + 1.0
+        level = 1.35
+    cb = mod.ContinuousCallback(lambda u, p, t: u[0] - level,
+                                lambda u, p, t: 0.5 * u)
+    return f, cb
+
+
+F1_SV = [0.3, 0.6, 1.0]
+F1_TQ = 0.8
+
+
+@pytest.fixture(scope="module")
+def forced_event_ref():
+    """JAX DirectAdjoint's dL/da and dL/du0 of Σ ys² + sol(0.8)² (the dense
+    query after the event), per field."""
+    out = {}
+    for forced in (True, False):
+        def loss(a, u0, forced=forced):
+            f, cb = _forced_event(J, jnp.sin, lambda t, u: t, forced)
+            sol = J.solve(J.ODEProblem(f, u0, (0.0, 1.0), a),
+                          saveat=jnp.asarray(F1_SV), callback=cb, dense=True,
+                          sensealg=J.DirectAdjoint(), max_steps=256, **TOLS)
+            return jnp.sum(sol.ys ** 2) + jnp.sum(sol(F1_TQ)) ** 2
+
+        out[forced] = [np.asarray(g) for g in jax_o0(
+            jax.grad(loss, argnums=(0, 1)), jnp.array([0.7]),
+            jnp.array([1.3]))]
+    return out
+
+
+@pytest.mark.parametrize("forced", [True, False],
+                         ids=["forced", "autonomous"])
+@pytest.mark.parametrize("rule", ["DirectAdjoint", "ForwardDiffSensitivity"])
+def test_time_dependent_field_event_gradient_matches_jax(forced_event_ref,
+                                                         rule, forced):
+    """F1: the event time's derivative reaches a field that reads t (the
+    stage times after the event, the slopes at the event time), and the
+    dense query after the event sees it too; against JAX's DirectAdjoint
+    at 1e-8. Without the dense term JAX gives dL/da = −4.683654 and
+    dL/du0 = 5.443729 on the forced field, where the port gave −4.590260
+    and 5.335407 before the repair. The autonomous field is the control."""
+    def loss(a, u0):
+        f, cb = _forced_event(
+            P, torch.sin, lambda t, u: torch.as_tensor(t, dtype=u.dtype),
+            forced)
+        sol = P.solve(P.ODEProblem(f, u0, (0.0, 1.0), a), saveat=F1_SV,
+                      callback=cb, dense=True, sensealg=_alg(P, rule),
+                      max_steps=256, **TOLS)
+        assert sol.events.count == 1
+        return torch.sum(sol.ys ** 2) + torch.sum(sol(F1_TQ)) ** 2
+
+    got = _port_grad(loss, [0.7], [1.3])
+    for g, r, name in zip(got, forced_event_ref[forced], ("a", "u0")):
+        _close(g, r, GRAD_RTOL, name)
+    if forced:
+        # the JAX figures of ROADMAP §3, without the dense query
+        f, cb = _forced_event(
+            P, torch.sin, lambda t, u: torch.as_tensor(t, dtype=u.dtype),
+            True)
+        a = torch.tensor([0.7], dtype=DT, requires_grad=True)
+        u0 = torch.tensor([1.3], dtype=DT, requires_grad=True)
+        sol = P.solve(P.ODEProblem(f, u0, (0.0, 1.0), a), saveat=F1_SV,
+                      callback=cb, sensealg=_alg(P, rule), max_steps=256,
+                      **TOLS)
+        g = torch.autograd.grad(torch.sum(sol.ys ** 2), (a, u0))
+        np.testing.assert_allclose([float(g[0]), float(g[1])],
+                                   [-4.683654, 5.443729], rtol=1e-6)

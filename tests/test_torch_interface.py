@@ -329,10 +329,6 @@ def test_failed_forward_poisons_the_gradients(lv_sol):
 
 # public names of the JAX package that wait for later ROADMAP items
 NOT_YET = {
-    "M9": ["FBDF", "Kvaerno3", "Rodas4Like", "Rosenbrock23", "SDIRK4",
-           "Seulex", "TRBDF2", "GBS", "Vern9Like", "SecondOrderODEProblem"],
-    "M10": ["NonlinearProblem", "NonlinearSolution", "SteadyStateProblem",
-            "solve_nonlinear", "solve_unconstrained_optimization"],
     "M12": ["SDEProblem", "RODEProblem", "NoiseGrid", "VirtualBrownianTree",
             "EulerMaruyama", "EulerHeun", "Milstein", "RKMilCommute",
             "RKMilGeneral", "SRA1", "SRIW1", "SOSRI", "StrongTaylor15",

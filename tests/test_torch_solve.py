@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_parity import (assert_close, jax_o0, lotka_volterra_jax,
                           lotka_volterra_port, rd1d_u0, to_port)
@@ -164,13 +165,14 @@ def test_reversed_span_fixed_grid_dt_sign():
 
 def test_unported_paths_raise():
     """What the port does not have yet fails loudly, naming the ROADMAP
-    item, instead of returning a silent zero gradient: the unrolled
-    adaptive continuous solves, and mass matrices (DAEs)."""
+    item, instead of returning a silent zero gradient: mass matrices
+    (DAEs, M9b). unroll=True under a rule with no unrolled form raises as
+    JAX's does (the continuous rules unroll since the unrolled slice)."""
     u0 = to_port(LV_U0).requires_grad_()
     prob = P.ODEProblem(lotka_volterra_port, u0, (0.0, 1.0), to_port(LV_P))
-    with pytest.raises(NotImplementedError, match="ROADMAP M3/M4"):
-        P.solve(prob, sensealg=P.GaussKronrodAdjoint(), unroll=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP M9"):
+    with pytest.raises(NotImplementedError, match="DirectAdjoint"):
+        P.solve(prob, sensealg=P.ForwardSensitivity(), unroll=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP M9b"):
         P.solve(P.remake(prob, mass_matrix=np.eye(2)))
     # without a gradient the shared forward solve runs under any rule
     sol = P.solve(P.ODEProblem(lotka_volterra_port, to_port(LV_U0),
@@ -193,3 +195,52 @@ def test_port_never_imports_jax_and_import_builds_nothing():
     out = subprocess.run([sys.executable, "-c", probe], capture_output=True,
                          text=True, check=True, cwd=pkg.parent)
     assert out.stdout.strip() == "0"
+
+
+SO_RULES = ["ForwardDiffSensitivity", "InterpolatingAdjoint",
+            "BacksolveAdjoint", "QuadratureAdjoint", "GaussAdjoint"]
+SO_TS = np.linspace(0.0, 1.0, 20)
+SO_ARGS = (np.array([0.0, 2.0]), np.array([1.0, 2.0]), np.array([1.01, 0.9]))
+
+
+def _so_loss(mod, rule, stack_sum):
+    def loss(du0, u0, p):
+        prob = mod.SecondOrderODEProblem(lambda v, u, pp, t: -pp * u, du0,
+                                         u0, (0.0, 1.0), p)
+        sol = mod.solve(prob, mod.Tsit5(), saveat=SO_TS, rtol=1e-8,
+                        atol=1e-10, sensealg=getattr(mod, rule)())
+        v, u = sol.ys
+        return stack_sum(v) + stack_sum(u)
+    return loss
+
+
+@pytest.fixture(scope="module")
+def second_order_refs():
+    """JAX's gradients with respect to (du0, u0, p) per rule, one program."""
+    def grads(*args):
+        return [jax.grad(_so_loss(J, r, jnp.sum), argnums=(0, 1, 2))(*args)
+                for r in SO_RULES]
+
+    out = jax_o0(grads, *(jnp.asarray(a) for a in SO_ARGS))
+    return {r: [np.asarray(x) for x in g] for r, g in zip(SO_RULES, out)}
+
+
+def test_second_order_ode_problem_adjoints(second_order_refs):
+    """SecondOrderODEProblem (u'' = −p·u over the tuple state (du, u)):
+    each rule's per-leaf gradients against JAX's same rule (1e-9) and
+    against ForwardDiffSensitivity (1e-5, the JAX test's bound)."""
+    got = {}
+    for rule in SO_RULES:
+        xs = [torch.tensor(a, dtype=torch.float64, requires_grad=True)
+              for a in SO_ARGS]
+        got[rule] = torch.autograd.grad(_so_loss(P, rule, torch.sum)(*xs),
+                                        xs)
+        for g, r, name in zip(got[rule], second_order_refs[rule],
+                              ("ddu0", "du0", "dp")):
+            np.testing.assert_allclose(g.numpy(), r, rtol=1e-9,
+                                       atol=1e-9 * np.abs(r).max(),
+                                       err_msg=f"{rule} {name}")
+    for rule in SO_RULES[1:]:
+        for g, r in zip(got[rule], got["ForwardDiffSensitivity"]):
+            np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-5,
+                                       atol=1e-8, err_msg=rule)
