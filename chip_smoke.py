@@ -30,8 +30,9 @@ launch counters set to 0 just before it and read just after:
     and 512 RK4 steps of h = 1e-9, p = [1e-7, 1.5], the flagship u0); the
     gradient of Σ u²; kernels K5, K6 (csrc/rd1d_rk4.cu);
   * the forward-mode rules and QuadratureAdjoint: Lotka–Volterra at the
-    setting of the JAX package's tests/test_forward.py (tspan (0, 10), 11
-    save times, rtol 1e-10, atol 1e-12, loss Σ(ys - 1)² in u0 and p) under
+    setting of the JAX package's tests/test_forward.py on (0, 1) (the
+    test's span is (0, 10)), 11 save times, rtol 1e-10, atol 1e-12, loss
+    Σ(ys - 1)² in u0 and p, under
     sensealg=None (ForwardDiffSensitivity), ForwardDiffSensitivity with
     chunk_size 2, ForwardSensitivity, QuadratureAdjoint and GaussAdjoint,
     and ODEForwardSensitivityProblem with extract_local_sensitivities (no
@@ -70,9 +71,22 @@ launch counters set to 0 just before it and read just after:
     API with its callback=; the spiral at S2's setting under the Gauss
     direct API, the discrete cost 2(u − data) at its 30 save times, also
     with the continuous cost g = Σu² (K3, K4); Lotka–Volterra's Hessian on
-    (0, 3) under DirectAdjoint and GaussAdjoint, reverse over reverse (no
+    (0, 1) under DirectAdjoint and GaussAdjoint, reverse over reverse (no
     kernel); second order through the rd1d and the fused MLP field, which
     raises DoubleBackwardUnsupported.
+  * DAEs on mass matrices: Robertson in semi-explicit form (M = diag(1, 1,
+    0), the loss 1e4·Σ y2 + Σ y3 of the JAX package's tests/test_dae.py in
+    log p and u0's differential part, on (0, 1e-3) at rtol 1e-5) under
+    sensealg=None (ForwardDiffSensitivity), DirectAdjoint,
+    InterpolatingAdjoint, GaussAdjoint and QuadratureAdjoint on SDIRK4 and
+    GaussAdjoint on FBDF; the rotated non-diagonal mass under
+    GaussAdjoint; dae_init="newton"; the spiral's field under an
+    invertible 2×2 mass with Tsit5 and GaussAdjoint (K3, K4);
+  * delay equations: u'(t) = mlp2(u(t - 0.25)) with S4's field (B = 1024,
+    512->2048->512, float32) on [0, 1], history u0, under the RK4 fixed
+    grid (dt = 1/64) and adaptive Tsit5 (rtol 1e-6), loss Σ ys[-1]² (K3,
+    K4 in every stage and its pullback); the JAX package's stiff TRBDF2
+    case.
 
 Phases, each printed before the last line:
 
@@ -128,6 +142,17 @@ Phases, each printed before the last line:
      float64; the dosed PDE and the spiral arms, card against CPU and
      against the solve gradient, with their launches; the two Hessians
      symmetric and agreeing; the refusal of second order on the card;
+  5j. [dae f64]: each Robertson arm on the card against the port's CPU
+     run (1e-9 where the steps agree, else the stiff gate), the continuous
+     rules and DirectAdjoint against ForwardDiffSensitivity (rtol 2e-3, as
+     tests/test_dae.py), dae_init against its closed form; the spiral
+     under the mass, card against CPU, with its K3/K4 launches; a DAE on
+     the kernel field raising ForwardModeUnsupported with no launch;
+  5k. [dde]: the delayed S4 field's gradients at full width in float32
+     under RK4 and Tsit5 (K3/K4 launches per gradient, the simt route, the
+     two against each other), then in float64 at B = 8, card against CPU;
+     the stiff TRBDF2 case, card against CPU and against a fine RK4; TRBDF2
+     on the kernel field raising ForwardModeUnsupported with no launch;
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
      kernel device time against its bound and its plain version (K1, K2
@@ -145,7 +170,9 @@ Phases, each printed before the last line:
      against its own forward, with the device's idle share (not traced
      for the spiral's gradients); phase 5g's PDE arms at n = 1,048,576 in
      float32, each direct call against the dense forward it reads, with
-     the device's idle share.
+     the device's idle share; phase 5j's Robertson gradients against their
+     forwards, the spiral under the mass and the delayed S4 field (RK4 and
+     Tsit5) each against its own forward, with the device's idle share.
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -224,10 +251,12 @@ S4_BF16_TOL = 0.25
 
 # the forward-mode and quadrature phase: Lotka–Volterra at the setting of
 # the JAX package's tests/test_forward.py
-LV_T1, LV_NT = 10.0, 11
+# on (0, 1) (the JAX test: (0, 10), 779 steps): the phases 5d, 5e and 6d
+# ran ~300 s of the command's 1200 s on (0, 10), and 5j/5k need the room
+LV_T1, LV_NT = 1.0, 11
 LV_TOL = dict(rtol=1e-10, atol=1e-12)
 LV_RULE_TOL = 1e-6    # the rules against one another, as in that test
-# the device trace for the idle share covers [0, 0.5] (~40 of the 779 steps):
+# the device trace for the idle share covers [0, 0.5] (a quarter of the steps):
 # a trace of the whole horizon holds ~10^6 launches, takes minutes to read
 # back, and leaves later traces of the process losing events
 LV_TRACE_T1 = 0.5
@@ -264,7 +293,7 @@ EV_N = {torch.float64: 262144, torch.float32: 1048576}
 SPIRAL_EVENT_C = 7.2555
 DENSE_NQ = 50  # sol(t) query times on the spiral
 EV_RULE_TOL = 1e-6  # the bouncing ball: GaussAdjoint against ForwardDiff
-EV_TIMING_ROUNDS = 3
+EV_TIMING_ROUNDS = 2
 
 # K1/K2 checks: (n, u's offset, λ's offset) in values into a larger buffer:
 # the PDE's n, a ragged n, tiny n (no whole 16-byte vector, or one and a
@@ -806,19 +835,20 @@ def direct_spiral(P, setup, with_g):
 
 
 def lv_hessian(P, device, sensealg):
-    """Lotka–Volterra's Hessian of Σ ys² in p on (0, 3), 4 save times
-    (tests/test_interface.py:98-170's setting), in float64."""
+    """Lotka–Volterra's Hessian of Σ ys² in p on (0, 1), 4 save times
+    (tests/test_interface.py:98-170's setting on (0, 3), cut to a third:
+    the Gauss Hessian took 57 s of the command there), in float64."""
     def lv(u, p, t):
         return torch.stack([p[0] * u[0] - p[1] * u[0] * u[1],
                             -p[2] * u[1] + p[3] * u[0] * u[1]])
 
     prob = P.ODEProblem(lv, torch.tensor([1.0, 1.0], dtype=torch.float64,
-                                         device=device), (0.0, 3.0),
+                                         device=device), (0.0, 1.0),
                         torch.tensor([1.5, 1.0, 3.0, 1.0],
                                      dtype=torch.float64, device=device))
     return P.second_order_sensitivities(
         lambda sol: torch.sum(sol.ys ** 2), prob, P.Tsit5(),
-        sensealg=sensealg, saveat=[0.0, 1.0, 2.0, 3.0], **LV_HESS)
+        sensealg=sensealg, saveat=[0.0, 1.0 / 3, 2.0 / 3, 1.0], **LV_HESS)
 
 
 # the unrolled continuous rules (phase 5h): the spiral at bench.py:1121-1150's
@@ -935,6 +965,185 @@ def nl_solve(P, device, p=None, grad=True):
             return loss, sol
         (g,) = torch.autograd.grad(loss, p)
     return g, sol
+
+
+# the DAEs on mass matrices (phase 5j): Robertson in semi-explicit form
+# (JAX tests/test_dae.py:18-40, M = diag(1, 1, 0)) with that test's loss
+# 1e4·Σ y2 + Σ y3 in log p and u0's differential part, on the span of
+# tests/test_torch_dae.py, (0, 1e-3) at rtol 1e-5: on (0, 10) with saves
+# [0.1, 1, 10] each reverse takes 186-295 stiff steps of ~0.2 s of host
+# time on the CPU run alone (the card run pays it again), which 5j's six
+# rules cannot afford; the rotated non-diagonal mass (tests/test_dae.py:
+# 240-283); dae_init="newton" on y' = -y, 0 = z - p·y² (closed form);
+# the spiral's field under an invertible non-diagonal 2×2 mass (K3/K4)
+DAE_P, DAE_ROT_P = (0.04, 3e7, 1e4), (0.04, 1e4, 3e7)
+DAE_TS, DAE_T1 = (1e-4, 5e-4, 1e-3), 1e-3
+DAE_KW = dict(rtol=1e-5, atol=1e-9, dt0=1e-5, max_steps=200, adj_rtol=1e-5,
+              adj_atol=1e-9)
+DAE_ROT_T = ((1.0, 0.3), (0.2, 1.0))
+DAE_RULE_TOL = 2e-3   # continuous DAE rules vs ForwardDiff (tests/test_dae.py)
+DAE_INIT = dict(T=0.2, y0=1.3, p=0.8, rtol=1e-8, atol=1e-10, dt0=1e-3,
+                adj_rtol=1e-8, adj_atol=1e-10)
+DAE_INIT_TOL = 1e-5   # against the closed form, as tests/test_dae.py
+SPIRAL_MASS = ((1.0, 0.2), (-0.1, 1.0))
+
+# the delay equations (phase 5k): u'(t) = mlp2(u(t - τ)) with S4's field
+# (B = 1024, 512→2048→512, float32: the simt route), history u0, on [0, 1]
+# with τ = 0.25, the RK4 fixed grid at dt = 1/64 and adaptive Tsit5 at rtol
+# 1e-6; loss Σ ys[-1]²; the card's float64 at B = 8 against the CPU's;
+# tests/test_dde.py's stiff TRBDF2 case u' = -500(u - sin 2πt) + 5u(t - 1)
+# at dt 0.02 on (0, 1.2) (tests/test_torch_dde.py's span)
+DDE_TAU, DDE_DT, DDE_B_CPU = 0.25, 1.0 / 64, 8
+DDE_ADAPTIVE = dict(rtol=1e-6, atol=1e-6)
+DDE_CROSS_TOL = 1e-4  # RK4 against Tsit5 at full width (f32), rel L2
+DDE_STIFF = dict(A=500.0, B=5.0, dt=0.02, t1=1.2, ref_dt=1e-3)
+
+
+def dae_rob_field(u, p, t):
+    return torch.stack([-p[0] * u[0] + p[2] * u[1] * u[2],
+                        p[0] * u[0] - p[1] * u[1] ** 2 - p[2] * u[1] * u[2],
+                        u[0] + u[1] + u[2] - 1.0])
+
+
+def dae_rot_field(u, p, t):
+    T = torch.tensor(DAE_ROT_T, dtype=u.dtype, device=u.device)
+    f_d = torch.stack([-p[0] * u[0] + p[1] * u[1] * u[2],
+                       p[0] * u[0] - p[1] * u[1] * u[2] - p[2] * u[1] ** 2])
+    return torch.cat([T @ f_d, (u[0] + u[1] + u[2] - 1.0)[None]])
+
+
+def dae_gradient(P, device, sensealg, solver, rotated=False, grad=True):
+    """(d/d[log p, u0_d] of 1e4·Σ y2 + Σ y3 (rotated: Σ y1² + 1e4·Σ y2²
+    + Σ y3²), solution) of a Robertson DAE; grad=False: the solution."""
+    p0 = DAE_ROT_P if rotated else DAE_P
+    logp = torch.log(torch.tensor(p0, dtype=torch.float64, device=device))
+    u0d = torch.tensor([1.0, 0.0], dtype=torch.float64, device=device)
+    logp.requires_grad_()
+    u0d.requires_grad_()
+    u0 = torch.stack([u0d[0], u0d[1], 1.0 - u0d[0] - u0d[1]])
+    if rotated:
+        mass = torch.zeros(3, 3, dtype=torch.float64)
+        mass[:2, :2] = torch.tensor(DAE_ROT_T, dtype=torch.float64)
+        field = dae_rot_field
+    else:
+        mass, field = torch.diag(torch.tensor([1.0, 1.0, 0.0])), dae_rob_field
+    prob = P.ODEProblem(field, u0, (0.0, DAE_T1), torch.exp(logp),
+                        mass_matrix=mass)
+    with torch.set_grad_enabled(grad):
+        sol = P.solve(prob, solver, saveat=list(DAE_TS), sensealg=sensealg,
+                      **DAE_KW)
+    if not grad:
+        return sol
+    ys = sol.ys
+    if rotated:
+        loss = (torch.sum(ys[:, 0] ** 2) + 1e4 * torch.sum(ys[:, 1] ** 2)
+                + torch.sum(ys[:, 2] ** 2))
+    else:
+        loss = 1e4 * torch.sum(ys[:, 1]) + torch.sum(ys[:, 2])
+    return torch.cat(torch.autograd.grad(loss, (logp, u0d))), sol
+
+
+def dae_init_gradient(P, device):
+    """dae_init="newton" on y' = -y, 0 = z - p·y² from the guess z0 = 0:
+    (d/d[y0, p] of y(T) + z(T) under ForwardDiffSensitivity, solution)."""
+    c = DAE_INIT
+    a = torch.tensor([c["y0"], c["p"]], dtype=torch.float64, device=device)
+    a.requires_grad_()
+    prob = P.ODEProblem(
+        lambda u, p, t: torch.stack([-u[0], u[1] - p[0] * u[0] ** 2]),
+        torch.stack([a[0], 0.0 * a[0]]), (0.0, c["T"]), a[1:],
+        mass_matrix=torch.diag(torch.tensor([1.0, 0.0])))
+    sol = P.solve(prob, P.SDIRK4(), saveat=[c["T"]], dae_init="newton",
+                  sensealg=P.ForwardDiffSensitivity(),
+                  **{k: c[k] for k in ("rtol", "atol", "dt0", "adj_rtol",
+                                       "adj_atol")})
+    (g,) = torch.autograd.grad(sol.ys[0, 0] + sol.ys[0, 1], a)
+    return g, sol
+
+
+def dae_init_exact():
+    import math
+
+    c = DAE_INIT
+    e = math.exp(-c["T"])
+    return [e + 2 * c["p"] * c["y0"] * e * e, c["y0"] ** 2 * e * e]
+
+
+def spiral_mass_kw(P, kw):
+    """S2's setting with the spiral's field under SPIRAL_MASS."""
+    return dict(kw, mass=torch.tensor(SPIRAL_MASS, dtype=torch.float64))
+
+
+def spiral_mass_gradient(P, setup, kw, grad=True):
+    """(d/dp of Σ(ys - data)² per leaf, solution) of M u' = MLP(u³);
+    grad=False: the solution."""
+    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2
+
+    params = {k: v.detach().clone().requires_grad_(grad)
+              for k, v in setup[0].items()}
+    _, u0, data, ts = setup
+    kw = dict(kw)
+    mass = kw.pop("mass")
+    prob = P.ODEProblem(lambda u, p, t: fused_mlp2(p, u ** 3), u0,
+                        (0.0, SPIRAL_T1), params, mass_matrix=mass)
+    with torch.set_grad_enabled(grad):
+        sol = P.solve(prob, P.Tsit5(), saveat=ts, **kw)
+    if not grad:
+        return sol
+    grads = torch.autograd.grad(torch.sum((sol.ys - data) ** 2),
+                                list(params.values()))
+    return dict(zip(params, grads)), sol
+
+
+def dde_setup(P, dtype, device, B=S4_B):
+    """S4's seeded weights and u0 (s4_setup) for the delayed field."""
+    params, u0, _ = s4_setup(P, dtype, device, B=B)
+    return params, u0
+
+
+def dde_solve(P, setup, params, adaptive):
+    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2
+
+    _, u0 = setup
+    prob = P.DDEProblem(lambda u, h, p, t: fused_mlp2(p, h[0]), u0,
+                        (0.0, 1.0), params, lags=(DDE_TAU,))
+    kw = DDE_ADAPTIVE if adaptive else dict(dt=DDE_DT)
+    return P.solve(prob, saveat=[0.0, 1.0], **kw)
+
+
+def dde_gradient(P, setup, adaptive):
+    """(d/dp of Σ ys[-1].float()² per leaf, solution) of the delayed S4
+    field."""
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in setup[0].items()}
+    sol = dde_solve(P, setup, params, adaptive)
+    grads = torch.autograd.grad(torch.sum(sol.ys[-1].float() ** 2),
+                                list(params.values()))
+    return dict(zip(params, grads)), sol
+
+
+def dde_forward(P, setup, adaptive):
+    with torch.no_grad():
+        return dde_solve(P, setup, setup[0], adaptive).ys[-1]
+
+
+def dde_stiff(P, device, trbdf2):
+    """tests/test_dde.py's stiff case at DDE_STIFF: u(t1), solution."""
+    import math
+
+    c = DDE_STIFF
+
+    def rhs(u, h, p, t):
+        return -c["A"] * (u - math.sin(2.0 * math.pi * float(t))) \
+            + c["B"] * h[0]
+
+    prob = P.DDEProblem(rhs, torch.ones(1, dtype=torch.float64, device=device),
+                        (0.0, c["t1"]), None, lags=(1.0,))
+    if trbdf2:
+        sol = P.solve(prob, P.TRBDF2(), dt=c["dt"])
+    else:
+        sol = P.solve(prob, dt=c["ref_dt"])
+    return sol.ys[-1, 0], sol
 
 
 def main() -> int:
@@ -1684,8 +1893,8 @@ def main() -> int:
         check(err <= LV_RULE_TOL, f"LV {name} off ForwardDiffSensitivity")
     lv_runs.update(lv_interp)
 
-    # the auto-pinned against the unpinned reverse on [0, LV_TRACE_T1] (~40
-    # of the 779 steps), in turns: whether pinning pays here (ROADMAP M5)
+    # the auto-pinned against the unpinned reverse on [0, LV_TRACE_T1], in
+    # turns: whether pinning pays here (ROADMAP M5)
     lv_pin = {
         "pinned": P.InterpolatingAdjoint(),
         "adaptive": P.InterpolatingAdjoint(pinned_reverse=False)}
@@ -2223,6 +2432,186 @@ def main() -> int:
     print(f"[stiff f64] phase 5i: {time.perf_counter() - t:.1f} s")
     elapsed("phase 5i [stiff f64]")
 
+    # -- 5j. [dae f64]: DAEs on mass matrices (host path, torch.linalg on the
+    # card), the card against the port's CPU run ---------------------------
+    t = time.perf_counter()
+    dae_arms = {
+        "sensealg=None": (None, P.SDIRK4, False),
+        "DirectAdjoint": (P.DirectAdjoint(), P.SDIRK4, False),
+        "InterpolatingAdjoint": (P.InterpolatingAdjoint(), P.SDIRK4, False),
+        "GaussAdjoint": (P.GaussAdjoint(), P.SDIRK4, False),
+        "QuadratureAdjoint": (P.QuadratureAdjoint(), P.SDIRK4, False),
+        "FBDF GaussAdjoint": (P.GaussAdjoint(), P.FBDF, False),
+        "rotated GaussAdjoint": (P.GaussAdjoint(), P.SDIRK4, True),
+    }
+    dae_grads, dae_times = {}, {}
+    for arm, (sensealg, solver, rotated) in dae_arms.items():
+        g_cpu, sol_c = dae_gradient(P, "cpu", sensealg, solver(), rotated)
+        (g, sol), dae_times[arm] = event_ms(
+            lambda: dae_gradient(P, dev, sensealg, solver(), rotated))
+        dae_grads[arm] = g
+        rev = sol.adjoint.stats if sol.adjoint is not None else None
+        rev_c = sol_c.adjoint.stats if sol_c.adjoint is not None else None
+        same = (sol.stats.n_accepted == sol_c.stats.n_accepted
+                and (rev is None or rev.n_accepted == rev_c.n_accepted))
+        e_c = rel_l2(g, g_cpu)
+        print(f"[dae f64] Robertson{' rotated' if rotated else ''} "
+              f"{solver.__name__} {arm}: dispatched to "
+              f"{type(sol.sensealg).__name__}; forward {sol.stats} (CPU "
+              f"{sol_c.stats}); reverse {rev} (CPU {rev_c}); grad [log p, "
+              f"u0_d] {g.tolist()}; card vs CPU rel L2 {e_c:.3e} (tol "
+              f"{F64_GRAD_TOL:g} where the step counts agree: {same}); "
+              f"{dae_times[arm]:.1f} ms")
+        check(sol.retcode == 0 and sol_c.retcode == 0
+              and (rev is None or rev.retcode == 0), f"DAE {arm} retcode")
+        # cuSOLVER's LU against LAPACK's may move a stiff step (ROADMAP §3):
+        # then the stiff gate holds the card to the CPU run
+        check(e_c <= F64_GRAD_TOL if same else bool(torch.allclose(
+            g.cpu(), g_cpu, **STIFF_GATE)),
+            f"DAE {arm}: card gradient off the CPU's")
+        if sensealg is None:
+            check(type(sol.sensealg) is P.ForwardDiffSensitivity,
+                  f"DAE sensealg=None dispatched to {sol.sensealg!r}")
+    for arm, ref in (("InterpolatingAdjoint", "sensealg=None"),
+                     ("GaussAdjoint", "sensealg=None"),
+                     ("QuadratureAdjoint", "sensealg=None"),
+                     ("DirectAdjoint", "sensealg=None"),
+                     ("FBDF GaussAdjoint", "sensealg=None")):
+        gate = bool(torch.allclose(dae_grads[arm].cpu(),
+                                   dae_grads[ref].cpu(), rtol=DAE_RULE_TOL,
+                                   atol=1e-7))
+        print(f"[dae f64] {arm} against ForwardDiffSensitivity ({ref}): max "
+              f"rel {max_rel(dae_grads[arm], dae_grads[ref]):.3e} (allclose "
+              f"rtol {DAE_RULE_TOL:g}, atol 1e-7: {gate})")
+        check(gate, f"DAE {arm} off ForwardDiffSensitivity")
+    g_in, sol_in = dae_init_gradient(P, dev)
+    g_inc, _ = dae_init_gradient(P, "cpu")
+    exact = torch.tensor(dae_init_exact(), dtype=torch.float64)
+    e_x = max_rel(g_in, exact)
+    e_c = rel_l2(g_in, g_inc)
+    print(f"[dae f64] dae_init=\"newton\" (y' = -y, 0 = z - p y², z0 = 0) "
+          f"ForwardDiffSensitivity: forward {sol_in.stats}; grad [y0, p] "
+          f"{g_in.tolist()}, closed form {exact.tolist()}: max rel "
+          f"{e_x:.3e} (tol {DAE_INIT_TOL:g}); card vs CPU rel L2 {e_c:.3e} "
+          f"(tol {F64_GRAD_TOL:g})")
+    check(sol_in.retcode == 0 and e_x <= DAE_INIT_TOL
+          and e_c <= F64_GRAD_TOL, "dae_init gradient")
+    # the spiral's field under an invertible mass: folded in once, K3/K4
+    # on every stage of the forward and of the Gauss reverse
+    dae_launches = {}
+    kw = spiral_mass_kw(P, dict(SPIRAL_ADAPTIVE, sensealg=P.GaussAdjoint()))
+    (g, sol), got = count_path(lambda: spiral_mass_gradient(P, setup_card, kw))
+    dae_launches["S2m invertible-mass GaussAdjoint"] = {"K3": got[0],
+                                                        "K4": got[1]}
+    g_c, _ = spiral_mass_gradient(P, setup_cpu, kw)
+    errs = leaf_errors(g, g_c)
+    print(f"[dae f64] S2m spiral (S2 setting) under the invertible mass "
+          f"{SPIRAL_MASS} GaussAdjoint: forward {sol.stats}; reverse "
+          f"{sol.adjoint.stats}; card vs CPU rel L2 {fmt_errors(errs)} (tol "
+          f"{NODE_F64_TOL:g}); K3 {got[0]} and K4 {got[1]} launches per "
+          f"gradient")
+    check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0, "S2m retcode")
+    check(max(errs.values()) <= NODE_F64_TOL, "S2m card gradient off the CPU")
+    # a singular mass on the kernel field: the stiff stepper's Jacobians
+    # take forward mode, refused before anything launches
+    from scimlsensitivity_jl_tpu_torch.ops.vjp import ForwardModeUnsupported
+
+    mlp.mlp2_fwd_cuda.launches = 0
+    mlp.mlp2_vjp_cuda.launches = 0
+    _, u0s, _, _ = setup_card
+    try:
+        P.solve(P.ODEProblem(
+            lambda u, p, t: mlp.fused_mlp2(p, u ** 3), u0s, (0.0, 0.1),
+            setup_card[0], mass_matrix=torch.diag(torch.tensor([1.0, 0.0]))),
+            P.SDIRK4(), dt0=1e-3, sensealg=P.GaussAdjoint())
+    except ForwardModeUnsupported as err:
+        refusal = str(err)
+    else:
+        raise AssertionError("a DAE on the kernel field did not raise")
+    got = (mlp.mlp2_fwd_cuda.launches, mlp.mlp2_vjp_cuda.launches)
+    print(f"[dae f64] a DAE on the spiral's kernel field raises "
+          f"ForwardModeUnsupported after K3 {got[0]} and K4 {got[1]} "
+          f"launches: {refusal[:70]}...")
+    check(got == (0, 0) and "FusedMLP2" in refusal,
+          "the DAE kernel-field refusal launched or did not name FusedMLP2")
+    print(f"[dae f64] phase 5j: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5j [dae f64]")
+
+    # -- 5k. [dde]: the method of steps at S4's width, K3/K4 in every stage
+    # and its pullback ------------------------------------------------------
+    t = time.perf_counter()
+    dde_launches = {}
+    dde32 = dde_setup(P, torch.float32, dev)
+    dde_full = {}
+    for arm, adaptive in (("RK4 dt 1/64", False),
+                          ("Tsit5 rtol 1e-6", True)):
+        (g, sol), got = count_path(lambda: dde_gradient(P, dde32, adaptive))
+        dde_launches[f"DDE S4 f32 {arm}"] = {"K3": got[0], "K4": got[1]}
+        dde_full[arm] = g
+        print(f"[dde f32] u'(t) = mlp2(u(t - {DDE_TAU})) at S4's width "
+              f"(B = {S4_B}, {S4_WIDTHS}) {arm}: {sol.solver}, {sol.stats}; "
+              f"K3 {got[0]} and K4 {got[1]} launches per gradient, routes "
+              f"{path_routes}; max|grad| per leaf "
+              f"{ {k: float(v.abs().max()) for k, v in g.items()} }")
+        check(sol.retcode == 0, f"DDE {arm} retcode {sol.retcode}")
+        check(all(bool(torch.isfinite(v).all()) for v in g.values()),
+              f"DDE {arm}: non-finite gradient")
+        check(path_routes["K3"] == {"simt": got[0]},
+              f"DDE {arm}: K3 off the simt route: {path_routes}")
+    cross = max(rel_l2(dde_full["RK4 dt 1/64"][k],
+                       dde_full["Tsit5 rtol 1e-6"][k]) for k in dde_full[
+        "RK4 dt 1/64"])
+    print(f"[dde f32] RK4 against Tsit5 at full width: max rel L2 per leaf "
+          f"{cross:.3e} (tol {DDE_CROSS_TOL:g})")
+    check(cross <= DDE_CROSS_TOL, "DDE RK4 and Tsit5 gradients disagree")
+    del dde_full
+    for arm, adaptive in (("RK4 dt 1/64", False),
+                          ("Tsit5 rtol 1e-6", True)):
+        (g, sol), got = count_path(lambda: dde_gradient(
+            P, dde_setup(P, torch.float64, dev, B=DDE_B_CPU), adaptive))
+        dde_launches[f"DDE B={DDE_B_CPU} f64 {arm}"] = {"K3": got[0],
+                                                        "K4": got[1]}
+        g_c, sol_c = dde_gradient(
+            P, dde_setup(P, torch.float64, "cpu", B=DDE_B_CPU), adaptive)
+        errs = leaf_errors(g, g_c)
+        print(f"[dde f64] B = {DDE_B_CPU} {arm}: {sol.stats} (CPU "
+              f"{sol_c.stats}); card vs CPU rel L2 {fmt_errors(errs)} (tol "
+              f"{F64_GRAD_TOL:g}); K3 {got[0]} and K4 {got[1]} launches")
+        check(sol.retcode == 0 and sol.stats == sol_c.stats,
+              f"DDE B={DDE_B_CPU} {arm}: retcode or steps off the CPU's")
+        check(max(errs.values()) <= F64_GRAD_TOL,
+              f"DDE B={DDE_B_CPU} {arm}: card gradient off the CPU's")
+    # tests/test_dde.py's stiff case: TRBDF2 through its Newton sweeps
+    y_tr, sol_tr = dde_stiff(P, dev, True)
+    y_trc, _ = dde_stiff(P, "cpu", True)
+    y_ref, _ = dde_stiff(P, dev, False)
+    e_c = abs(float(y_tr) - float(y_trc)) / abs(float(y_trc))
+    e_r = abs(float(y_tr) - float(y_ref)) / abs(float(y_ref))
+    print(f"[dde f64] stiff u' = -{DDE_STIFF['A']:g}(u - sin 2πt) + "
+          f"{DDE_STIFF['B']:g} u(t - 1) on (0, {DDE_STIFF['t1']:g}): TRBDF2 "
+          f"at dt {DDE_STIFF['dt']:g} u(t1) {float(y_tr):.10f} ({sol_tr.stats}); "
+          f"card vs CPU rel {e_c:.3e} (tol {F64_GRAD_TOL:g}); against RK4 at "
+          f"dt {DDE_STIFF['ref_dt']:g} rel {e_r:.3e} (tol 5e-2, "
+          f"tests/test_dde.py)")
+    check(e_c <= F64_GRAD_TOL and e_r <= 5e-2, "stiff DDE TRBDF2")
+    mlp.mlp2_fwd_cuda.launches = 0
+    for solver_kw in (dict(dt=DDE_DT), {}):
+        try:
+            P.solve(P.DDEProblem(lambda u, h, p, t: mlp.fused_mlp2(p, h[0]),
+                                 dde32[1], (0.0, 1.0), dde32[0],
+                                 lags=(DDE_TAU,)), P.TRBDF2(), **solver_kw)
+        except ForwardModeUnsupported as err:
+            refusal = str(err)
+        else:
+            raise AssertionError("TRBDF2 on the kernel field did not raise")
+    print(f"[dde f32] TRBDF2 (fixed and adaptive) on the kernel field raises "
+          f"ForwardModeUnsupported after {mlp.mlp2_fwd_cuda.launches} K3 "
+          f"launches: {refusal[:70]}...")
+    check(mlp.mlp2_fwd_cuda.launches == 0 and "FusedMLP2" in refusal,
+          "the stiff DDE kernel-field refusal launched or did not name it")
+    print(f"[dde] phase 5k: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5k [dde]")
+
     # -- 6. timings: the megakernel path first ---------------------------------
     u0, p = flagship_inputs(MEGA_N, torch.float32, dev)
     arms = {
@@ -2679,15 +3068,55 @@ def main() -> int:
     ev_time("spiral f32", arms, spiral_checks,
             traced=lambda name: "forward" in name)
     del setup32
-    arms = {"forward": lambda: rob_bench(P, dev, P.FBDF(), None, ROB_BENCH,
-                                         grad=False),
-            "FBDF GaussAdjoint gradient": lambda: rob_bench(
-                P, dev, P.FBDF(), P.GaussAdjoint(), ROB_BENCH)}
-    ev_time("Robertson f64 (bench setting)", arms)
+    # Robertson: one timed run of each (a gradient takes ~10 s; its rounds
+    # took ~60 s of the command)
+    for _ in range(2):  # the second forward is the one kept
+        _, ms_f = event_ms(lambda: rob_bench(P, dev, P.FBDF(), None,
+                                             ROB_BENCH, grad=False))
+    (_, sol), ms_g = event_ms(lambda: rob_bench(P, dev, P.FBDF(),
+                                                P.GaussAdjoint(), ROB_BENCH))
+    print(f"[time] {card}: Robertson f64 (bench setting) forward: "
+          f"{ms_f:.3f} ms; FBDF GaussAdjoint gradient: {ms_g:.3f} ms "
+          f"({ms_g / ms_f:.2f}x its forward; CUDA events around one run "
+          f"each, reverse {sol.adjoint.stats})")
     arms = {"forward": lambda: nl_solve(P, dev, grad=False),
             "IFT gradient": lambda: nl_solve(P, dev)}
     ev_time("solve_nonlinear f64 (8 unknowns)", arms)
     elapsed("phase 6h [unroll] and [stiff] timings")
+
+    # -- 6j. [dae] and [dde] timings: each gradient against its own forward;
+    # the Robertson DAE arms from 5j's timed card runs, one run each; the
+    # spiral under the invertible mass and the delayed S4 field at full
+    # width, CUDA events (median of EV_TIMING_ROUNDS interleaved rounds
+    # after a warm-up round) and one profiled run for the idle share
+    for solver in (P.SDIRK4, P.FBDF):
+        for _ in range(2):  # the second forward is the one kept
+            sol, ms_f = event_ms(lambda: dae_gradient(
+                P, dev, None, solver(), grad=False))
+        for arm, (_, arm_solver, rotated) in dae_arms.items():
+            if arm_solver is solver and not rotated:
+                print(f"[time] {card}: Robertson DAE f64 {solver.__name__} "
+                      f"{arm} gradient: {dae_times[arm]:.3f} ms "
+                      f"({dae_times[arm] / ms_f:.2f}x its forward of "
+                      f"{ms_f:.3f} ms, {sol.stats}; CUDA events around one "
+                      "run, phase 5j's)")
+    setup32 = spiral_setup(P, torch.float32, dev, data64)
+    kw32 = spiral_mass_kw(P, dict(SPIRAL_ADAPTIVE, sensealg=P.GaussAdjoint()))
+    arms = {"S2m forward": lambda: spiral_mass_gradient(P, setup32, kw32,
+                                                        grad=False),
+            "S2m invertible-mass GaussAdjoint gradient":
+                lambda: spiral_mass_gradient(P, setup32, kw32)}
+    ev_time("spiral f32", arms, spiral_checks,
+            traced=lambda name: "forward" in name)
+    del setup32
+    for arm, adaptive in (("RK4 dt 1/64", False),
+                          ("Tsit5 rtol 1e-6", True)):
+        arms = {f"{arm} forward": lambda a=adaptive: dde_forward(P, dde32, a),
+                f"{arm} gradient": lambda a=adaptive: dde_gradient(
+                    P, dde32, a)}
+        ev_time(f"DDE S4 f32 (B = {S4_B}, τ = {DDE_TAU})", arms)
+    del dde32
+    elapsed("phase 6j [dae] and [dde] timings")
 
     # Lotka-Volterra last: its traces hold the most launches of any
     for name, sensealg in [("forward", None)] + list(lv_runs.items()):
@@ -2718,6 +3147,9 @@ def main() -> int:
                 for k in ("K1", "K2", "K3", "K4")}
     unroll_k = {k: sum(got.get(k, 0) for got in unroll_launches.values())
                 for k in ("K1", "K2", "K3", "K4")}
+    new_paths = dict(dae_launches, **dde_launches)
+    new_k = {k: sum(got[k] for got in new_paths.values())
+             for k in ("K3", "K4")}
     kernels = [
         {"name": "rd1d_fwd (K1)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
@@ -2766,7 +3198,7 @@ def main() -> int:
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:53",
          "launches": (s1_s5_launches["K3"] + s2q_launches[0]
                       + interp_node[0] + event_node[0] + direct_k["K3"]
-                      + unroll_k["K3"]),
+                      + unroll_k["K3"] + new_k["K3"]),
          "paths": {"S1-S5": s1_s5_launches["K3"],
                    "S2q QuadratureAdjoint": s2q_launches[0],
                    **{arm: got[0]
@@ -2776,7 +3208,8 @@ def main() -> int:
                    **{f"direct {arm}": got["K3"]
                       for arm, got in direct_launches.items() if "K3" in got},
                    **{arm: got["K3"]
-                      for arm, got in unroll_launches.items() if "K3" in got}},
+                      for arm, got in unroll_launches.items() if "K3" in got},
+                   **{arm: got["K3"] for arm, got in new_paths.items()}},
          "max_abs_err": max_abs["K3"],
          "ms": s4["K3"], "plain_ms": s4["K3_plain"],
          "bound_ms": s4["bound"]["K3"][0], "bound_by": s4["bound"]["K3"][1],
@@ -2786,7 +3219,7 @@ def main() -> int:
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:68",
          "launches": (s1_s5_launches["K4"] + s2q_launches[1]
                       + interp_node[1] + event_node[1] + direct_k["K4"]
-                      + unroll_k["K4"]),
+                      + unroll_k["K4"] + new_k["K4"]),
          "paths": {"S1-S5": s1_s5_launches["K4"],
                    "S2q QuadratureAdjoint": s2q_launches[1],
                    **{arm: got[1]
@@ -2796,7 +3229,8 @@ def main() -> int:
                    **{f"direct {arm}": got["K4"]
                       for arm, got in direct_launches.items() if "K4" in got},
                    **{arm: got["K4"]
-                      for arm, got in unroll_launches.items() if "K4" in got}},
+                      for arm, got in unroll_launches.items() if "K4" in got},
+                   **{arm: got["K4"] for arm, got in new_paths.items()}},
          "max_abs_err": max_abs["K4"],
          "ms": s4["K4"], "plain_ms": s4["K4_plain"],
          "bound_ms": s4["bound"]["K4"][0], "bound_by": s4["bound"]["K4"][1],

@@ -1,8 +1,10 @@
 """PyTorch port of scimlsensitivity_jl_tpu, for NVIDIA Hopper GPUs.
 
 Counterpart of `scimlsensitivity_jl_tpu/__init__.py`, the public subset that
-is ported: `ODEProblem`, `SecondOrderODEProblem`, `solve` (real and
-complex states, `save_idxs`, `unroll=True` under every rule), the
+is ported: `ODEProblem` (with mass matrices: semi-explicit index-1 DAEs),
+`DDEProblem` (the fixed-grid and adaptive method of steps),
+`SecondOrderODEProblem`, `solve` (real and complex states, `save_idxs`,
+`unroll=True` under every rule, `dae_init="newton"`), the
 explicit Runge-Kutta solvers, the stiff solvers (`Rosenbrock23`, `TRBDF2`,
 `Kvaerno3`, `SDIRK4`, `Seulex`, `Rodas4Like`, `FBDF`) and the
 extrapolation ones (`GBS`, `Vern9Like`), the nonlinear solves
@@ -88,8 +90,8 @@ from .models.pde import (
 )
 from .ops.mlp import fused_mlp2
 from .ops.rd1d import make_rd1d_rk4_block
-from .problems import (NonlinearProblem, ODEProblem, SecondOrderODEProblem,
-                       SteadyStateProblem, remake)
+from .problems import (DDEProblem, NonlinearProblem, ODEProblem,
+                       SecondOrderODEProblem, SteadyStateProblem, remake)
 from .sensealg import (
     NILSAS,
     NILSS,
@@ -137,7 +139,8 @@ from .solvers.sdirk import SDIRK4, TRBDF2, Kvaerno3
 from .solvers.seulex import Rodas4Like, Seulex
 
 __all__ = [
-    "ODEProblem", "remake", "solve", "ODESolution", "RETCODE_NAMES",
+    "ODEProblem", "DDEProblem", "remake", "solve", "ODESolution",
+    "RETCODE_NAMES",
     "SecondOrderODEProblem", "NonlinearProblem", "SteadyStateProblem",
     "NonlinearSolution", "solve_nonlinear", "solve_unconstrained_optimization",
     "ExplicitRK", "Tsit5", "Dopri5", "BS3", "Heun", "Midpoint", "Euler",

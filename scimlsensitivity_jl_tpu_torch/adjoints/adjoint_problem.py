@@ -19,7 +19,10 @@ at t1 start z, those at t0 are added by `extract`), and for an event
 solution a second one applying the recorded events' reverse jumps. The
 layouts:
 
-    InterpolatingAdjoint : z = [λ; q], u(t) from sol's dense output
+    InterpolatingAdjoint : z = [λ; q], u(t) from sol's dense output; on a
+                           mass-matrix solution with the block mass
+                           [Mᵀ 0; 0 I] and the projected jumps (JAX
+                           :326-380); solve it with SDIRK4 and a dt0
     QuadratureAdjoint    : z = λ; dG/dp by integrating
                            `AdjointSensitivityIntegrand` afterwards
     BacksolveAdjoint     : z = [λ; q; u], u integrated backwards
@@ -48,7 +51,8 @@ from ..sensealg import (BacksolveAdjoint, InterpolatingAdjoint,
 from ..solvers.integrate import time_dtype
 from ..utils.pytree import ravel_pytree
 from .common import match_cotangents
-from .continuous import _flat, _make_event_apply
+from .continuous import (_dae_project_jumps, _flat, _make_event_apply,
+                         host_matrix)
 from .interface import (continuous_cost, event_set_of, flat_of, host_times,
                         refuse_other_problems)
 
@@ -104,6 +108,11 @@ def ODEAdjointProblem(
     PresetTimeCallback at the recorded times, records at one time applied
     newest first. Interpolating and Backsolve layouts, events that neither
     terminate nor modify p and lie inside the span, as in JAX.
+
+    Mass-matrix problems (a singular M rides on sol.solver, JAX
+    :102-151): the Interpolating layout only, without events; `spec.prob`
+    carries the block mass [Mᵀ 0; 0 I], its λ jumps are projected through
+    the constraint (`_dae_project_jumps`) and dG/du0 = Mᵀλ(t0).
     """
     refuse_other_problems(sol, "ODEAdjointProblem")
     sensealg = sensealg if sensealg is not None else InterpolatingAdjoint()
@@ -112,6 +121,19 @@ def ODEAdjointProblem(
         raise NotImplementedError(
             f"ODEAdjointProblem has the Interpolating, Quadrature and "
             f"Backsolve layouts, got {sensealg!r}")
+    # solve() moves a singular mass matrix onto the stepper (the problem is
+    # remade with mass_matrix=None), so look in both places
+    M_fwd = sol.prob.mass_matrix
+    if M_fwd is None:
+        M_fwd = getattr(sol.solver, "mass_matrix", None)
+    if M_fwd is not None and not isinstance(sensealg, InterpolatingAdjoint):
+        raise NotImplementedError(
+            "ODEAdjointProblem on mass-matrix problems exposes the "
+            "InterpolatingAdjoint layout (block [Mᵀ 0; 0 I]); use "
+            "adjoint_sensitivities for the other designs")
+    if M_fwd is not None and sol.events is not None:
+        raise NotImplementedError(
+            "events + mass-matrix DAEs: use adjoint_sensitivities")
     if sol.events is not None and isinstance(sensealg, QuadratureAdjoint):
         raise NotImplementedError(
             "QuadratureAdjoint's λ-only layout cannot carry the event "
@@ -166,15 +188,29 @@ def ODEAdjointProblem(
     at_end = np.abs(ts - kind(t1)) <= 1e-12 * max(1.0, abs(float(t1)))
     at_start = np.abs(ts - kind(t0)) <= 1e-12 * max(1.0, abs(float(t0)))
     interior = ~(at_end | at_start)
-    pick = lambda mask: lam_jumps[torch.from_numpy(mask).to(
-        lam_jumps.device)].sum(0)
-    lam_init, lam_final = pick(at_end), pick(at_start)
+    prob_kw, z_jumps = {}, lam_jumps
+    if M_fwd is not None:
+        # the reverse DAE Mᵀλ' = −Jᵀλ − ∂g/∂u, q' = −f_pᵀλ − ∂g/∂p with the
+        # block mass [Mᵀ 0; 0 I]; every λ jump projected through the
+        # constraint, with its q-jump, dG/du0 = Mᵀλ(t0)
+        du0_map, lamjs, qjs = _dae_project_jumps(M_fwd, kern, p, dense, ts,
+                                                 lam_jumps)
+        z_jumps = torch.cat([lamjs, qjs.to(lamjs.dtype)], dim=1)
+        m_aug = np.eye(n + npf)
+        m_aug[:n, :n] = host_matrix(M_fwd).T
+        prob_kw["mass_matrix"] = torch.as_tensor(m_aug, dtype=dtype,
+                                                 device=u0vec.device)
+    pick = lambda mask: z_jumps[torch.from_numpy(mask).to(
+        z_jumps.device)].sum(0)
+    z_init, z_final = pick(at_end), pick(at_start)
+    lam_init, lam_final = z_init[:n], z_final[:n]
 
     def jump_affect(z, _p, tt):
         i = int(np.argmin(np.abs(ts - kind(tt))))
         if not interior[i]:
             return z
-        return torch.cat([z[:n] + lam_jumps[i], z[n:]])
+        w = z_jumps[i].numel()
+        return torch.cat([z[:w] + z_jumps[i], z[w:]])
 
     cb = None
     if dgdu_discrete is not None and interior.any():
@@ -205,6 +241,19 @@ def ODEAdjointProblem(
                         sol.u_final.detach()])
         extract = lambda z: cotangents(z[:n] + lam_final, z[n:n + npf])
         note = "BacksolveAdjoint: z = [λ; q; u]"
+    elif M_fwd is not None:
+        def aug_f(z, p_, tt):
+            y = dense_eval(dense, tt)
+            _, ubar, pbar = kern.f_and_vjp(y, p_, tt, z[:n])
+            return torch.cat([-ubar - cost_u(y, tt),
+                              -(_flat(pbar, ubar) + cost_p(y, tt))])
+
+        z0 = z_init
+        extract = lambda z: cotangents(du0_map(z[:n] + lam_final),
+                                       z[n:n + npf] + z_final[n:])
+        note = ("InterpolatingAdjoint DAE: z = [λ; q], mass [Mᵀ 0; 0 I]; "
+                "solve with SDIRK4() and an explicit dt0; dG/du0 = Mᵀλ(t0) "
+                "(algebraic rows 0 by convention)")
     else:
         def aug_f(z, p_, tt):
             y = dense_eval(dense, tt)
@@ -224,7 +273,7 @@ def ODEAdjointProblem(
             else None)
     cbs = [c for c in (cb, ev_cb) if c is not None]
     return AdjointProblemSpec(
-        prob=ODEProblem(aug_f, z0, (t1, t0), p), callback=(
+        prob=ODEProblem(aug_f, z0, (t1, t0), p, **prob_kw), callback=(
             None if not cbs else cbs[0] if len(cbs) == 1 else cbs),
         tstops=np.union1d(ts[interior].astype(float), ev_times),
         n=n, npf=npf, extract=extract, sensealg=sensealg, note=note)

@@ -177,6 +177,7 @@ def reverse_joined_solve(
     rtol,
     atol,
     max_steps: int,
+    dt0=None,
     hook: Optional[Callable] = None,
     hook_carry: Any = None,
     snap_values: Optional[torch.Tensor] = None,
@@ -219,6 +220,9 @@ def reverse_joined_solve(
     `event_unroll` per stop (JAX: max(3, callbacks)). Events at or above
     t_hi fire before the reverse starts (an event at t1, or the terminal
     event at a dynamic t_final).
+
+    dt0: the reverse's first step (the DAE rules pass the forward's dt0:
+    the automatic one assumes u' = f).
 
     fixed_trip: the masked scan's budget of max_steps + m + 4 attempts
     (`integrate(fixed_trip=True)`), JAX's unrolled reverse (`unroll_scan`).
@@ -286,7 +290,8 @@ def reverse_joined_solve(
         np.concatenate([times, ev_t]))
     res = integrate(
         stepper, aug_rhs, t_hi, t_lo, z0,
-        rtol=rtol, atol=atol, max_steps=max_steps + m + 4, tstops=all_stops,
+        rtol=rtol, atol=atol, dt0=dt0, max_steps=max_steps + m + 4,
+        tstops=all_stops,
         hook=wrapped_hook, hook_carry=(hook_carry, k0, ke0),
         stop_transform=stop_transform, store_dense=collect_dense,
         err_weights=err_weights, fixed_trip=fixed_trip,

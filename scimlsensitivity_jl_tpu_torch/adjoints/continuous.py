@@ -113,6 +113,7 @@ from ..sensealg import (BacksolveAdjoint, ForwardDiffSensitivity, GaussAdjoint,
                         GaussKronrodAdjoint, InterpolatingAdjoint,
                         QuadratureAdjoint)
 from ..solvers.explicit import ExplicitRK
+from ..solvers.rosenbrock import jacobian
 from ..solvers.integrate import (RETCODE_TERMINATED, Stats, integrate,
                                  kind_torch_dtype, match_tol, next_stop,
                                  time_dtype)
@@ -220,8 +221,11 @@ class _ContinuousRule:
         self.f, self.solver, self.sensealg, self.opts = f, solver, sensealg, opts
         self.t0, self.t1, self.saveat = t0, t1, saveat
         self.u0_tree, self.unravel_p, self.has_p = u0_tree, unravel_p, has_p
-        self.bwd_stepper = bwd_solver or solver
+        self.bwd_solver, self.bwd_stepper = bwd_solver, bwd_solver or solver
         self.record, self.hooks = record, hooks
+        # a singular mass matrix rides on the stepper (`solve` moved it
+        # there): the DAE branches of the rules
+        self.mass = getattr(solver, "mass_matrix", None)
         # the reverses over the forward's interpolant read u(t) from its
         # dense output; the checkpointed ones re-solve instead
         self.checkpointed = getattr(sensealg, "checkpointing", False) and (
@@ -306,7 +310,10 @@ class _ContinuousRule:
         kern = self._kern(p)
         d_saveat = None
         if want_sv and d_ys is not None:
-            d_saveat = self._saveat_grad(kern, p, ys_save, lam_jumps, sv)
+            # a DAE's save times keep the zero, as in JAX (du_a/dt needs the
+            # constraint differentiated implicitly)
+            d_saveat = (torch.zeros_like(sv) if self.mass is not None else
+                        self._saveat_grad(kern, p, ys_save, lam_jumps, sv))
         have_dense = d_dys is not None or d_dfs is not None
         if self.step_log is not None:
             du0, dp = self._backward_forwarddiff(u0vec, pflat, p, kern,
@@ -395,6 +402,10 @@ class _ContinuousRule:
                 "gradients through sol(t) (dense output) are not supported "
                 "with checkpointing=True; use the dense (non-checkpointed) "
                 "variant or ForwardDiffSensitivity")
+        if self.mass is not None:
+            raise NotImplementedError(
+                "gradients through sol(t) are not supported for DAE "
+                "(singular-mass) adjoints; use ForwardDiffSensitivity")
         if self.opts.callback is not None:
             raise NotImplementedError(
                 "gradients through sol(t) combined with callbacks are not "
@@ -518,6 +529,21 @@ class _ContinuousRule:
         aug_rhs = _joined_rhs(kern, p, n, lambda t: dense_eval(dense, t))
         z0 = u0vec.new_zeros(n + npf)
         wts = _err_weights(u0vec, n, npf)
+        if self.mass is not None:
+            # the adjoint DAE Mᵀλ' = −Jᵀλ, q' = −f_pᵀλ with the augmented
+            # mass blockdiag(Mᵀ, I) (JAX :1125-1175); stiffly accurate
+            # stages hold the algebraic adjoint constraint pointwise
+            du0_map, lamjs, qjs = _dae_project_jumps(self.mass, kern, p,
+                                                     dense, times, jumps)
+            m_aug = np.eye(n + npf)
+            m_aug[:n, :n] = host_matrix(self.mass).T
+            z, _, rstats, _ = reverse_joined_solve(
+                self._dae_stepper(m_aug, u0vec), aug_rhs, times,
+                torch.cat([lamjs, qjs.to(lamjs.dtype)], dim=1), z0, n + npf,
+                err_weights=wts, dt0=self.opts.dt0, **adj,
+                **self._dae_event_kwargs(kern, p, event_set, n, npf,
+                                         q_slice=n))
+            return du0_map(z[:n]), z[n:], rstats, rstats.retcode
         if self._pinned_on(event_set):
             z, _, rstats = reverse_pinned_solve(
                 self.bwd_stepper,
@@ -639,6 +665,9 @@ class _ContinuousRule:
         goes into the hook's carry (Quadrature: into the sum that the
         quadrature adds to)."""
         dense, n, npf = self.dense, u0vec.numel(), pflat.numel()
+        if self.mass is not None:
+            return self._backward_dae_lambda(u0vec, pflat, p, kern, times,
+                                             jumps, adj, event_set)
         quadrature = isinstance(self.sensealg, QuadratureAdjoint)
         pinned = not quadrature and self._pinned_on(event_set)
         aug_rhs = _lam_rhs(kern, p, lambda t: dense_eval(dense, t))
@@ -668,6 +697,54 @@ class _ContinuousRule:
         elif finish is not None:
             q = finish(q)
         return lam, q, rstats, rstats.retcode
+
+    def _dae_stepper(self, mass, like):
+        """The DAE reverse stepper with the reverse mass `mass` (host)."""
+        return _dae_reverse_stepper(self.bwd_solver, self.bwd_stepper) \
+            .with_mass_matrix(torch.as_tensor(mass, dtype=like.dtype,
+                                              device=like.device))
+
+    def _dae_event_kwargs(self, kern, p, event_set, n, npf, **where):
+        """reverse_joined_solve's event arguments with the DAE jump."""
+        if event_set is None:
+            return {}
+        return event_kwargs(self.events, event_set, _make_dae_event_apply(
+            kern, p, event_set, self.events, n, npf, self.mass, **where))
+
+    def _backward_dae_lambda(self, u0vec, pflat, p, kern, times, jumps, adj,
+                             event_set):
+        """(dL/du0, dL/dp, reverse Stats, worst retcode) of GaussAdjoint,
+        GaussKronrodAdjoint and QuadratureAdjoint on a semi-explicit
+        index-1 DAE (JAX :1489-1530, :1594-1625): λ alone backwards with
+        mass Mᵀ, the projected jumps, the algebraic λ rows re-solved at
+        every quadrature node (`_dae_lam_fix`), the save-time q-corrections
+        −f_pᵀŵ summed directly, dL/du0 = Mᵀλ(t0)."""
+        dense, n, npf = self.dense, u0vec.numel(), pflat.numel()
+        quadrature = isinstance(self.sensealg, QuadratureAdjoint)
+        du0_map, lamjs, qjs = _dae_project_jumps(self.mass, kern, p, dense,
+                                                 times, jumps)
+        lam_fix = _dae_lam_fix(self.mass, kern, p)
+        qdtype = torch.promote_types(u0vec.dtype, torch.float32)
+        q0 = torch.zeros(npf, dtype=qdtype, device=u0vec.device)
+        hook, finish = None, None
+        if self.has_p and not quadrature:
+            hook, q0, finish = make_gauss_quad_hook(
+                kern, p, dense, self.sensealg, self.t0, self.t1, qdtype,
+                lam_fix=lam_fix)
+        lam, q, rstats, lam_dense = reverse_joined_solve(
+            self._dae_stepper(host_matrix(self.mass).T, u0vec),
+            _lam_rhs(kern, p, lambda t: dense_eval(dense, t)), times, lamjs,
+            u0vec.new_zeros(n), n, hook=hook, hook_carry=q0,
+            collect_dense=quadrature, dt0=self.opts.dt0, **adj,
+            **self._dae_event_kwargs(kern, p, event_set, n, npf,
+                                     q_in_hc=True))
+        if quadrature:
+            q = adaptive_gk_dp(kern, p, dense, lam_dense, self.sensealg, q,
+                               lam_fix=lam_fix)
+        elif finish is not None:
+            q = finish(q)
+        q = q + qjs.sum(0).to(q.dtype)
+        return du0_map(lam), q, rstats, rstats.retcode
 
     def _backward_forwarddiff(self, u0vec, pflat, p, kern, lam, d_uf,
                               d_dys=None, d_dfs=None, d_dts=None):
@@ -1016,6 +1093,239 @@ def _make_event_apply(kern, p, event_set, events, n, npf, q_slice=None,
     return apply
 
 
+def host_matrix(M) -> np.ndarray:
+    """A mass matrix (tensor, array or nested list) as a float64 host
+    array: its row classification and determinant test run on the host,
+    once per solve, never in the step loop."""
+    if isinstance(M, torch.Tensor):
+        M = M.detach().cpu()
+        if M.is_complex():
+            M = M.real
+        return M.to(torch.float64).numpy()
+    return np.asarray(M, dtype=float)
+
+
+def _semi_explicit_split(M_fwd):
+    """Classify a singular constant mass matrix as semi-explicit index-1
+    (JAX `_semi_explicit_split`): the algebraic variables are the zero rows
+    of M; the differential block M[d, d] must be nonsingular and M[d, a]
+    zero. Returns (a_idx, d_idx) as numpy index arrays."""
+    Mnp = host_matrix(M_fwd)
+    row_zero = np.all(Mnp == 0.0, axis=1)
+    a_idx = np.where(row_zero)[0]
+    d_idx = np.where(~row_zero)[0]
+    if a_idx.size and np.any(Mnp[np.ix_(d_idx, a_idx)] != 0.0):
+        raise NotImplementedError(
+            "mass matrix couples differential rows to algebraic variables "
+            "(M[d,a] != 0): not semi-explicit index-1 after row "
+            "classification — rewrite the system in semi-explicit form")
+    Mdd = Mnp[np.ix_(d_idx, d_idx)]
+    if d_idx.size and abs(float(np.linalg.det(Mdd))) < 1e-300:
+        raise ValueError(
+            "the differential block of the mass matrix must be nonsingular "
+            "(reference adjoint_common.jl:131-133)")
+    return a_idx, d_idx
+
+
+class _DAEBlocks(NamedTuple):
+    """A semi-explicit index-1 mass matrix split for the adjoint: index
+    tensors of the algebraic and differential rows, M_ddᵀ and Mᵀ on the
+    state's device and dtype."""
+
+    a: torch.Tensor
+    d: torch.Tensor
+    MddT: torch.Tensor
+    MT: torch.Tensor
+
+
+def _dae_blocks(M_fwd, like: torch.Tensor) -> _DAEBlocks:
+    Mnp = host_matrix(M_fwd)
+    a_idx, d_idx = _semi_explicit_split(Mnp)
+    on = lambda x: torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    idx = lambda x: torch.as_tensor(x, dtype=torch.long, device=like.device)
+    return _DAEBlocks(idx(a_idx), idx(d_idx),
+                      on(Mnp[np.ix_(d_idx, d_idx)].T.copy()),
+                      on(Mnp.T.copy()))
+
+
+def _dae_jac(kern, p, y, t):
+    """∂f/∂u at (y, t) by forward mode (`solvers.rosenbrock.jacobian`), as
+    JAX's `jax.jacfwd` of the field."""
+    return jacobian(lambda uu, tt: kern.fvec(uu, p, tt), y, t).to(y.dtype)
+
+
+def _dae_route(kern, p, blk, y, t, v):
+    """A raw cotangent v at (y, t) routed through the constraint
+    0 = f_a(u_d, u_a): ŵ = J_aaᵀ \\ v_a, λ_d = M_ddᵀ \\ (v_d − (Jᵀŵ)_d),
+    λ_a = 0; returns (λ, f_pᵀŵ flat)."""
+    J = _dae_jac(kern, p, y, t)
+    Jaa = J[blk.a][:, blk.a]
+    w = torch.linalg.solve(Jaa.T, v[blk.a])
+    cot = torch.zeros_like(v)
+    cot[blk.a] = w
+    _, ubar, pbar = kern.f_and_vjp(y, p, t, cot)
+    lam_d = torch.linalg.solve(blk.MddT, (v - ubar.to(v.dtype))[blk.d])
+    lam = torch.zeros_like(v)
+    lam[blk.d] = lam_d
+    return lam, _flat(pbar, ubar)
+
+
+def _dae_project_jumps(M_fwd, kern, p, dense, times, jumps):
+    """The discrete loss cotangents projected onto the differential adjoint
+    of a semi-explicit index-1 DAE with a general differential mass block
+    (JAX `_dae_project_jumps`; the reference's ReverseLossCallback
+    projection, adjoint_common.jl:790-817):
+
+        ŵ = J_aaᵀ \\ v_a,  λ-jump_d = M_ddᵀ \\ (v_d − (Jᵀŵ)_d),  λ-jump_a = 0,
+        q-jump = −f_pᵀŵ
+
+    at u(tₖ) from the forward's dense output. JAX vmaps the rows; here they
+    are a loop. Returns (du0_map λ ↦ Mᵀλ, λ-jumps (m, n), q-jumps
+    (m, npf))."""
+    blk = _dae_blocks(M_fwd, jumps)
+    lamjs, qjs = [], []
+    for tk, v in zip(times, jumps):
+        lam, fpw = _dae_route(kern, p, blk, dense_eval(dense, tk), tk, v)
+        lamjs.append(lam)
+        qjs.append(-fpw)
+    # dL/du0 = Mᵀλ(t0): the algebraic columns of M are zero, so the
+    # algebraic rows of the result vanish
+    du0_map = lambda lam: blk.MT @ lam
+    return du0_map, torch.stack(lamjs), torch.stack(qjs)
+
+
+def _dae_lam_fix(M_fwd, kern, p, gu_fn=None):
+    """The algebraic rows of an interpolated DAE adjoint state re-solved
+    from its differential rows (JAX `_dae_lam_fix`):
+
+        J_aaᵀ λ_a = −(Jᵀλ_d)_a − (∂g/∂u)_a
+
+    at each quadrature node, since a Hermite read of λ_a carries O(h)
+    error straight into ∫λᵀ∂f/∂p. gu_fn(yvec, t) -> ∂g/∂u adds a
+    continuous cost. Returns fix(yvec, t, λ) -> λ, or None when M has no
+    algebraic rows."""
+    a_idx, _ = _semi_explicit_split(M_fwd)
+    if a_idx.size == 0:
+        return None
+    a_cache = {}
+
+    def fix(yj, tj, lam):
+        a = a_cache.setdefault(lam.device, torch.as_tensor(
+            a_idx, dtype=torch.long, device=lam.device))
+        lam_d = lam.clone()
+        lam_d[a] = 0.0
+        rhs = kern.vjp_u(yj, p, tj, lam_d)[a]
+        if gu_fn is not None:
+            rhs = rhs + gu_fn(yj, tj)[a]
+        Jaa = _dae_jac(kern, p, yj, tj)[a][:, a]
+        lam_d[a] = torch.linalg.solve(Jaa.T, -rhs.to(lam.dtype))
+        return lam_d
+
+    return fix
+
+
+def _dae_reverse_stepper(bwd_solver, bwd_stepper):
+    """The reverse stepper of a DAE adjoint (JAX `_dae_reverse_stepper`):
+    an explicit bwd_solver, else the forward's stepper when it is an
+    ESDIRK (stiffly accurate stages enforce the algebraic adjoint
+    constraint pointwise), else SDIRK4."""
+    from ..solvers.sdirk import ESDIRK, SDIRK4
+
+    if bwd_solver is not None:
+        return bwd_solver
+    return bwd_stepper if isinstance(bwd_stepper, ESDIRK) else SDIRK4()
+
+
+def _make_dae_event_apply(kern, p, event_set, events, n, npf, M_fwd,
+                          q_slice=None, q_in_hc=False, run_cost=None):
+    """The reverse event jump composed with the semi-explicit index-1
+    projection (JAX `_make_dae_event_apply`). The adjoint state maps to its
+    raw cotangent ν⁺ = (M_ddᵀλ⁺_d on the differential rows, 0 on the
+    algebraic ones), pulls back through the affect, v = (∂A/∂u)ᵀν⁺ (with
+    the implicit-τ correction of a continuous condition, taken with the
+    DAE-consistent u̇: M_dd u̇_d = f_d, J_aa u̇_a = −J_ad u̇_d − ∂f_a/∂t),
+    and is routed through the constraint as a save-time jump is:
+
+        ŵ = J_aaᵀ \\ v_a,  λ⁻_d = M_ddᵀ \\ (v_d − (Jᵀŵ)_d),  λ⁻_a = 0,
+        dq += (∂A/∂p)ᵀν⁺ − f_pᵀŵ
+
+    with J at the pre-event state. (∂A/∂u·u̇⁻)·ν⁺ is taken as
+    u̇⁻·((∂A/∂u)ᵀν⁺), so no forward mode runs through the affect.
+    apply(i, t, z, hc) -> (z, hc), as `_make_event_apply`."""
+    ev_upre = events.u_pre
+    ev_idx = events.idx.tolist()
+    n_cont = event_set.n_cont
+    tdt = kind_torch_dtype(time_dtype(ev_upre.dtype))
+    blk = _dae_blocks(M_fwd, ev_upre)
+    Mdd = blk.MddT.T
+
+    def udot(u, t):
+        fval = kern.fvec(u, p, t).to(u.dtype)
+        J = _dae_jac(kern, p, u, t)
+        tt = torch.tensor(t, dtype=tdt, device=u.device)
+        _, ft = torch.func.jvp(lambda s: kern.fvec(u, p, s), (tt,),
+                               (torch.ones_like(tt),))
+        ud_d = torch.linalg.solve(Mdd, fval[blk.d])
+        ud_a = torch.linalg.solve(
+            J[blk.a][:, blk.a],
+            -(J[blk.a][:, blk.d] @ ud_d) - ft.to(u.dtype)[blk.a])
+        out = torch.zeros_like(u)
+        out[blk.d] = ud_d
+        out[blk.a] = ud_a
+        return out
+
+    def apply(i, t, z, hc):
+        u_pre = ev_upre[i]
+        j = ev_idx[i]
+        lam = z[:n]
+        nu = torch.zeros_like(lam)
+        nu[blk.d] = blk.MddT @ lam[blk.d]
+        if p is None:
+            u_post, pull = torch.func.vjp(
+                lambda uu: event_set.affect_p(uu, None, t, j), u_pre)
+            (ubar,), pbar_flat = pull(nu.to(u_post.dtype)), None
+        else:
+            u_post, pull = torch.func.vjp(
+                lambda uu, pp: event_set.affect_p(uu, pp, t, j), u_pre, p)
+            ubar, pbar = pull(nu.to(u_post.dtype))
+            pbar_flat = ravel_pytree(pbar)[0]
+        v = ubar.to(z.dtype)
+        if j < n_cont:
+            ud_m = udot(u_pre, t)
+            ud_p = udot(u_post, t)
+            tt = torch.tensor(t, dtype=tdt, device=z.device)
+            gu, gt = torch.func.grad(
+                lambda uu, t_: event_set.cond_j(uu, p, t_, j),
+                argnums=(0, 1))(u_pre, tt)
+            gdot = gu @ ud_m.to(gu.dtype) + gt.to(gu.dtype)
+            term = ud_m.to(z.dtype) @ v - ud_p.to(z.dtype) @ nu
+            if run_cost is not None:
+                g_pp = torch.as_tensor(run_cost(u_post, t))
+                if (event_set.terminals is not None
+                        and event_set.terminals[j]):
+                    g_pp = torch.zeros_like(g_pp)
+                term = term + (torch.as_tensor(run_cost(u_pre, t))
+                               - g_pp).to(term.dtype)
+            safe = gdot.abs() > 1e-300
+            corr = torch.where(safe, term / torch.where(
+                safe, gdot, torch.ones_like(gdot)), torch.zeros_like(term))
+            v = v - gu.to(z.dtype) * corr
+        lam_new, fpw = _dae_route(kern, p, blk, u_pre, t, v)
+        dq = -fpw if pbar_flat is None else pbar_flat.to(fpw.dtype) - fpw
+        z = z.clone()
+        z[:n] = lam_new
+        if q_slice is not None and npf > 0:
+            z[q_slice:q_slice + npf] += dq.to(z.dtype)
+        if q_in_hc and npf > 0:
+            if isinstance(hc, tuple):
+                hc = (hc[0] + dq.to(hc[0].dtype),) + hc[1:]
+            else:
+                hc = hc + dq.to(hc.dtype)
+        return z, hc
+
+    return apply
+
+
 def _joined_rhs(kern, p, n: int, y_of):
     """The reverse field over z = [λ; q]: −[ūᵀ, p̄ᵀ] from one `f_and_vjp`
     at u = y_of(t). Its `.jac` is the adjoint Jacobian [[−Jᵀ, 0],
@@ -1065,7 +1375,7 @@ def _interval_y(dense, i: int):
 
 
 def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
-                         pinned: bool = False, extra_p=None):
+                         pinned: bool = False, extra_p=None, lam_fix=None):
     """Per-accepted-step hook of a λ-only reverse solve that accumulates
     dL/dp = ∫ λᵀ∂f/∂p dt in its carry (JAX `make_gauss_quad_hook`). λ at a
     node comes from the step's own Hermite interpolant, u from the
@@ -1074,6 +1384,8 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
     qdtype: promote(state dtype, float32), the running sum's dtype (a
     bfloat16 sum would lose the mantissa). extra_p(yvec, t) -> (npf,): a
     continuous cost's ∂g/∂p, added to the integrand (the direct API).
+    lam_fix(yvec, t, λ) -> λ: a DAE's algebraic λ rows re-solved at each
+    node (`_dae_lam_fix`).
 
     GaussAdjoint: n_nodes Gauss–Legendre nodes per step; the carry is q.
     GaussKronrodAdjoint: a GK(7,15) pair per step, and a step whose
@@ -1096,6 +1408,8 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
         def node(tj):
             lam_j = hermite_eval(tj, ta, tb, lam_a, fa, lam_b, fb)
             yj = y_of(tj)
+            if lam_fix is not None:
+                lam_j = lam_fix(yj, tj, lam_j)
             out = ravel_pytree(kern.vjp_p(yj, p, tj, lam_j))[0].to(qdtype)
             if extra_p is not None:
                 out = out + extra_p(yj, tj).to(qdtype)
@@ -1173,7 +1487,7 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
 
 
 def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init,
-                   extra_p=None):
+                   extra_p=None, lam_fix=None):
     """QuadratureAdjoint's dL/dp after the λ-only reverse: h-adaptive
     Gauss–Kronrod over λ's recorded dense output (JAX `adaptive_gk_dp`).
     The base partition is one GK(7,15) panel per recorded reverse step, the
@@ -1185,7 +1499,8 @@ def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init,
     Each panel's estimate is kept, where the JAX loop evaluates a split
     panel once more. q_init: the running sum to add to (its dtype is the
     sum's). extra_p(yvec, t) -> (npf,): a continuous cost's ∂g/∂p, added
-    to the integrand."""
+    to the integrand. lam_fix: a DAE's algebraic λ rows re-solved at each
+    node (`_dae_lam_fix`)."""
     if p is None:
         return q_init
     qdtype = q_init.dtype
@@ -1197,6 +1512,8 @@ def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init,
     def integrand(tj):
         lam_j = dense_eval(lam_dense, tj)
         yj = dense_eval(dense, tj)
+        if lam_fix is not None:
+            lam_j = lam_fix(yj, tj, lam_j)
         out = ravel_pytree(kern.vjp_p(yj, p, tj, lam_j))[0].to(qdtype)
         if extra_p is not None:
             out = out + extra_p(yj, tj).to(qdtype)

@@ -25,13 +25,21 @@ a solution solved with `callback=` needs the same callback, whose recorded
 events the reverse jumps over (`_make_event_apply`), with the running
 cost's moving-boundary term (g⁻ − g⁺)·dτ when `g=` is given.
 
+A semi-explicit index-1 DAE solution (its stepper carries the singular
+mass matrix, JAX :342-455) reverses with mass Mᵀ (Interpolating: the
+augmented blockdiag(Mᵀ, I)) on the DAE reverse stepper, with the discrete
+cotangents projected through the constraint (`_dae_project_jumps`), the
+algebraic λ rows re-solved at each quadrature node with the running cost
+in them (`_dae_lam_fix`), the DAE event jump, and dG/du0 = Mᵀλ(t0);
+Backsolve and t_grads raise there, as in JAX.
+
 The JAX function evaluates the data-time derivatives under `vmap`; here
 they are a loop, so the user's callbacks need not be batchable. Time is a
 host value: the callbacks get t as a numpy scalar of the time dtype.
 Everything runs under `torch.no_grad()`; the results carry no graph.
 
-Not here: SDE and RODE solutions (ROADMAP M12) and mass matrices (M9b)
-raise NotImplementedError, as do parameter-modifying events (as in JAX).
+Not here: SDE and RODE solutions (ROADMAP M12) raise NotImplementedError,
+as do parameter-modifying events (as in JAX).
 """
 
 from __future__ import annotations
@@ -49,8 +57,11 @@ from ..sensealg import (BacksolveAdjoint, GaussAdjoint, GaussKronrodAdjoint,
 from ..solvers.integrate import (RETCODE_TERMINATED, match_tol, time_dtype)
 from ..utils.pytree import ravel_pytree
 from .common import match_cotangents, reverse_joined_solve
-from .continuous import (_err_weights, _flat, _make_event_apply,
-                         adaptive_gk_dp, event_kwargs, make_gauss_quad_hook)
+from .continuous import (_dae_lam_fix, _dae_project_jumps,
+                         _dae_reverse_stepper, _err_weights, _flat,
+                         _joined_rhs, _lam_rhs, _make_dae_event_apply,
+                         _make_event_apply, adaptive_gk_dp, event_kwargs,
+                         host_matrix, make_gauss_quad_hook)
 
 __all__ = ["adjoint_sensitivities"]
 
@@ -64,18 +75,12 @@ def host_times(t, kind) -> np.ndarray:
 
 
 def refuse_other_problems(sol, who: str):
-    """SDE/RODE solutions (ROADMAP M12) and mass matrices (M9b) are not
-    ported."""
+    """SDE/RODE solutions are not ported (ROADMAP M12)."""
     prob = sol.prob
     if not isinstance(prob, ODEProblem):
         raise NotImplementedError(
             f"{who} on a {type(prob).__name__} solution: SDE and RODE "
             "solutions are ROADMAP M12")
-    if prob.mass_matrix is not None or getattr(
-            sol.solver, "mass_matrix", None) is not None:
-        raise NotImplementedError(
-            f"{who} with a mass matrix: mass matrices and DAEs are ROADMAP "
-            "M9b")
 
 
 def event_set_of(sol, callback, p, unravel_u, kind, max_events, who):
@@ -259,7 +264,13 @@ def adjoint_sensitivities(
             kern, p, event_set, sol.events, n, npf, run_cost=run_cost,
             **where))
 
-    if isinstance(sensealg, BacksolveAdjoint):
+    M_fwd = getattr(solver, "mass_matrix", None)
+    if M_fwd is not None:
+        lam0, q, rstats = _dae_reverse(
+            sensealg, solver, M_fwd, kern, p, dense, times, jumps, u0vec,
+            npf, adj, cost_u, extra_p, event_set, sol.events, run_cost,
+            t_grads, (t0, t1), qdtype)
+    elif isinstance(sensealg, BacksolveAdjoint):
         # [λ; q; u], the ODE itself integrated backwards from u(t1)
         def aug_rhs(z, tt):
             lam, y = z[:n], z[n + npf:]
@@ -340,3 +351,88 @@ def adjoint_sensitivities(
     dgdt1 = torch.zeros((), dtype=tdt, device=u0vec.device) if stopped_early \
         else g_at(y1, t1)
     return du0, dp, (dgdt0, dgdt1)
+
+
+def _dae_reverse(sensealg, solver, M_fwd, kern, p, dense, times, jumps,
+                 u0vec, npf, adj, cost_u, extra_p, event_set, events,
+                 run_cost, t_grads, tspan, qdtype):
+    """(Mᵀλ(t0), dG/dp without the discrete cost's, reverse Stats) of a
+    semi-explicit index-1 DAE solution (JAX interface.py:342-455): the
+    direct-API mirror of the rules' DAE branches. The reverse stepper is
+    `_dae_reverse_stepper(None, solver)` with mass Mᵀ (Interpolating: the
+    joined [λ; q] with blockdiag(Mᵀ, I)); the continuous cost's ∂g/∂u
+    enters the reverse field and, through `_dae_lam_fix`, the algebraic
+    rows at each quadrature node."""
+    if t_grads:
+        raise NotImplementedError(
+            "t_grads on mass-matrix/DAE solutions is not supported (the "
+            "endpoint term pairs through μᵀu̇, which needs a consistent u̇); "
+            "drop t_grads=True")
+    if isinstance(sensealg, BacksolveAdjoint):
+        raise NotImplementedError(
+            "BacksolveAdjoint re-integrates the DAE backwards, which is not "
+            "supported; use InterpolatingAdjoint / GaussAdjoint / "
+            "QuadratureAdjoint on mass-matrix solutions")
+    n = u0vec.numel()
+    du0_map, lamjs, qjs = _dae_project_jumps(M_fwd, kern, p, dense, times,
+                                             jumps)
+    lam_fix = _dae_lam_fix(M_fwd, kern, p, gu_fn=cost_u)
+    M_host = host_matrix(M_fwd)
+    on = lambda a: torch.as_tensor(a, dtype=u0vec.dtype, device=u0vec.device)
+
+    def ev(**where):
+        if event_set is None:
+            return {}
+        return event_kwargs(events, event_set, _make_dae_event_apply(
+            kern, p, event_set, events, n, npf, M_fwd, run_cost=run_cost,
+            **where))
+
+    if isinstance(sensealg, InterpolatingAdjoint):
+        y_of = lambda tt: dense_eval(dense, tt)
+        base = _joined_rhs(kern, p, n, y_of)
+
+        def aug_rhs(z, tt):
+            out = base(z, tt)
+            return torch.cat([out[:n] - cost_u(y_of(tt), tt),
+                              out[n:] - (extra_p(y_of(tt), tt).to(out.dtype)
+                                         if extra_p is not None else 0.0)])
+
+        # the cost terms do not depend on z: the adjoint Jacobian stands
+        aug_rhs.jac = base.jac
+
+        m_aug = np.eye(n + npf)
+        m_aug[:n, :n] = M_host.T
+        stepper = _dae_reverse_stepper(None, solver).with_mass_matrix(
+            on(m_aug))
+        z, _, rstats, _ = reverse_joined_solve(
+            stepper, aug_rhs, times,
+            torch.cat([lamjs, qjs.to(lamjs.dtype)], dim=1),
+            u0vec.new_zeros(n + npf), n + npf,
+            err_weights=_err_weights(u0vec, n, npf), **adj, **ev(q_slice=n))
+        return du0_map(z[:n]), z[n:], rstats
+    y_of = lambda tt: dense_eval(dense, tt)
+    base = _lam_rhs(kern, p, y_of)
+
+    def aug_rhs(lam, tt):
+        return base(lam, tt) - cost_u(y_of(tt), tt)
+
+    aug_rhs.jac = base.jac
+    stepper = _dae_reverse_stepper(None, solver).with_mass_matrix(
+        on(M_host.T))
+    quadrature = isinstance(sensealg, QuadratureAdjoint)
+    hook, finish = None, (lambda q_: q_)
+    q0 = torch.zeros(npf, dtype=qdtype, device=u0vec.device)
+    if npf and not quadrature:
+        t0, t1 = tspan
+        hook, q0, finish = make_gauss_quad_hook(
+            kern, p, dense, sensealg, t0, t1, qdtype, extra_p=extra_p,
+            lam_fix=lam_fix)
+    lam, q, rstats, lam_dense = reverse_joined_solve(
+        stepper, aug_rhs, times, lamjs, u0vec.new_zeros(n), n, hook=hook,
+        hook_carry=q0, collect_dense=quadrature, **adj, **ev(q_in_hc=True))
+    if quadrature:
+        q = adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q,
+                           extra_p=extra_p, lam_fix=lam_fix)
+    else:
+        q = finish(q)
+    return du0_map(lam), q + qjs.sum(0).to(q.dtype), rstats

@@ -42,7 +42,7 @@ import torch
 
 from .cuda_build import load_library
 from .vjp import (refuse_complex_state, refuse_double_backward,
-                  refuse_forward_mode)
+                  refuse_forward_mode, register_kernel_function)
 
 __all__ = ["mlp2_reference", "mlp2_fwd_reference", "mlp2_vjp_reference",
            "mlp2_fwd", "mlp2_vjp", "mlp2_fwd_cuda", "mlp2_vjp_cuda",
@@ -301,6 +301,9 @@ class FusedMLP2(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, *tangents):
         raise refuse_forward_mode("FusedMLP2 (K3/K4)")
+
+
+register_kernel_function(FusedMLP2, "FusedMLP2 (K3/K4)")
 
 
 def fused_mlp2(params: Dict[str, torch.Tensor], x: torch.Tensor):

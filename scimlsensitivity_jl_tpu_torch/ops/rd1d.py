@@ -54,7 +54,7 @@ import torch
 
 from .cuda_build import load_library
 from .vjp import (refuse_complex_state, refuse_double_backward,
-                  refuse_forward_mode)
+                  refuse_forward_mode, register_kernel_function)
 
 __all__ = ["rd1d_reference", "rd1d_vjp_reference", "rd1d_fwd", "rd1d_vjp",
            "rd1d_fwd_cuda", "rd1d_vjp_cuda", "fused_rd1d", "FusedRD1D",
@@ -272,6 +272,9 @@ class FusedRD1D(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, *tangents):
         raise refuse_forward_mode("FusedRD1D (K1/K2)")
+
+
+register_kernel_function(FusedRD1D, "FusedRD1D (K1/K2)")
 
 
 def fused_rd1d(u: torch.Tensor, p: torch.Tensor, inv_dx2: float):
@@ -571,6 +574,9 @@ class RD1DRK4Block(torch.autograd.Function):
     @staticmethod
     def jvp(ctx, *tangents):
         raise refuse_forward_mode("RD1DRK4Block (K5/K6)")
+
+
+register_kernel_function(RD1DRK4Block, "RD1DRK4Block (K5/K6)")
 
 
 def make_rd1d_rk4_block(n: int, S: int, chunk: int = 4096,

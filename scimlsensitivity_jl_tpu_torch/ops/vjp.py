@@ -21,6 +21,7 @@ before launch.
 
 from __future__ import annotations
 
+import re
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -29,7 +30,7 @@ from ..sensealg import AutoVJP, FiniteDiffVJP, JacVJP, VJPChoice
 from ..utils.pytree import ravel_pytree
 
 __all__ = ["VJPKernels", "make_vjp_kernels", "ForwardModeUnsupported",
-           "jacfwd",
+           "jacfwd", "probe_forward_mode", "register_kernel_function",
            "refuse_forward_mode", "DoubleBackwardUnsupported",
            "refuse_double_backward", "ComplexStateUnsupported",
            "refuse_complex_state"]
@@ -81,17 +82,56 @@ def refuse_forward_mode(function: str):
         "QuadratureAdjoint, BacksolveAdjoint, DirectAdjoint) instead")
 
 
+# kernel Function class name -> the label of its forward-mode refusal
+_KERNEL_FUNCTIONS = {}
+
+
+def register_kernel_function(cls, label: str):
+    """Register a kernel Function by its class name: vmap refuses such a
+    Function by that name before it runs, so `jacfwd` and
+    `probe_forward_mode` raise its forward-mode refusal without a launch."""
+    _KERNEL_FUNCTIONS[cls.__name__] = label
+    return cls
+
+
+def _named_refusal(err: RuntimeError):
+    """The forward-mode refusal of the registered kernel Function that a
+    vmap error names, or None."""
+    m = re.search(r"vmap over (\w+)", str(err))
+    label = _KERNEL_FUNCTIONS.get(m.group(1)) if m else None
+    return None if label is None else refuse_forward_mode(label)
+
+
 def jacfwd(fn: Callable, u: torch.Tensor) -> torch.Tensor:
     """`torch.func.jacfwd(fn)(u)`, where a kernel Function's own refusal
     comes first: jacfwd vmaps the jvp over an n×n basis, so on a kernel
     field torch's complaint about the Function's missing vmap rule, or at
     a PDE's n the basis's allocation, would hide `ForwardModeUnsupported`.
-    On such an error one plain jvp probes the field, then the error
-    stands."""
+    A vmap error that names a registered kernel Function raises its
+    refusal (nothing has launched); on another error one plain jvp probes
+    the field, then the error stands."""
     try:
         return torch.func.jacfwd(fn)(u)
-    except RuntimeError:
+    except RuntimeError as err:
+        named = _named_refusal(err)
+        if named is not None:
+            raise named from err
         torch.func.jvp(fn, (u,), (torch.zeros_like(u),))
+        raise
+
+
+def probe_forward_mode(fn: Callable, u: torch.Tensor) -> None:
+    """Raise `ForwardModeUnsupported` when fn reaches a kernel Function,
+    before anything launches: one jvp, vmapped over a single zero tangent
+    as `jacfwd` vmaps it. The stiff DAE and DDE paths call it before their
+    first field evaluation; on a plain field it costs one jvp."""
+    try:
+        torch.func.vmap(lambda v: torch.func.jvp(fn, (u,), (v,))[1])(
+            torch.zeros_like(u)[None])
+    except RuntimeError as err:
+        named = _named_refusal(err)
+        if named is not None:
+            raise named from err
         raise
 
 

@@ -1,11 +1,14 @@
 """Problem types (PyTorch port).
 
-Counterpart of `scimlsensitivity_jl_tpu/problems.py`: `ODEProblem`,
-`remake`, `SecondOrderODEProblem` (:205-227), `NonlinearProblem` and
-`SteadyStateProblem` with `to_nonlinear` (:166-189). SDE, RODE and DDE
-problems wait (ROADMAP M12, M13).
+Counterpart of `scimlsensitivity_jl_tpu/problems.py`: `ODEProblem` (with
+its mass matrix, :54-78), `DDEProblem` (:131-160), `remake`,
+`SecondOrderODEProblem` (:205-227), `NonlinearProblem` and
+`SteadyStateProblem` with `to_nonlinear` (:166-189). SDE and RODE problems
+wait (ROADMAP M12).
 
     ODEProblem(f, u0, tspan, p)          f(u, p, t) -> du
+    ODEProblem(..., mass_matrix=M)       M u' = f(u, p, t)
+    DDEProblem(f, u0, tspan, p, lags=)   f(u, hist, p, t) -> du
     NonlinearProblem(f, u0, p)           f(u, p) = 0
     SteadyStateProblem(f, u0, p)         f(u, p, t=∞) = 0
 
@@ -18,20 +21,25 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
-__all__ = ["ODEProblem", "remake", "SecondOrderODEProblem",
+__all__ = ["ODEProblem", "DDEProblem", "remake", "SecondOrderODEProblem",
            "NonlinearProblem", "SteadyStateProblem"]
 
 
 @dataclass(frozen=True)
 class ODEProblem:
-    """Initial value problem u' = f(u, p, t).
+    """Initial value problem u' = f(u, p, t), or M u' = f for a constant
+    mass matrix M.
 
     f: callable (u, p, t) -> du.
     u0: tensor or tree of tensors; its device and dtype are the solve's.
     tspan: (t0, t1) as Python floats.
     p: tensor or tree of tensors (may be None).
-    mass_matrix: kept for parity with the JAX problem; `solve` raises
-        NotImplementedError when it is set (ROADMAP M9b).
+    mass_matrix: optional (n, n) matrix over the *flattened* state (a
+        tensor or an array); None means identity, a plain ODE. An
+        invertible M is folded into the field once (u' = M⁻¹f); a singular
+        M is a semi-explicit index-1 DAE: its zero rows are the algebraic
+        equations 0 = f_a, solved with a mass-capable implicit stepper
+        (SDIRK4, Seulex / Rodas4Like, FBDF) and an explicit dt0.
     jac(u, p, t) -> (n, n) ∂f/∂u, vjp(λ, u, p, t) -> λᵀ∂f/∂u,
     paramjac(λ, u, p, t) -> λᵀ∂f/∂p: hooks that the continuous adjoint rules
         use in place of autograd (`ops.vjp.make_vjp_kernels`).
@@ -45,6 +53,38 @@ class ODEProblem:
     jac: Optional[Callable] = None
     vjp: Optional[Callable] = None
     paramjac: Optional[Callable] = None
+
+
+@dataclass(frozen=True)
+class DDEProblem:
+    """Delay differential equation u'(t) = f(u(t), (u(t−τ₁), ...), p, t).
+
+    f: (u, hist, p, t) -> du, hist the tuple of delayed states (then the
+        distributed-lag integrals).
+    lags: tuple whose entries are positive floats (constant lags) or
+        callables lag(u, p, t) -> scalar (state-dependent lags; gradients
+        flow through the lag via the interpolant's time argument). A
+        callable lag must stay at or above dt at run time: a smaller one
+        would make the step implicit, and poisons the solution with NaN
+        (retcode 3, DDELagViolation).
+    history: callable t -> u for t <= t0 (default: the constant u0).
+    max_lag: a bound on every lag, sizing the history buffer before t0;
+        required when a lag is callable (default: the largest constant
+        lag).
+    dist_kernels: tuple of callables K(s, p) -> scalar for distributed
+        lags: each adds I(t) = ∫₀^max_lag K(s, p)·u(t − s) ds after the
+        delayed states in f's hist tuple, a trapezoid over the dt grid
+        (fixed grid only; max_lag must be a multiple of dt).
+    """
+
+    f: Callable
+    u0: Any
+    tspan: tuple
+    p: Any = None
+    lags: tuple = ()
+    history: Optional[Callable] = None
+    max_lag: Optional[float] = None
+    dist_kernels: tuple = ()
 
 
 def remake(prob, **kwargs):

@@ -8,12 +8,16 @@ paramjac hooks and a checkpoint grid (`checkpoints=`, solve.py:548-581),
 ForwardSensitivity (solve.py:606-609)
 and adaptive DirectAdjoint (solve.py:611-619), with the callback dispatch
 (solve.py:327-545: lowering, terminal callbacks, p-modifying events lifted
-into the state). Gradients follow `sensealg` through torch.autograd,
-including those of a saveat tensor that requires grad.
-NonlinearProblem and SteadyStateProblem go to
-`adjoints/steadystate.solve_nonlinear` (solve.py:177-190, SteadyStateAdjoint
-only). Other problem types, mass matrices and the sensealgs whose rules
-are not ported raise NotImplementedError naming the ROADMAP item.
+into the state) and the mass-matrix branch (solve.py:230-325: an
+invertible M folded in once, a singular one a semi-explicit index-1 DAE on
+a mass-capable stepper, with `dae_init="newton"`). Gradients follow
+`sensealg` through torch.autograd, including those of a saveat tensor that
+requires grad. DDEProblem goes to `adjoints/dde` (solve.py:152-171: the
+fixed grid with dt=, else the adaptive method of steps); NonlinearProblem
+and SteadyStateProblem to `adjoints/steadystate.solve_nonlinear`
+(solve.py:177-190, SteadyStateAdjoint only). SDE and RODE problems and the
+sensealgs whose rules are not ported raise NotImplementedError naming the
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,11 +28,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .adjoints.continuous import SolveOptions, make_ode_solve_fn
+from .adjoints.continuous import (SolveOptions, host_matrix,
+                                  make_ode_solve_fn)
 from .callbacks import (any_modifies_p, as_callback_set,
                         check_callback_closures, lift_p_into_state,
                         lower_time_callbacks)
-from .problems import NonlinearProblem, ODEProblem, SteadyStateProblem
+from .ops.vjp import probe_forward_mode
+from .problems import (DDEProblem, NonlinearProblem, ODEProblem,
+                       SteadyStateProblem, remake)
 from .sensealg import (AbstractSensealg, BacksolveAdjoint, DirectAdjoint,
                        ForwardDiffSensitivity, ForwardSensitivity, GaussAdjoint,
                        GaussKronrodAdjoint, InterpolatingAdjoint,
@@ -75,8 +82,9 @@ def solve(
     verbose: bool = False,
     dtmax=None,
     save_idxs=None,
+    dae_init=None,
 ):
-    """Solve an ODE problem; gradients through the result follow `sensealg`.
+    """Solve a problem; gradients through the result follow `sensealg`.
 
     saveat: 1-D times (default: the two endpoints), as a list, numpy array
     or tensor; a tensor that requires grad gets dL/dtᵢ = Δᵢ·f(u(tᵢ)) under
@@ -94,6 +102,12 @@ def solve(
     the steps are the while driver's and, inside the budget, so is every
     value and gradient, bit for bit; it is not a CUDA graph. On the fixed
     grid it takes JAX's unrolled stage times.
+    dae_init: "newton" solves the algebraic rows of a singular-mass
+    problem's u0 (0 = f_a(u0)) before the solve, differentiably.
+    A DDEProblem takes dt= for the fixed-grid method of steps (RK4, or
+    TRBDF2 for a stiff one), else the adaptive one (Tsit5, Dopri5, BS3 or
+    an ESDIRK stepper, dt capped at the smallest lag, `dtmax` for
+    state-dependent lags); gradients are autograd through its loop.
     """
     if isinstance(prob, (NonlinearProblem, SteadyStateProblem)):
         from .adjoints.steadystate import solve_nonlinear
@@ -106,26 +120,108 @@ def solve(
                     f"{sensealg!r}")
             kw["sensealg"] = sensealg
         return solve_nonlinear(prob, **kw)
-    if not isinstance(prob, ODEProblem):
-        raise NotImplementedError(
-            f"solve for {type(prob).__name__}: the port solves ODE, "
-            "nonlinear and steady-state problems so far (ROADMAP M12-M13)")
-    if prob.mass_matrix is not None:
-        raise NotImplementedError(
-            "mass matrices and DAEs: ROADMAP M9b (the solvers' "
-            "with_mass_matrix runs through solvers.integrate.integrate)")
     if rtol is None:
         rtol = 1e-7
     if atol is None:
         atol = 1e-9
+    if isinstance(prob, DDEProblem):
+        if callback is not None:
+            raise NotImplementedError(
+                f"callbacks on {type(prob).__name__} are not supported — "
+                "don't pass callback=, it would be silently ignored")
+        from .adjoints.dde import solve_dde, solve_dde_adaptive
+
+        if dt is None:
+            # the constrained method of steps: dt capped at the smallest lag
+            return solve_dde_adaptive(
+                prob, solver, rtol=rtol, atol=atol, saveat=saveat,
+                max_steps=max_steps, dt0=dt0, dtmax=dtmax, sensealg=sensealg)
+        return solve_dde(prob, solver, dt=dt, saveat=saveat,
+                         sensealg=sensealg)
+    if not isinstance(prob, ODEProblem):
+        raise NotImplementedError(
+            f"solve for {type(prob).__name__}: the port solves ODE, DDE, "
+            "nonlinear and steady-state problems so far (ROADMAP M12)")
     return _solve_ode(
         prob, solver, saveat=saveat, rtol=rtol, atol=atol, dt0=dt0, dt=dt,
         max_steps=max_steps, tstops=tstops, sensealg=sensealg, dense=dense,
         adj_rtol=adj_rtol, adj_atol=adj_atol, adj_max_steps=adj_max_steps,
         bwd_solver=bwd_solver, adaptive=adaptive, unroll=unroll,
         verbose=verbose, dtmax=dtmax, callback=callback,
-        max_events=max_events, save_idxs=save_idxs,
+        max_events=max_events, save_idxs=save_idxs, dae_init=dae_init,
     )
+
+
+def _mass_matrix_branch(prob, solver, sensealg, dt0, dt, dae_init, u0vec,
+                        unravel_u):
+    """JAX solve.py:230-325: (prob, solver, sensealg) for a problem with a
+    mass matrix. The determinant test runs on M's host values, once. An
+    invertible M is folded in once, f ↦ M⁻¹f (the rules then differentiate
+    the transformed field). A singular M is a semi-explicit index-1 DAE:
+    it moves onto the stepper (`with_mass_matrix`), which needs an explicit
+    dt0; sensealg=None becomes ForwardDiffSensitivity; DirectAdjoint and
+    the dense Interpolating, Gauss, GaussKronrod and Quadrature rules are
+    taken; dae_init="newton" solves the algebraic rows of u0 (the zero rows
+    of M) with `solve_nonlinear`, whose IFT adjoint differentiates the
+    initialization. A kernel field is refused before anything launches: the
+    stepper's Jacobians need forward mode."""
+    M_host = host_matrix(prob.mass_matrix)
+    M = torch.as_tensor(M_host, dtype=u0vec.dtype, device=u0vec.device)
+    if abs(float(np.linalg.det(M_host))) >= 1e-300:
+        if dae_init not in (None, "none"):
+            raise ValueError("dae_init applies only to singular-mass-matrix "
+                             "(DAE) problems")
+        Minv = torch.linalg.inv(M)
+        f_orig = prob.f
+
+        def f_mass(u, p_, t):
+            duvec, unrav = ravel_pytree(f_orig(u, p_, t))
+            return unrav(Minv.to(duvec.dtype) @ duvec)
+
+        return remake(prob, f=f_mass, mass_matrix=None), solver, sensealg
+    if not hasattr(solver, "with_mass_matrix"):
+        raise NotImplementedError(
+            "singular mass matrices need an implicit solver with "
+            "mass-matrix stages (SDIRK4)")
+    solver = solver.with_mass_matrix(M)
+    if dt0 is None and dt is None:
+        raise ValueError("singular-mass-matrix solves need an explicit dt0")
+    if sensealg is None:
+        sensealg = ForwardDiffSensitivity()
+    elif isinstance(sensealg, (InterpolatingAdjoint, GaussAdjoint,
+                               GaussKronrodAdjoint, QuadratureAdjoint)):
+        if getattr(sensealg, "checkpointing", False):
+            raise NotImplementedError(
+                "continuous DAE adjoints need the dense (non-checkpointed) "
+                "variant")
+    elif not isinstance(sensealg, (ForwardDiffSensitivity, DirectAdjoint)):
+        raise NotImplementedError(
+            "DAE gradients: ForwardDiffSensitivity, DirectAdjoint, or the "
+            "continuous InterpolatingAdjoint / GaussAdjoint / "
+            "QuadratureAdjoint (algebraic-λ projection, index-1 diagonal "
+            "mass)")
+    t0 = prob.tspan[0]
+    probe_forward_mode(
+        lambda uv: ravel_pytree(prob.f(unravel_u(uv), prob.p, t0))[0], u0vec)
+    if dae_init == "newton":
+        # consistent initialization: 0 = f_a(u0_d, u0_a, p) for u0_a
+        from .adjoints.steadystate import solve_nonlinear
+
+        a_idx = torch.as_tensor(np.where(np.all(M_host == 0.0, axis=1))[0],
+                                dtype=torch.long, device=u0vec.device)
+        f_dae = prob.f
+
+        def alg_res(ua, pp):
+            u0v, pr = pp
+            uv = u0v.index_put((a_idx,), ua)
+            return ravel_pytree(f_dae(unravel_u(uv), pr, t0))[0][a_idx]
+
+        ns = solve_nonlinear(NonlinearProblem(alg_res, u0vec[a_idx],
+                                              (u0vec, prob.p)))
+        prob = remake(prob, u0=unravel_u(u0vec.index_put((a_idx,), ns.u)))
+    elif dae_init not in (None, "none"):
+        raise ValueError(f"dae_init: None or 'newton', got {dae_init!r}")
+    return remake(prob, mass_matrix=None), solver, sensealg
 
 
 def _check_unrolled_continuous(solver, bwd_solver, sensealg, max_steps,
@@ -172,7 +268,8 @@ def _take_rows(tree, rows: torch.Tensor, axis: int = 0):
 def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
                tstops, sensealg, dense, adj_rtol, adj_atol, adj_max_steps,
                bwd_solver, adaptive=True, unroll=False, verbose=False,
-               dtmax=None, callback=None, max_events=32, save_idxs=None):
+               dtmax=None, callback=None, max_events=32, save_idxs=None,
+               dae_init=None):
     solver = solver or Tsit5()
     t0, t1 = prob.tspan
     u0vec, unravel_u = ravel_pytree(prob.u0)
@@ -195,6 +292,14 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
         if saveat.size > 1 and not (d > 0).all():
             raise ValueError("saveat must be strictly monotone in the "
                              f"integration direction; got {saveat}")
+
+    if prob.mass_matrix is not None:
+        prob, solver, sensealg = _mass_matrix_branch(
+            prob, solver, sensealg, dt0, dt, dae_init, u0vec, unravel_u)
+        u0vec = ravel_pytree(prob.u0)[0]
+    elif dae_init not in (None, "none"):
+        raise ValueError(
+            "dae_init applies only to singular-mass-matrix (DAE) problems")
 
     cbs, lifted = None, False
     if callback is not None:
@@ -223,6 +328,13 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
             raise NotImplementedError(
                 "ForwardSensitivity with callbacks: the forward-sensitivity "
                 "ODE has no event tangent map; use ForwardDiffSensitivity")
+        if any_modifies_p(cbs) and getattr(solver, "mass_matrix",
+                                           None) is not None:
+            raise NotImplementedError(
+                "parameter-modifying events + singular-mass DAEs are not "
+                "supported (the p-lift would change the state size under "
+                "the mass matrix); fold the modified parameters into the "
+                "state manually")
         if any_modifies_p(cbs):
             # p joins the integration state, so conditions and affects can
             # read and write it and every rule differentiates the swap

@@ -770,3 +770,68 @@ def test_stiff_solver_on_kernel_field_raises(cuda, solver):
         P.solve(P.ODEProblem(field, u0, (0.0, 16e-9), p),
                 getattr(P, solver)(), dt0=1e-9, sensealg=P.GaussAdjoint(),
                 max_steps=4)
+
+
+@pytest.mark.parametrize("rule", ["GaussAdjoint", "InterpolatingAdjoint"])
+def test_dae_robertson_on_card_matches_cpu(cuda, rule):
+    """Robertson's semi-explicit DAE (M = diag(1, 1, 0)) on (0, 1e-3) under
+    SDIRK4: the card takes the CPU's forward steps, and where the reverse
+    takes the CPU's steps too the gradient in log p equals the CPU's to
+    1e-9 relative L2 (cuSOLVER's LU may move a stiff step; then the stiff
+    bound of tests/test_stiff.py, rtol 2e-4, atol 1e-8, holds)."""
+    def rob(u, p, t):
+        return torch.stack([-p[0] * u[0] + p[2] * u[1] * u[2],
+                            p[0] * u[0] - p[1] * u[1] ** 2
+                            - p[2] * u[1] * u[2], u[0] + u[1] + u[2] - 1.0])
+
+    out = []
+    for device in (cuda, "cpu"):
+        logp = torch.log(torch.tensor([0.04, 3e7, 1e4], dtype=torch.float64,
+                                      device=device)).requires_grad_()
+        sol = P.solve(P.ODEProblem(rob, torch.tensor(
+            [1.0, 0.0, 0.0], dtype=torch.float64, device=device), (0.0, 1e-3),
+            torch.exp(logp), mass_matrix=torch.diag(torch.tensor(
+                [1.0, 1.0, 0.0]))), P.SDIRK4(), saveat=[1e-4, 5e-4, 1e-3],
+            rtol=1e-5, atol=1e-9, dt0=1e-5, adj_rtol=1e-5, adj_atol=1e-9,
+            sensealg=getattr(P, rule)())
+        (g,) = torch.autograd.grad(1e4 * sol.ys[:, 1].sum()
+                                   + sol.ys[:, 2].sum(), logp)
+        out.append((sol, g.cpu()))
+    (s_card, g_card), (s_cpu, g_cpu) = out
+    assert s_card.retcode == 0 and s_cpu.retcode == 0
+    assert s_card.stats.n_accepted == s_cpu.stats.n_accepted
+    if s_card.adjoint.stats == s_cpu.adjoint.stats:
+        norm = torch.linalg.vector_norm
+        assert float(norm(g_card - g_cpu) / norm(g_cpu)) <= 1e-9
+    else:
+        assert torch.allclose(g_card, g_cpu, rtol=2e-4, atol=1e-8)
+
+
+@pytest.mark.parametrize("adaptive", [False, True])
+def test_dde_fused_mlp_on_card_matches_cpu(cuda, adaptive):
+    """u'(t) = mlp2(u(t - 0.25)) through fused_mlp2 (B = 4, 8→16→8,
+    float64): the method of steps launches K3 in every stage and K4 in its
+    pullback, and the card's gradient equals the CPU's to 1e-9 relative L2
+    per leaf (RK4 at dt 1/32, or adaptive Tsit5 at rtol 1e-6)."""
+    def run(device):
+        gen = torch.Generator().manual_seed(3)
+        params = P.mlp_init(gen, (8, 16, 8), torch.float64, device=device)
+        params = {k: v.requires_grad_() for k, v in params.items()}
+        u0 = (0.3 * torch.randn((4, 8), generator=gen,
+                                dtype=torch.float64)).to(device)
+        prob = P.DDEProblem(lambda u, h, p, t: P.fused_mlp2(p, h[0]), u0,
+                            (0.0, 1.0), params, lags=(0.25,))
+        kw = dict(rtol=1e-6, atol=1e-6) if adaptive else dict(dt=1.0 / 32)
+        sol = P.solve(prob, saveat=[0.0, 1.0], **kw)
+        grads = torch.autograd.grad(sol.ys[-1].pow(2).sum(),
+                                    list(params.values()))
+        return sol, [g.cpu() for g in grads]
+
+    mlp.mlp2_fwd_cuda.launches = mlp.mlp2_vjp_cuda.launches = 0
+    s_card, g_card = run(cuda)
+    assert mlp.mlp2_fwd_cuda.launches > 0 and mlp.mlp2_vjp_cuda.launches > 0
+    s_cpu, g_cpu = run("cpu")
+    assert s_card.retcode == 0 and s_card.stats == s_cpu.stats
+    for a, b in zip(g_card, g_cpu):
+        assert float(torch.linalg.vector_norm(a - b)
+                     / torch.linalg.vector_norm(b)) <= 1e-9

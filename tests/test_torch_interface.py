@@ -276,8 +276,10 @@ def test_refusals_match_jax(ball_sol, lv_sol, case):
     """A missing callback on an event solution, a callback on a solution
     without events and a derivative-only continuous cost over a continuous
     event raise as JAX's do (ValueError, ValueError, NotImplementedError);
-    SDE/RODE solutions name ROADMAP M12 and mass matrices M9 (JAX solves
-    those); a solution without dense output raises ValueError."""
+    SDE/RODE solutions name ROADMAP M12 (JAX solves those); on a DAE
+    solution (its stepper carries the singular mass) BacksolveAdjoint and
+    t_grads raise NotImplementedError, as JAX's do (interface.py:342-360);
+    a solution without dense output raises ValueError."""
     import dataclasses
 
     sol, cb = ball_sol
@@ -302,10 +304,18 @@ def test_refusals_match_jax(ball_sol, lv_sol, case):
         with pytest.raises(NotImplementedError, match="M12"):
             P.SDEAdjointProblem(lv_sol)
     elif case == "dae":
-        prob = P.remake(lv_sol.prob, mass_matrix=torch.eye(2, dtype=DT))
-        with pytest.raises(NotImplementedError, match="M9"):
-            P.adjoint_sensitivities(dataclasses.replace(lv_sol, prob=prob),
-                                    dgdu_discrete=dg)
+        # y' = -y, 0 = z - y: the mass-matrix branch moves M onto SDIRK4
+        dae = P.solve(P.ODEProblem(
+            lambda u, p, t: torch.stack([-p[0] * u[0], u[1] - u[0]]),
+            torch.tensor([1.0, 1.0], dtype=DT), (0.0, 0.1),
+            torch.tensor([1.0], dtype=DT), mass_matrix=np.diag([1.0, 0.0])),
+            P.SDIRK4(), dt0=1e-2, dense=True)
+        assert dae.solver.mass_matrix is not None
+        with pytest.raises(NotImplementedError, match="BacksolveAdjoint"):
+            P.adjoint_sensitivities(dae, dgdu_discrete=dg,
+                                    sensealg=P.BacksolveAdjoint())
+        with pytest.raises(NotImplementedError, match="t_grads"):
+            P.adjoint_sensitivities(dae, dgdu_discrete=dg, t_grads=True)
     else:
         with pytest.raises(ValueError, match="dense=True"):
             P.adjoint_sensitivities(dataclasses.replace(lv_sol, dense=None),
@@ -333,7 +343,6 @@ NOT_YET = {
             "EulerMaruyama", "EulerHeun", "Milstein", "RKMilCommute",
             "RKMilGeneral", "SRA1", "SRIW1", "SOSRI", "StrongTaylor15",
             "AdaptiveMilstein", "ImplicitEM"],
-    "M13": ["DDEProblem"],
     "M14": ["ForwardLSSProblem", "AdjointLSSProblem", "NILSSProblem",
             "NILSASProblem", "shadow_forward", "shadow_adjoint",
             "nilsas_shadow_adjoint"],

@@ -164,16 +164,18 @@ def test_reversed_span_fixed_grid_dt_sign():
 
 
 def test_unported_paths_raise():
-    """What the port does not have yet fails loudly, naming the ROADMAP
-    item, instead of returning a silent zero gradient: mass matrices
-    (DAEs, M9b). unroll=True under a rule with no unrolled form raises as
-    JAX's does (the continuous rules unroll since the unrolled slice)."""
+    """Paths that cannot run fail loudly instead of returning a silent zero
+    gradient: a singular mass matrix without an explicit dt0 raises JAX's
+    ValueError (solve.py:258; mass matrices are ported since the DAE slice,
+    which replaced the ROADMAP M9b refusal this case held). unroll=True
+    under a rule with no unrolled form raises as JAX's does (the continuous
+    rules unroll since the unrolled slice)."""
     u0 = to_port(LV_U0).requires_grad_()
     prob = P.ODEProblem(lotka_volterra_port, u0, (0.0, 1.0), to_port(LV_P))
     with pytest.raises(NotImplementedError, match="DirectAdjoint"):
         P.solve(prob, sensealg=P.ForwardSensitivity(), unroll=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP M9b"):
-        P.solve(P.remake(prob, mass_matrix=np.eye(2)))
+    with pytest.raises(ValueError, match="explicit dt0"):
+        P.solve(P.remake(prob, mass_matrix=np.diag([1.0, 0.0])), P.SDIRK4())
     # without a gradient the shared forward solve runs under any rule
     sol = P.solve(P.ODEProblem(lotka_volterra_port, to_port(LV_U0),
                                (0.0, 1.0), to_port(LV_P)))
