@@ -138,9 +138,10 @@ Phases, each printed before the last line:
   5g. [direct f64]: each direct arm at n = 262,144, the card against the
      port's CPU run and against the card's solve gradient of its rule
      (adaptive reverse, the same reverse tolerances), its K1/K2 launches in
-     the direct call, then float32 at n = 1,048,576 against the card's
-     float64; the dosed PDE and the spiral arms, card against CPU and
-     against the solve gradient, with their launches; the two Hessians
+     the direct call (the float32 arms at n = 1,048,576 are 6g's timed
+     calls, held there to the card's float64); the dosed PDE and the
+     spiral arms, card against CPU and against the solve gradient, with
+     their launches; the two Hessians
      symmetric and agreeing; the refusal of second order on the card;
   5j. [dae f64]: each Robertson arm on the card against the port's CPU
      run (1e-9 where the steps agree, else the stiff gate), the continuous
@@ -153,6 +154,29 @@ Phases, each printed before the last line:
      two against each other), then in float64 at B = 8, card against CPU;
      the stiff TRBDF2 case, card against CPU and against a fine RK4; TRBDF2
      on the kernel field raising ForwardModeUnsupported with no launch;
+  5l. [nsde]: the neural SDE at S4's width (drift fused_mlp2(θ_f, u),
+     diagonal diffusion 0.1·softplus(fused_mlp2(θ_g, u)), B = 1024,
+     512->2048->512, float32 on the simt route, EulerMaruyama at dt 1/64
+     on [0, 1], the port's own key, loss Σ ys[-1]²): K3 per forward and
+     K3/K4 per gradient under DirectAdjoint, InterpolatingAdjoint and
+     BacksolveAdjoint against the counts each rule should give, the same
+     bits on a second call, Interpolating against Direct and Backsolve
+     within the JAX package's tolerance; B = 8 float64 on the numpy-backed
+     key, card against CPU; Milstein, RKMilGeneral, StrongTaylor15,
+     ImplicitEM, EulerHeun (the Itô drift transform) and adaptive Milstein
+     on the kernel fields raising ForwardModeUnsupported with no launch;
+  5m. [fkpp]: the stochastic Fisher–KPP field (the flagship field as
+     drift, diagonal noise 0.5·u, EulerMaruyama, 64 steps of 1e-9, n =
+     1,048,576 float32) and its RODE form f + 0.5·u·W(t), under the three
+     rules: K1/K2 launches per forward and gradient, the same bits twice,
+     the rules against each other; n = 262,144 float64 on the numpy key,
+     card against CPU (the SDE under each rule, the RODE under Direct);
+     adaptive EulerMaruyama on the Brownian tree (a plain Fisher–KPP
+     field on 8 cells) under the three rules: at near-deterministic noise
+     card against CPU (a smoke test of the device path: the realised grid
+     amplifies a last-bit difference) and the rules against each other,
+     at the fixed-grid arms' noise 0.5·u the rules against each other on
+     the card;
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
      kernel device time against its bound and its plain version (K1, K2
@@ -170,9 +194,13 @@ Phases, each printed before the last line:
      against its own forward, with the device's idle share (not traced
      for the spiral's gradients); phase 5g's PDE arms at n = 1,048,576 in
      float32, each direct call against the dense forward it reads, with
-     the device's idle share; phase 5j's Robertson gradients against their
+     the device's idle share, and its gradient from the warm-up round
+     against the card's float64 one, with its K1/K2 launches; phase 5j's Robertson gradients against their
      forwards, the spiral under the mass and the delayed S4 field (RK4 and
-     Tsit5) each against its own forward, with the device's idle share.
+     Tsit5) each against its own forward, with the device's idle share;
+     phase 5l's and 5m's forwards and gradients (the neural SDE at full
+     width, the SDE and RODE Fisher–KPP at n = 1,048,576), each against
+     its own forward, with the device's idle share.
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -1146,6 +1174,131 @@ def dde_stiff(P, device, trbdf2):
     return sol.ys[-1, 0], sol
 
 
+# the SDE arms (phases 5l, 5m and 6k): the neural SDE at S4's width
+# (models/neural_ode.py:neural_sde's form with both MLPs through K3/K4:
+# drift mlp2(θ_f, u), diagonal diffusion SDE_SIGMA·softplus(mlp2(θ_g, u)),
+# B = 1024, 512→2048→512, float32, the simt route), EulerMaruyama at
+# dt = 1/64 on [0, 1], loss Σ ys[-1]²; the stochastic Fisher–KPP field
+# (the flagship field as drift, diagonal noise FK_NOISE·u, EulerMaruyama,
+# 64 steps of 1e-9) and its RODE form f = rd1d(u) + FK_NOISE·u·W(t)
+# (RandomEM); each under sensealg=None (DirectAdjoint) and the stored-node
+# and reconstructed-node rules; the adaptive arm on the Brownian tree with
+# a plain Fisher–KPP field on FK_ADAPTIVE_N cells, near-deterministic noise
+# (the realised grid amplifies a last-bit difference ~10^3-fold per step
+# at strong noise, so two devices agree step for step only where the
+# drift's curvature sets the error)
+SDE_DT, SDE_SIGMA, SDE_B_CPU = 1.0 / 64, 0.1, 8
+SDE_RULES = ("DirectAdjoint", "InterpolatingAdjoint", "BacksolveAdjoint")
+# the JAX package's tests/test_sde.py:test_sde_backsolve_adjoint_close
+SDE_BACKSOLVE_TOL = 2e-2
+# Interpolating against Direct: the same products in another order (the
+# JAX test asserts 1e-10 in float64); float32 sums over 2048 terms
+SDE_INTERP_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+FK_NOISE = 0.5
+FK_ADAPTIVE_N, FK_ADAPTIVE_SIGMA = 8, 1e-3
+FK_ADAPTIVE = dict(rtol=1e-5, atol=1e-8, max_steps=1024)
+# the adaptive arm's card against CPU, a smoke test of the device path and
+# not a precision check: the error norm's reduction rounds differently on
+# the two, and the realised grid carries that difference into every later
+# step size (6.6e-6 in the first chip run)
+FK_ADAPTIVE_DEVICE_TOL = 1e-4
+# the adaptive arm at the fixed-grid arms' noise (FK_NOISE), on the card
+# alone: its rules against each other on one realised grid (210 steps)
+FK_ADAPTIVE_NOISY = dict(rtol=1e-3, atol=1e-6, max_steps=1024)
+
+
+def nsde_setup(P, dtype, device, B=S4_B):
+    """Seeded drift and diffusion weights at S4's width, u0 = 0.1·randn."""
+    gen = torch.Generator().manual_seed(SEED)
+    params = {"drift": P.mlp_init(gen, S4_WIDTHS, dtype, device=device),
+              "diffusion": P.mlp_init(gen, S4_WIDTHS, dtype, device=device)}
+    u0 = 0.1 * torch.randn((B, S4_WIDTHS[0]), generator=gen)
+    return params, u0.to(device=device, dtype=dtype)
+
+
+def nsde_solve(P, setup, params, sensealg, key, solver=None, **kw):
+    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2
+
+    prob = P.SDEProblem(
+        lambda u, p, t: fused_mlp2(p["drift"], u),
+        lambda u, p, t: SDE_SIGMA * torch.nn.functional.softplus(
+            fused_mlp2(p["diffusion"], u)),
+        setup[1], (0.0, 1.0), params)
+    if solver is None:
+        solver = P.EulerMaruyama()
+    kw = kw or dict(dt=SDE_DT)
+    return P.solve(prob, solver, saveat=[0.0, 1.0], sensealg=sensealg,
+                   key=key, **kw)
+
+
+def nsde_gradient(P, setup, sensealg, key):
+    """(d/dθ of Σ ys[-1].float()² per leaf, solution)."""
+    params = {k: {kk: v.detach().clone().requires_grad_()
+                  for kk, v in d.items()} for k, d in setup[0].items()}
+    sol = nsde_solve(P, setup, params, sensealg, key)
+    names = [(k, kk) for k in params for kk in params[k]]
+    grads = torch.autograd.grad(torch.sum(sol.ys[-1].float() ** 2),
+                                [params[k][kk] for k, kk in names])
+    return {f"{k}.{kk}": g for (k, kk), g in zip(names, grads)}, sol
+
+
+def nsde_forward(P, setup, key):
+    with torch.no_grad():
+        return nsde_solve(P, setup, setup[0], None, key).ys[-1]
+
+
+def fk_solve(P, field, u0, p, sensealg, key, rode=False):
+    t1 = STEPS * DT
+    if rode:
+        prob = P.RODEProblem(
+            lambda u, q, t, W: field(u, q, t) + FK_NOISE * u * W, u0,
+            (0.0, t1), p)
+        return P.solve(prob, dt=DT, saveat=[0.0, t1], sensealg=sensealg,
+                       key=key)
+    prob = P.SDEProblem(field, lambda u, q, t: FK_NOISE * u, u0, (0.0, t1), p)
+    return P.solve(prob, P.EulerMaruyama(), dt=DT, saveat=[0.0, t1],
+                   sensealg=sensealg, key=key)
+
+
+def fk_gradient(P, field, u0, p, sensealg, key, rode=False):
+    """(u0-grad, p-grad, solution) of Σ ys[-1]²."""
+    uu = u0.clone().requires_grad_()
+    pp = p.clone().requires_grad_()
+    sol = fk_solve(P, field, uu, pp, sensealg, key, rode)
+    gu, gp = torch.autograd.grad(torch.sum(sol.ys[-1] ** 2), (uu, pp))
+    return gu, gp, sol
+
+
+def fk_forward(P, field, u0, p, key, rode=False):
+    with torch.no_grad():
+        return fk_solve(P, field, u0, p, None, key, rode).ys[-1]
+
+
+def fk_plain_field(u, p, t):
+    """The Fisher–KPP field in tensor operations on FK_ADAPTIVE_N periodic
+    cells of width 1/FK_ADAPTIVE_N."""
+    lap = torch.roll(u, 1) - 2.0 * u + torch.roll(u, -1)
+    return p[0] * FK_ADAPTIVE_N ** 2 * lap + p[1] * u * (1.0 - u)
+
+
+def fk_adaptive_gradient(P, device, sensealg, grad=True,
+                         sigma=FK_ADAPTIVE_SIGMA, tols=FK_ADAPTIVE):
+    x = torch.arange(FK_ADAPTIVE_N, dtype=torch.float64,
+                     device=device) / FK_ADAPTIVE_N
+    u0 = (0.2 + 0.6 * torch.exp(-((x - 0.5) ** 2) * 10.0)).requires_grad_()
+    p = torch.tensor([1e-2, 1.5], dtype=torch.float64,
+                     device=device).requires_grad_()
+    prob = P.SDEProblem(fk_plain_field, lambda u, q, t: sigma * u, u0,
+                        (0.0, 1.0), p)
+    with torch.set_grad_enabled(grad):
+        sol = P.solve(prob, saveat=[0.0, 0.5, 1.0], sensealg=sensealg,
+                      key=P.NumpyKey(SEED), **tols)
+    if not grad:
+        return sol
+    gu, gp = torch.autograd.grad(torch.sum(sol.ys ** 2), (u0, p))
+    return gu, gp, sol
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -2104,26 +2257,6 @@ def main() -> int:
               f"direct {arm} f64 card gradient off the CPU run")
         check(e_s <= DIRECT_TOL, f"direct {arm} off the solve gradient")
     del u0c, pc, sol_c, gu_c, gp_c, gu_s, gp_s, sol
-    n = SIZES[1]
-    field = rd1d.make_rd1d_field(n, 1.0 / n)
-    sol64 = flagship_dense_forward(P, field, *flagship_inputs(
-        n, torch.float64, dev))
-    sol32 = flagship_dense_forward(P, field, *flagship_inputs(
-        n, torch.float32, dev))
-    for arm, fn in direct_arms.items():
-        gu64, _ = fn(sol64)
-        rd1d.rd1d_fwd_cuda.launches = 0
-        rd1d.rd1d_vjp_cuda.launches = 0
-        gu, gp = fn(sol32)
-        torch.cuda.synchronize()
-        got = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
-        e_u = rel_l2(gu, gu64)
-        print(f"[direct f32] PDE n={n} {arm} vs card f64: u0-grad rel L2 "
-              f"{e_u:.3e} (tol {F32_U0_TOL:g}); K1 {got[0]} and K2 {got[1]} "
-              "launches")
-        check(min(got) > 0, f"f32 direct {arm} launched K1, K2 {got}")
-        check(e_u <= F32_U0_TOL, f"direct {arm} f32 gradient off the f64 one")
-    del sol64, sol32, gu, gp, gu64
 
     # the dosed PDE with its callback under the Interpolating direct API,
     # against the card's solve gradient under InterpolatingAdjoint
@@ -2612,6 +2745,226 @@ def main() -> int:
     print(f"[dde] phase 5k: {time.perf_counter() - t:.1f} s")
     elapsed("phase 5k [dde]")
 
+    # -- 5l. [nsde]: the neural SDE at S4's width, K3 in every drift and
+    # diffusion evaluation, K4 in every pullback -----------------------------
+    t = time.perf_counter()
+    steps = round(1.0 / SDE_DT)
+    key32 = P.PRNGKey(SEED)
+    # per forward step 2 K3 (drift, diffusion); per gradient: DirectAdjoint
+    # the forward's and their pullbacks; Interpolating the forward's and
+    # one step-map vjp per step (2 K3 + 2 K4); Backsolve the forward's and
+    # per step 6 Picard step maps and the vjp (14 K3 + 2 K4)
+    nsde_want = {"DirectAdjoint": (2 * steps, 2 * steps),
+                 "InterpolatingAdjoint": (4 * steps, 2 * steps),
+                 "BacksolveAdjoint": (16 * steps, 2 * steps)}
+    nsde_launches = {}
+    nsde32 = nsde_setup(P, torch.float32, dev)
+    for w in wrappers:
+        w.launches = 0
+    y_a = nsde_forward(P, nsde32, key32)
+    torch.cuda.synchronize()
+    got = tuple(w.launches for w in wrappers)
+    y_b = nsde_forward(P, nsde32, key32)
+    print(f"[nsde f32] neural SDE at S4's width (B = {S4_B}, {S4_WIDTHS}, "
+          f"EulerMaruyama dt 1/{steps}) forward: K3 {got[0]} and K4 {got[1]} "
+          f"launches (expected {2 * steps} and 0); a second call on the same "
+          f"key equal bit for bit: {bool(torch.equal(y_a, y_b))}")
+    check(got == (2 * steps, 0), f"neural SDE forward launched {got}")
+    check(torch.equal(y_a, y_b), "the same key drew other noise")
+    nsde_full = {}
+    for rule in SDE_RULES:
+        (g, sol), got = count_path(lambda: nsde_gradient(
+            P, nsde32, getattr(P, rule)(), key32))
+        nsde_launches[f"NSDE S4 f32 {rule}"] = {"K3": got[0], "K4": got[1]}
+        nsde_full[rule] = g
+        print(f"[nsde f32] {rule}: {sol.stats}; K3 {got[0]} and K4 {got[1]} "
+              f"launches per gradient (expected {nsde_want[rule]}), routes "
+              f"{path_routes}; max|grad| per leaf "
+              f"{ {k: float(v.abs().max()) for k, v in g.items()} }")
+        check(got == nsde_want[rule], f"neural SDE {rule} launched {got}")
+        check(path_routes["K3"] == {"simt": got[0]},
+              f"neural SDE {rule}: K3 off the simt route")
+        check(all(bool(torch.isfinite(v).all()) for v in g.values()),
+              f"neural SDE {rule}: non-finite gradient")
+    e_i = max(rel_l2(nsde_full["InterpolatingAdjoint"][k],
+                     nsde_full["DirectAdjoint"][k]) for k in nsde_full[
+        "DirectAdjoint"])
+    e_b = max(rel_l2(nsde_full["BacksolveAdjoint"][k],
+                     nsde_full["DirectAdjoint"][k]) for k in nsde_full[
+        "DirectAdjoint"])
+    print(f"[nsde f32] against DirectAdjoint, max rel L2 per leaf: "
+          f"Interpolating {e_i:.3e} (tol {SDE_INTERP_TOL[torch.float32]:g}), "
+          f"Backsolve {e_b:.3e} (tol {SDE_BACKSOLVE_TOL:g}, the JAX "
+          f"package's tests/test_sde.py)")
+    check(e_i <= SDE_INTERP_TOL[torch.float32]
+          and e_b <= SDE_BACKSOLVE_TOL, "neural SDE rules disagree")
+    del nsde_full
+    # B = 8 float64 through the numpy-backed key: the same path on both
+    nsde_card = nsde_setup(P, torch.float64, dev, B=SDE_B_CPU)
+    nsde_cpu = nsde_setup(P, torch.float64, "cpu", B=SDE_B_CPU)
+    for rule in SDE_RULES:
+        (g, sol), got = count_path(lambda: nsde_gradient(
+            P, nsde_card, getattr(P, rule)(), P.NumpyKey(SEED)))
+        nsde_launches[f"NSDE B={SDE_B_CPU} f64 {rule}"] = {"K3": got[0],
+                                                            "K4": got[1]}
+        g_c, _ = nsde_gradient(P, nsde_cpu, getattr(P, rule)(),
+                               P.NumpyKey(SEED))
+        errs = leaf_errors(g, g_c)
+        print(f"[nsde f64] B = {SDE_B_CPU} {rule}: card vs CPU rel L2 "
+              f"{fmt_errors(errs)} (tol {F64_GRAD_TOL:g}); K3 {got[0]} and "
+              f"K4 {got[1]} launches")
+        check(max(errs.values()) <= F64_GRAD_TOL,
+              f"neural SDE B={SDE_B_CPU} {rule}: card gradient off the CPU's")
+    # the schemes that differentiate the kernel diffusion (or the drift) by
+    # forward mode refuse before anything launches
+    for w in wrappers:
+        w.launches = 0
+    refused = []
+    for name, solver, kw in (
+            ("Milstein", P.Milstein(), None),
+            ("RKMilGeneral", P.RKMilGeneral(), None),
+            ("StrongTaylor15", P.StrongTaylor15(), None),
+            ("ImplicitEM", P.ImplicitEM(), None),
+            ("EulerHeun (Itô drift transform)", P.EulerHeun(), None),
+            ("adaptive Milstein", P.Milstein(), dict(rtol=1e-3, atol=1e-6))):
+        try:
+            nsde_solve(P, nsde32, nsde32[0], None, key32, solver=solver,
+                       **(kw or {}))
+        except ForwardModeUnsupported as err:
+            refused.append(name)
+            check("FusedMLP2" in str(err), f"{name}: refusal unnamed")
+        else:
+            raise AssertionError(f"{name} on the kernel field did not raise")
+    got = tuple(w.launches for w in wrappers)
+    print(f"[nsde f32] {', '.join(refused)} on the kernel fields raise "
+          f"ForwardModeUnsupported after K3 {got[0]} and K4 {got[1]} launches")
+    check(got == (0, 0), "an SDE kernel-field refusal launched a kernel")
+    del nsde_card, nsde_cpu
+    print(f"[nsde] phase 5l: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5l [nsde]")
+
+    # -- 5m. [fkpp]: the stochastic Fisher–KPP field, K1 in every drift
+    # evaluation, K2 in every pullback; its RODE form; the adaptive arm ------
+    t = time.perf_counter()
+    fk_want = {"DirectAdjoint": (STEPS, STEPS),
+               "InterpolatingAdjoint": (2 * STEPS, STEPS),
+               "BacksolveAdjoint": (8 * STEPS, STEPS)}
+    fk_launches = {}
+    n = SIZES[1]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0, p = flagship_inputs(n, torch.float32, dev)
+    for rode in (False, True):
+        arm = "RODE" if rode else "SDE"
+        rd1d.rd1d_fwd_cuda.launches = 0
+        rd1d.rd1d_vjp_cuda.launches = 0
+        y_a = fk_forward(P, field, u0, p, key32, rode)
+        torch.cuda.synchronize()
+        got = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+        y_b = fk_forward(P, field, u0, p, key32, rode)
+        print(f"[fkpp f32] {arm} n={n} forward: K1 {got[0]} and K2 {got[1]} "
+              f"launches; a second call equal bit for bit: "
+              f"{bool(torch.equal(y_a, y_b))}")
+        check(got == (STEPS, 0) and torch.equal(y_a, y_b),
+              f"Fisher–KPP {arm} forward: {got} launches, or other bits")
+        full = {}
+        for rule in SDE_RULES:
+            rd1d.rd1d_fwd_cuda.launches = 0
+            rd1d.rd1d_vjp_cuda.launches = 0
+            gu, gp, sol = fk_gradient(P, field, u0, p, getattr(P, rule)(),
+                                      key32, rode)
+            torch.cuda.synchronize()
+            got = (rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches)
+            fk_launches[f"FKPP {arm} f32 {rule}"] = {"K1": got[0],
+                                                     "K2": got[1]}
+            full[rule] = (gu, gp)
+            print(f"[fkpp f32] {arm} {rule}: K1 {got[0]} and K2 {got[1]} "
+                  f"launches per gradient (expected {fk_want[rule]}); "
+                  f"dL/dp {gp.tolist()}")
+            check(got == fk_want[rule], f"Fisher–KPP {arm} {rule}: {got}")
+            check(bool(torch.isfinite(gu).all() and torch.isfinite(gp).all()),
+                  f"Fisher–KPP {arm} {rule}: non-finite gradient")
+        e_i = max(rel_l2(a, b) for a, b in zip(full["InterpolatingAdjoint"],
+                                              full["DirectAdjoint"]))
+        e_b = max(rel_l2(a, b) for a, b in zip(full["BacksolveAdjoint"],
+                                              full["DirectAdjoint"]))
+        print(f"[fkpp f32] {arm} against DirectAdjoint (u0, p), max rel L2: "
+              f"Interpolating {e_i:.3e}, Backsolve {e_b:.3e}")
+        check(e_i <= SDE_INTERP_TOL[torch.float32]
+              and e_b <= SDE_BACKSOLVE_TOL,
+              f"Fisher–KPP {arm}: rules disagree")
+    del u0, p, full
+    n = SIZES[0]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0, p = flagship_inputs(n, torch.float64, dev)
+    u0_c, p_c = flagship_inputs(n, torch.float64, "cpu")
+    # the RODE's rules share one step map: its Direct arm suffices here
+    for rode, rules in ((False, SDE_RULES), (True, ("DirectAdjoint",))):
+        arm = "RODE" if rode else "SDE"
+        for rule in rules:
+            rd1d.rd1d_fwd_cuda.launches = 0
+            rd1d.rd1d_vjp_cuda.launches = 0
+            gu, gp, _ = fk_gradient(P, field, u0, p, getattr(P, rule)(),
+                                    P.NumpyKey(SEED), rode)
+            torch.cuda.synchronize()
+            fk_launches[f"FKPP {arm} f64 {rule}"] = {
+                "K1": rd1d.rd1d_fwd_cuda.launches,
+                "K2": rd1d.rd1d_vjp_cuda.launches}
+            gu_c, gp_c, _ = fk_gradient(P, field, u0_c, p_c,
+                                        getattr(P, rule)(), P.NumpyKey(SEED),
+                                        rode)
+            e_u, e_p = rel_l2(gu, gu_c), rel_l2(gp, gp_c)
+            print(f"[fkpp f64] {arm} n={n} {rule}: card vs CPU rel L2 u0 "
+                  f"{e_u:.3e}, p {e_p:.3e} (tol {F64_GRAD_TOL:g})")
+            check(max(e_u, e_p) <= F64_GRAD_TOL,
+                  f"Fisher–KPP f64 {arm} {rule}: card off the CPU")
+    del u0, p, u0_c, p_c
+    ad = {}
+    for rule in SDE_RULES:
+        gu, gp, sol = fk_adaptive_gradient(P, dev, getattr(P, rule)())
+        gu_c, gp_c, sol_c = fk_adaptive_gradient(P, "cpu", getattr(P, rule)())
+        ad[rule] = (gu, gp)
+        e_c = max(rel_l2(gu, gu_c), rel_l2(gp, gp_c))
+        print(f"[fkpp f64] adaptive EM on the tree, {FK_ADAPTIVE_N} cells, "
+              f"{rule}: {sol.stats} (CPU {sol_c.stats}); card vs CPU rel L2 "
+              f"{e_c:.3e} (tol {FK_ADAPTIVE_DEVICE_TOL:g})")
+        check(sol.retcode == 0 and e_c <= FK_ADAPTIVE_DEVICE_TOL,
+              f"adaptive Fisher–KPP {rule}")
+    e_i = max(rel_l2(a, b) for a, b in zip(ad["InterpolatingAdjoint"],
+                                          ad["DirectAdjoint"]))
+    e_b = max(rel_l2(a, b) for a, b in zip(ad["BacksolveAdjoint"],
+                                          ad["DirectAdjoint"]))
+    print(f"[fkpp f64] adaptive against DirectAdjoint: Interpolating "
+          f"{e_i:.3e} (tol 1e-9), Backsolve {e_b:.3e} (tol 1e-3; the JAX "
+          f"package's tests/test_sde_highorder.py)")
+    check(e_i <= 1e-9 and e_b <= 1e-3, "adaptive Fisher–KPP rules disagree")
+    # at the fixed-grid arms' noise: the rules on one realised grid
+    for rule in SDE_RULES:
+        gu, gp, sol = fk_adaptive_gradient(P, dev, getattr(P, rule)(),
+                                           sigma=FK_NOISE,
+                                           tols=FK_ADAPTIVE_NOISY)
+        gu_c, gp_c, sol_c = fk_adaptive_gradient(
+            P, "cpu", getattr(P, rule)(), sigma=FK_NOISE,
+            tols=FK_ADAPTIVE_NOISY)
+        ad[rule] = (gu, gp)
+        finite = all(bool(torch.isfinite(g).all()) for g in (gu, gp))
+        print(f"[fkpp f64] adaptive EM at noise {FK_NOISE}u, {rule}: "
+              f"{sol.stats} (CPU {sol_c.stats}); card vs CPU rel L2 "
+              f"{max(rel_l2(gu, gu_c), rel_l2(gp, gp_c)):.3e} (not gated: "
+              "the grids part)")
+        check(sol.retcode == 0 and finite,
+              f"adaptive Fisher–KPP at noise {FK_NOISE}u {rule}")
+    e_i = max(rel_l2(a, b) for a, b in zip(ad["InterpolatingAdjoint"],
+                                          ad["DirectAdjoint"]))
+    e_b = max(rel_l2(a, b) for a, b in zip(ad["BacksolveAdjoint"],
+                                          ad["DirectAdjoint"]))
+    print(f"[fkpp f64] adaptive at noise {FK_NOISE}u against DirectAdjoint "
+          f"on the card: Interpolating {e_i:.3e} (tol 1e-9), Backsolve "
+          f"{e_b:.3e} (tol 1e-3)")
+    check(e_i <= 1e-9 and e_b <= 1e-3,
+          f"adaptive Fisher–KPP at noise {FK_NOISE}u: rules disagree")
+    print(f"[fkpp] phase 5m: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5m [fkpp]")
+
     # -- 6. timings: the megakernel path first ---------------------------------
     u0, p = flagship_inputs(MEGA_N, torch.float32, dev)
     arms = {
@@ -2964,13 +3317,14 @@ def main() -> int:
 
     # -- 6f. [events] timings: each arm against its own forward, CUDA events
     # (median of EV_TIMING_ROUNDS interleaved rounds after a warm-up round,
-    # whose results the float32 checks read) and one profiled run for the
-    # device's idle share, for the arms that `traced` names: not the
-    # spiral's gradients (~1-3 s each, idle 95-97% as PERF.md records),
-    # whose profiled runs pay for the third round
-    def ev_time(tag, arms, checks=None, traced=lambda name: True):
+    # whose results the float32 checks read; one round for the spiral's
+    # arms, ~1-3 s per gradient) and one profiled run for the device's idle
+    # share, for the arms that `traced` names: not the spiral's gradients
+    # (idle 95-97% as PERF.md records)
+    def ev_time(tag, arms, checks=None, traced=lambda name: True,
+                rounds=EV_TIMING_ROUNDS):
         out = {}
-        med = interleaved_ms(arms, rounds=EV_TIMING_ROUNDS, outputs=out)
+        med = interleaved_ms(arms, rounds=rounds, outputs=out)
         fwd = next(iter(arms))
         for name, fn in arms.items():
             idle = "not traced"
@@ -2981,7 +3335,7 @@ def main() -> int:
             extra = "" if checks is None else checks(name, out[name])
             print(f"[time] {card}: {tag} {name}: {med[name]:.3f} ms "
                   f"({med[name] / med[fwd]:.2f}x its forward; CUDA events, "
-                  f"median of {EV_TIMING_ROUNDS} interleaved); {idle}{extra}")
+                  f"median of {rounds} interleaved); {idle}{extra}")
 
     n = EV_N[torch.float32]
     field = rd1d.make_rd1d_field(n, 1.0 / n)
@@ -3011,7 +3365,7 @@ def main() -> int:
         arms[f"{name} gradient"] = (lambda kw=kw: spiral_gradient(
             P, setup32, kw))
     ev_time("spiral f32", arms, spiral_checks,
-            traced=lambda name: "forward" in name)
+            traced=lambda name: "forward" in name, rounds=1)
     arms = {"S2d forward (dense)": lambda: spiral_forward(
         P, setup32, dict(SPIRAL_ADAPTIVE, dense=True))}
     for name, kw in dense_arms.items():
@@ -3020,7 +3374,7 @@ def main() -> int:
     arms["S2t GaussAdjoint saveat gradient"] = (
         lambda: spiral_saveat_gradient(P, setup32, saveat_kw))
     ev_time("spiral f32", arms, spiral_checks,
-            traced=lambda name: "forward" in name)
+            traced=lambda name: "forward" in name, rounds=1)
     del setup32
     arms = {"forward": lambda: ball_solve(P, dev, None, grad=False),
             "GaussAdjoint gradient": lambda: ball_solve(
@@ -3033,15 +3387,38 @@ def main() -> int:
     # -- 6g. [direct] timings: each direct call at n = 1,048,576 f32
     # against the dense forward it reads (CUDA events, median of
     # DIRECT_TIMING_ROUNDS interleaved rounds after a warm-up round, and
-    # one profiled run for the device's idle share)
+    # one profiled run for the device's idle share); the warm-up round's
+    # gradients are held to the card's float64 ones, with their K1/K2
+    # launches
     n = SIZES[1]
     field = rd1d.make_rd1d_field(n, 1.0 / n)
     u0, p = flagship_inputs(n, torch.float32, dev)
     sol32 = flagship_dense_forward(P, field, u0, p)
+
+    def launched(fn, sol):
+        """fn(sol) with the K1 and K2 launches it made."""
+        k1, k2 = rd1d.rd1d_fwd_cuda.launches, rd1d.rd1d_vjp_cuda.launches
+        out = fn(sol)
+        return out, (rd1d.rd1d_fwd_cuda.launches - k1,
+                     rd1d.rd1d_vjp_cuda.launches - k2)
+
     arms = {"dense forward": lambda: flagship_dense_forward(P, field, u0, p)}
     for arm, fn in direct_arms.items():
-        arms[f"{arm} direct call"] = (lambda fn=fn: fn(sol32))
-    med = interleaved_ms(arms, rounds=DIRECT_TIMING_ROUNDS)
+        arms[f"{arm} direct call"] = (lambda fn=fn: launched(fn, sol32))
+    outs = {}
+    med = interleaved_ms(arms, rounds=DIRECT_TIMING_ROUNDS, outputs=outs)
+    sol64 = flagship_dense_forward(P, field, *flagship_inputs(
+        n, torch.float64, dev))
+    for arm, fn in direct_arms.items():
+        gu64, _ = fn(sol64)
+        (gu, _), got = outs[f"{arm} direct call"]
+        e_u = rel_l2(gu, gu64)
+        print(f"[direct f32] PDE n={n} {arm} vs card f64: u0-grad rel L2 "
+              f"{e_u:.3e} (tol {F32_U0_TOL:g}); K1 {got[0]} and K2 {got[1]} "
+              "launches")
+        check(min(got) > 0, f"f32 direct {arm} launched K1, K2 {got}")
+        check(e_u <= F32_U0_TOL, f"direct {arm} f32 gradient off the f64 one")
+    del sol64, gu64, gu, outs
     for name, fn in arms.items():
         busy, wall = profiled_ms(fn)
         print(f"[time] {card}: PDE n={n} f32 {name}: {med[name]:.3f} ms "
@@ -3118,6 +3495,33 @@ def main() -> int:
     del dde32
     elapsed("phase 6j [dae] and [dde] timings")
 
+    # -- 6k. [sde] timings: forward and each rule's gradient of 5l and 5m's
+    # kernel arms, CUDA events (one round after a warm-up round) and one
+    # profiled run for the device's idle share; not the adaptive arm (host
+    # paced at ~95% idle in PR 13's first chip run, and its traces of
+    # ~10^4 launches took most of the phase's 73 s)
+    nsde32 = nsde_setup(P, torch.float32, dev)
+    arms = {"forward": lambda: nsde_forward(P, nsde32, key32)}
+    for rule in SDE_RULES:
+        arms[f"{rule} gradient"] = (lambda r=rule: nsde_gradient(
+            P, nsde32, getattr(P, r)(), key32))
+    ev_time(f"neural SDE S4 f32 (B = {S4_B}, EulerMaruyama dt 1/{steps})",
+            arms, rounds=1)
+    del nsde32
+    n = SIZES[1]
+    field = rd1d.make_rd1d_field(n, 1.0 / n)
+    u0, p = flagship_inputs(n, torch.float32, dev)
+    for rode in (False, True):
+        arms = {"forward": lambda r=rode: fk_forward(P, field, u0, p, key32,
+                                                      r)}
+        for rule in SDE_RULES:
+            arms[f"{rule} gradient"] = (lambda s=rule, r=rode: fk_gradient(
+                P, field, u0, p, getattr(P, s)(), key32, r))
+        ev_time(f"stochastic Fisher–KPP {'RODE' if rode else 'SDE'} n={n} "
+                f"f32 ({STEPS} steps)", arms, rounds=1)
+    del u0, p
+    elapsed("phase 6k [sde] timings")
+
     # Lotka-Volterra last: its traces hold the most launches of any
     for name, sensealg in [("forward", None)] + list(lv_runs.items()):
         ms = lv_times[name]
@@ -3147,16 +3551,18 @@ def main() -> int:
                 for k in ("K1", "K2", "K3", "K4")}
     unroll_k = {k: sum(got.get(k, 0) for got in unroll_launches.values())
                 for k in ("K1", "K2", "K3", "K4")}
-    new_paths = dict(dae_launches, **dde_launches)
+    new_paths = dict(dae_launches, **dde_launches, **nsde_launches)
     new_k = {k: sum(got[k] for got in new_paths.values())
              for k in ("K3", "K4")}
+    fk_k = {k: sum(got[k] for got in fk_launches.values())
+            for k in ("K1", "K2")}
     kernels = [
         {"name": "rd1d_fwd (K1)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/rd1d.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:58",
          "launches": (launches["K1"] + pde_c_launches["K1"]
                       + interp_k["K1"] + dose_k["K1"] + direct_k["K1"]
-                      + unroll_k["K1"]),
+                      + unroll_k["K1"] + fk_k["K1"]),
          "paths": {"PDE (a)+(b)": launches["K1"],
                    "PDE (c) QuadratureAdjoint": pde_c_launches["K1"],
                    **{f"PDE {arm}": got["K1"]
@@ -3166,7 +3572,8 @@ def main() -> int:
                    **{f"direct {arm}": got["K1"]
                       for arm, got in direct_launches.items() if "K1" in got},
                    **{arm: got["K1"]
-                      for arm, got in unroll_launches.items() if "K1" in got}},
+                      for arm, got in unroll_launches.items() if "K1" in got},
+                   **{arm: got["K1"] for arm, got in fk_launches.items()}},
          "max_abs_err": max_abs["K1"],
          "ms": timing[n]["K1"], "plain_ms": timing[n]["K1_plain"],
          "cold_ms": timing[n]["K1_cold"],
@@ -3177,7 +3584,7 @@ def main() -> int:
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:66",
          "launches": (launches["K2"] + pde_c_launches["K2"]
                       + interp_k["K2"] + dose_k["K2"] + direct_k["K2"]
-                      + unroll_k["K2"]),
+                      + unroll_k["K2"] + fk_k["K2"]),
          "paths": {"PDE (a)+(b)": launches["K2"],
                    "PDE (c) QuadratureAdjoint": pde_c_launches["K2"],
                    **{f"PDE {arm}": got["K2"]
@@ -3187,7 +3594,8 @@ def main() -> int:
                    **{f"direct {arm}": got["K2"]
                       for arm, got in direct_launches.items() if "K2" in got},
                    **{arm: got["K2"]
-                      for arm, got in unroll_launches.items() if "K2" in got}},
+                      for arm, got in unroll_launches.items() if "K2" in got},
+                   **{arm: got["K2"] for arm, got in fk_launches.items()}},
          "max_abs_err": max_abs["K2"],
          "ms": timing[n]["K2"], "plain_ms": timing[n]["K2_plain"],
          "cold_ms": timing[n]["K2_cold"],

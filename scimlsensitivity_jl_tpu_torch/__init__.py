@@ -2,7 +2,11 @@
 
 Counterpart of `scimlsensitivity_jl_tpu/__init__.py`, the public subset that
 is ported: `ODEProblem` (with mass matrices: semi-explicit index-1 DAEs),
-`DDEProblem` (the fixed-grid and adaptive method of steps),
+`DDEProblem` (the fixed-grid and adaptive method of steps), `SDEProblem`
+and `RODEProblem` (the SDE schemes `EulerMaruyama`, `EulerHeun`,
+`Milstein`, `RKMilCommute`, `RKMilGeneral`, `SRA1`, `StrongTaylor15` with
+`SRIW1` / `SOSRI`, `ImplicitEM`, `AdaptiveMilstein`, on replayable
+counter-based noise: `PRNGKey`, `NoiseGrid`, `VirtualBrownianTree`),
 `SecondOrderODEProblem`, `solve` (real and complex states, `save_idxs`,
 `unroll=True` under every rule, `dae_init="newton"`), the
 explicit Runge-Kutta solvers, the stiff solvers (`Rosenbrock23`, `TRBDF2`,
@@ -23,8 +27,7 @@ reference's aliases (`ZygoteAdjoint` ... -> `DirectAdjoint`, `ZygoteVJP`
 `ForwardSensitivity`, `BacksolveAdjoint`, `InterpolatingAdjoint`,
 `GaussAdjoint`, `GaussKronrodAdjoint`, `QuadratureAdjoint` and
 `DirectAdjoint` (fixed grid and adaptive, with `remat`), so
-`sensealg=None` differentiates every plain ODE; `SDEAdjointProblem` and
-`RODEAdjointProblem` raise (ROADMAP M12), and ROADMAP.md lists the rest.
+`sensealg=None` differentiates every plain ODE; ROADMAP.md lists the rest.
 Beside them: the classic, neural-ODE and PDE models (`models/classic.py`,
 `models/neural_ode.py`, `models/pde.py`), the fused MLP field `fused_mlp2`
 (`ops/mlp.py`) and the RK4 block megakernel `make_rd1d_rk4_block`
@@ -79,6 +82,7 @@ from .models.neural_ode import (
     mnist_node_apply,
     mnist_node_init,
     neural_ode_field,
+    neural_sde,
     spiral_data,
     spiral_neural_ode,
 )
@@ -88,10 +92,12 @@ from .models.pde import (
     heat1d_field,
     heat1d_problem,
 )
+from .ops.brownian import NoiseGrid, NumpyKey, PRNGKey, VirtualBrownianTree
 from .ops.mlp import fused_mlp2
 from .ops.rd1d import make_rd1d_rk4_block
 from .problems import (DDEProblem, NonlinearProblem, ODEProblem,
-                       SecondOrderODEProblem, SteadyStateProblem, remake)
+                       RODEProblem, SDEProblem, SecondOrderODEProblem,
+                       SteadyStateProblem, remake)
 from .sensealg import (
     NILSAS,
     NILSS,
@@ -136,11 +142,19 @@ from .solvers.extrapolation import GBS, Vern9Like
 from .solvers.fbdf import FBDF
 from .solvers.rosenbrock import Rosenbrock23
 from .solvers.sdirk import SDIRK4, TRBDF2, Kvaerno3
+from .solvers.sde import (SOSRI, SRA1, SRIW1, AdaptiveMilstein, EulerHeun,
+                          EulerMaruyama, ImplicitEM, Milstein, RKMilCommute,
+                          RKMilGeneral, StrongTaylor15)
 from .solvers.seulex import Rodas4Like, Seulex
 
 __all__ = [
     "ODEProblem", "DDEProblem", "remake", "solve", "ODESolution",
     "RETCODE_NAMES",
+    "SDEProblem", "RODEProblem", "NoiseGrid", "VirtualBrownianTree",
+    "PRNGKey", "NumpyKey",
+    "EulerMaruyama", "EulerHeun", "Milstein", "RKMilCommute", "RKMilGeneral",
+    "SRA1", "SRIW1", "SOSRI", "StrongTaylor15", "AdaptiveMilstein",
+    "ImplicitEM",
     "SecondOrderODEProblem", "NonlinearProblem", "SteadyStateProblem",
     "NonlinearSolution", "solve_nonlinear", "solve_unconstrained_optimization",
     "ExplicitRK", "Tsit5", "Dopri5", "BS3", "Heun", "Midpoint", "Euler",
@@ -169,7 +183,7 @@ __all__ = [
     "lotka_volterra", "lotka_volterra_problem", "robertson",
     "robertson_problem", "lorenz", "lorenz_problem",
     "fused_mlp2", "mlp_init", "mlp_apply", "neural_ode_field", "spiral_data",
-    "spiral_neural_ode", "mnist_node_init", "mnist_node_apply",
+    "spiral_neural_ode", "mnist_node_init", "mnist_node_apply", "neural_sde",
     "heat1d_field", "heat1d_problem", "brusselator_2d_field",
     "brusselator_2d_problem", "make_rd1d_rk4_block",
 ]

@@ -30,8 +30,19 @@ layouts:
 JAX groups the event records by time into a `lax.switch`; here the
 affect looks the group up on the host. Every tensor the spec closes over
 is detached, so the reverse solve builds no graph and its callbacks pass
-`solve`'s closure check. `SDEAdjointProblem` and `RODEAdjointProblem`
-raise: SDE and RODE problems are ROADMAP M12.
+`solve`'s closure check.
+
+`SDEAdjointProblem` (JAX :440-759) returns the time-flipped Stratonovich
+reverse SDE in τ = t0 + t1 − t, driven by the forward path read backwards
+as a NoiseGrid (ΔW̃_j = −ΔW_{N−1−j}), for a fixed-grid SDE solution:
+Backsolve's z = [λ; q; u] or Interpolating's z = [λ; q] with u
+interpolated from sol.ys; solve it with EulerHeun() at `spec.dt` and
+`callback=spec.callback`, then `spec.extract(adj.ys[-1])`.
+`RODEAdjointProblem` (:761-855) returns the pathwise reverse ODE over the
+replayed path (an ODEProblem, any ODE solver). Both re-discretise the
+reverse flow, so they meet the discrete adjoints of `solve` and
+`adjoint_sensitivities` as dt → 0; adaptive and event solutions are
+refused.
 """
 
 from __future__ import annotations
@@ -75,6 +86,7 @@ class AdjointProblemSpec:
     extract: Callable
     sensealg: Any
     note: str = ""
+    dt: Optional[float] = None  # the SDE/RODE forward's grid step
 
 
 def _detached(tree):
@@ -333,13 +345,341 @@ def AdjointSensitivityIntegrand(sol, adj_sol, sensealg=None):
     return rho
 
 
+def _fixed_grid_meta(sol, kind):
+    """(t0, t1, dt, n_steps, key) of a fixed-grid SDE/RODE solution."""
+    sa = getattr(sol, "solve_args", None)
+    if sa is None or sa.get("kind") != kind:
+        raise NotImplementedError(
+            f"{'SDE' if kind == 'sde' else 'RODE'}AdjointProblem needs a "
+            f"FIXED-GRID solution from this package's solve() (adaptive "
+            f"solutions: use adjoint_sensitivities, which replays the "
+            f"realized grid exactly)")
+    t0, t1 = sol.prob.tspan
+    dt = float(sa["dt"])
+    n_steps = int(round((float(t1) - float(t0)) / dt))
+    return float(t0), float(t1), dt, n_steps, sa["key"]
+
+
+def _forward_noise_nodes(prob, key, n_steps, dt, w_shape, dtype, device):
+    """W at the forward grid nodes: drawn again from the key (the solve
+    never stored it), or read from the problem's noise_process."""
+    from ..ops.brownian import NoiseGrid, grid_path
+
+    src = prob.noise_process
+    if src is None:
+        return grid_path(key, n_steps, w_shape, dt, device).to(dtype)
+    if isinstance(src, NoiseGrid):
+        return torch.as_tensor(np.asarray(src.W) if not isinstance(
+            src.W, torch.Tensor) else src.W, dtype=dtype, device=device)
+    if callable(src):
+        t0 = float(prob.tspan[0])
+        return torch.stack([torch.broadcast_to(torch.as_tensor(
+            src(t0 + dt * i), device=device), w_shape).to(dtype)
+            for i in range(n_steps + 1)])
+    raise TypeError(f"noise_process: NoiseGrid or callable, got {src!r}")
+
+
+def _sde_data_jumps(sol, t, dgdu_discrete, p, like):
+    """(save times, λ jump rows there): SDE/RODE solutions have no dense
+    output, so the cotangents anchor to the stored save rows."""
+    if dgdu_discrete is None:
+        raise ValueError(
+            "SDE/RODE adjoint problems need dgdu_discrete (continuous "
+            "costs on SDE paths: put a running cost in an augmented "
+            "quadrature state instead)")
+    kind = time_dtype(like.dtype)
+    ts_sol = host_times(sol.ts, kind)
+    ts = ts_sol if t is None else host_times(t, kind)
+    if ts.shape != ts_sol.shape or not np.allclose(ts, ts_sol):
+        raise ValueError(
+            "t= must equal the solution's save times (cotangent rows "
+            "anchor to sol.ys); re-solve with saveat=t")
+    ys = _detached(sol.ys)
+    rows = []
+    for i in range(ts.shape[0]):
+        ui = _tree_row(ys, i)
+        rows.append(flat_of(dgdu_discrete(ui, p, ts[i], i), like))
+    return ts.astype(float), torch.stack(rows)
+
+
+def _tree_row(tree, i):
+    if isinstance(tree, dict):
+        return {k: _tree_row(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_row(v, i) for v in tree)
+    return tree[i]
+
+
+def _reverse_jump_plumbing(ts, lam_jumps, t0, t1, n):
+    """Data-time jumps split into the z0 seed at t1, the fold at t0 (in
+    extract) and a PresetTimeCallback at the interior ones, in the
+    reversed time τ = t0 + t1 − t."""
+    at_end = np.abs(ts - t1) <= 1e-12 * max(1.0, abs(t1))
+    at_start = np.abs(ts - t0) <= 1e-12 * max(1.0, abs(t0))
+    zero = lam_jumps.new_zeros(lam_jumps.shape[1])
+    lam_init = sum((lam_jumps[i] for i in np.flatnonzero(at_end)), zero)
+    lam_final = sum((lam_jumps[i] for i in np.flatnonzero(at_start)), zero)
+    interior = ~(at_end | at_start)
+    tau_ts = (t0 + t1) - ts
+
+    def jump_affect(z, _p, tau):
+        i = int(np.argmin(np.abs(tau_ts - float(tau))))
+        if not interior[i]:
+            return z
+        return torch.cat([z[:n] + lam_jumps[i], z[n:]])
+
+    cb_times = tau_ts[interior]
+    cb = (PresetTimeCallback(ts=cb_times, affect=jump_affect)
+          if interior.any() else None)
+    return lam_init, lam_final, cb, cb_times
+
+
+def _interp_rows(ts, rows, tt):
+    """Rows (len(ts), ...) linearly interpolated at the host time tt,
+    clamped outside ts (jnp.interp's convention)."""
+    tt = float(tt)
+    if tt <= ts[0]:
+        return rows[0]
+    if tt >= ts[-1]:
+        return rows[-1]
+    k = int(np.searchsorted(ts, tt, side="right")) - 1
+    w = (tt - ts[k]) / (ts[k + 1] - ts[k])
+    return rows[k] + w * (rows[k + 1] - rows[k])
+
+
+def _flat_rows(sol):
+    ys = _detached(sol.ys)
+    return torch.stack([ravel_pytree(_tree_row(ys, i))[0]
+                        for i in range(len(sol.ts))])
+
+
 def SDEAdjointProblem(sol, sensealg=None, t=None, dgdu_discrete=None):
-    """The reverse SDE of an SDE solution: not ported (ROADMAP M12)."""
-    raise NotImplementedError(
-        "SDEAdjointProblem: SDE problems are ROADMAP M12")
+    """The user-solvable reverse SDE of a fixed-grid SDE solution (JAX
+    :519-759), the time-flipped Stratonovich augmented system in
+    τ = t0 + t1 − t on the reversed forward path (T = t0 + t1,
+    W̃(τ) = W(T − τ)):
+
+        BacksolveAdjoint (default)  z = [λ; q; u]:
+            dz = [+(∂f̃/∂u)ᵀλ; +(∂f̃/∂p)ᵀλ; −f̃] dτ
+                 + Σ_j [−(∂g_j/∂u)ᵀλ; −(∂g_j/∂p)ᵀλ; +g_j] ∘dW̃_j
+        InterpolatingAdjoint        z = [λ; q], u(T − τ) interpolated
+                                    from sol.ys (save densely)
+
+    f̃ the Stratonovich drift (an Itô problem gets −½(∂g/∂u)g). Solve
+    spec.prob with EulerHeun() at dt=spec.dt and callback=spec.callback;
+    discrete costs only (dgdu_discrete)."""
+    from ..ops.brownian import NoiseGrid
+    from ..problems import SDEProblem
+    from ..solvers.sde import _drift_correction
+    from .sde import pullback, pullbacks
+
+    sensealg = sensealg if sensealg is not None else BacksolveAdjoint()
+    if getattr(sol, "events", None) is not None:
+        raise NotImplementedError(
+            "SDEAdjointProblem on event solutions: differentiate solve")
+    prob = sol.prob
+    if not isinstance(prob, SDEProblem):
+        raise TypeError(f"SDEAdjointProblem needs an SDEProblem solution, "
+                        f"got {type(prob).__name__}")
+    t0, t1, dt, n_steps, key = _fixed_grid_meta(sol, "sde")
+    p = _detached(prob.p)
+    u0vec, unravel_u = ravel_pytree(_detached(prob.u0))
+    pflat, unravel_p = ravel_pytree(p)
+    if p is None:
+        pflat = u0vec.new_zeros(0)
+    n, npf = u0vec.shape[0], pflat.shape[0]
+    dtype, dev = u0vec.dtype, u0vec.device
+    if prob.noise == "general":
+        m, w_shape = prob.noise_dim, (prob.noise_dim,)
+    elif prob.noise == "scalar":
+        m, w_shape = 1, ()
+    else:
+        m, w_shape = n, (n,)
+    general = prob.noise == "general"
+
+    def p_of(pf):
+        return unravel_p(pf) if p is not None else None
+
+    def f_of(uu, pf, tt):
+        return ravel_pytree(prob.f(unravel_u(uu), p_of(pf), tt))[0]
+
+    def g_of(uu, pf, tt):
+        if general:
+            return torch.as_tensor(prob.g(unravel_u(uu), p_of(pf), tt))
+        return ravel_pytree(prob.g(unravel_u(uu), p_of(pf), tt))[0]
+
+    def f_strat(uu, pf, tt):
+        fv = f_of(uu, pf, tt)
+        if prob.interpretation != "ito":
+            return fv
+        return fv - _drift_correction(lambda x, s: g_of(x, pf, s), uu, tt)
+
+    W_rev = torch.flip(_forward_noise_nodes(prob, key, n_steps, dt, w_shape,
+                                            dtype, dev), [0])
+    if prob.noise == "scalar":
+        W_rev = W_rev[:, None]
+    tau_nodes = t0 + dt * np.arange(n_steps + 1)
+    noise_rev = NoiseGrid(ts=tau_nodes, W=W_rev)
+
+    ts, lam_jumps = _sde_data_jumps(sol, t, dgdu_discrete, p, u0vec)
+    lam_init, lam_final, cb, cb_times = _reverse_jump_plumbing(
+        ts, lam_jumps, t0, t1, n)
+
+    def drift_pullback(uv, tt, lam):
+        """((∂f̃/∂u)ᵀλ, (∂f̃/∂p)ᵀλ) at the physical time tt."""
+        return pullback(lambda uu, pf: f_strat(uu, pf, tt), uv, pflat, lam)
+
+    def noise_pullback(uv, tt, lam):
+        """Per noise column j: ((∂g_j/∂u)ᵀλ, (∂g_j/∂p)ᵀλ), (m, n) and
+        (m, npf)."""
+        if general:
+            eye = torch.eye(m, dtype=dtype, device=dev)
+            cots = [lam[:, None] * eye[j][None, :] for j in range(m)]
+        elif prob.noise == "scalar":
+            cots = [lam]
+        else:  # diagonal: g_j = g(u)_j e_j, cotangent λ_j e_j
+            cots = list(torch.diag(lam))
+        outs = pullbacks(lambda uu, pf: g_of(uu, pf, tt), uv, pflat, cots)
+        return (torch.stack([o[0] for o in outs]),
+                torch.stack([o[1] for o in outs]))
+
+    def g_cols(uv, tt):
+        """The noise matrix's columns g_j(u) as (m, n)."""
+        gv = g_of(uv, pflat, tt)
+        if general:
+            return gv.T
+        if prob.noise == "scalar":
+            return gv[None, :]
+        return torch.diag(gv)
+
+    T = t0 + t1
+    if isinstance(sensealg, BacksolveAdjoint):
+        def aug_f(z, _p, tau):
+            tt = T - tau
+            lam, u_cur = z[:n], z[n + npf:]
+            ub, pb = drift_pullback(u_cur, tt, lam)
+            return torch.cat([ub, pb, -f_strat(u_cur, pflat, tt)])
+
+        def aug_g(z, _p, tau):
+            # signs of the discrete time flip ΔW̃_j = −ΔW_{N−1−j}
+            tt = T - tau
+            lam, u_cur = z[:n], z[n + npf:]
+            gu, gp = noise_pullback(u_cur, tt, lam)
+            return torch.cat([-gu, -gp, g_cols(u_cur, tt)], dim=1).T
+
+        u_end = _flat_rows(sol)[-1]
+        z0 = torch.cat([lam_init, u0vec.new_zeros(npf), u_end])
+        note = "BacksolveAdjoint: z = [λ; q; u], u re-integrated backward"
+    elif isinstance(sensealg, InterpolatingAdjoint):
+        ys_flat, ts_sol = _flat_rows(sol), np.asarray(ts, float)
+
+        def aug_f(z, _p, tau):
+            tt = T - tau
+            ub, pb = drift_pullback(_interp_rows(ts_sol, ys_flat, tt), tt,
+                                    z[:n])
+            return torch.cat([ub, pb])
+
+        def aug_g(z, _p, tau):
+            tt = T - tau
+            gu, gp = noise_pullback(_interp_rows(ts_sol, ys_flat, tt), tt,
+                                    z[:n])
+            return torch.cat([-gu, -gp], dim=1).T
+
+        z0 = torch.cat([lam_init, u0vec.new_zeros(npf)])
+        note = ("InterpolatingAdjoint: z = [λ; q], u(t) interpolated from "
+                "sol.ys — save densely for accuracy")
+    else:
+        raise NotImplementedError(
+            f"SDEAdjointProblem supports BacksolveAdjoint/"
+            f"InterpolatingAdjoint layouts, got {sensealg!r}")
+
+    adj_prob = SDEProblem(aug_f, aug_g, z0, (t0, t1), p, noise="general",
+                          interpretation="stratonovich", noise_dim=m,
+                          noise_process=noise_rev)
+
+    def extract(z):
+        return unravel_u(z[:n] + lam_final), p_of(z[n:n + npf])
+
+    return AdjointProblemSpec(
+        prob=adj_prob, callback=cb, tstops=cb_times, n=n, npf=npf,
+        extract=extract, sensealg=sensealg,
+        note=note + "; solve with EulerHeun() on the same dt", dt=dt)
 
 
 def RODEAdjointProblem(sol, sensealg=None, t=None, dgdu_discrete=None):
-    """The reverse problem of an RODE solution: not ported (ROADMAP M12)."""
-    raise NotImplementedError(
-        "RODEAdjointProblem: RODE problems are ROADMAP M12")
+    """The reverse problem of a fixed-grid RODE solution (JAX :761-855): a
+    pathwise ODE in τ = t0 + t1 − t, dλ/dτ = +(∂f/∂u)ᵀλ, dq/dτ =
+    +(∂f/∂p)ᵀλ, whose field reads W(T − τ) from the replayed forward path
+    (linear between the grid nodes). InterpolatingAdjoint (default)
+    interpolates u from sol.ys; BacksolveAdjoint appends −f rows. An
+    ODEProblem: solve it with any ODE solver on a grid near spec.dt."""
+    from ..problems import RODEProblem
+    from .sde import pullback
+
+    sensealg = sensealg if sensealg is not None else InterpolatingAdjoint()
+    prob = sol.prob
+    if not isinstance(prob, RODEProblem):
+        raise TypeError(f"RODEAdjointProblem needs an RODEProblem solution, "
+                        f"got {type(prob).__name__}")
+    t0, t1, dt, n_steps, key = _fixed_grid_meta(sol, "rode")
+    p = _detached(prob.p)
+    u0vec, unravel_u = ravel_pytree(_detached(prob.u0))
+    pflat, unravel_p = ravel_pytree(p)
+    if p is None:
+        pflat = u0vec.new_zeros(0)
+    n, npf = u0vec.shape[0], pflat.shape[0]
+    dtype, dev = u0vec.dtype, u0vec.device
+    w_shape = (prob.noise_dim,) if prob.noise_dim else (n,)
+    W_fwd = _forward_noise_nodes(prob, key, n_steps, dt, w_shape, dtype, dev)
+    fwd_nodes = t0 + dt * np.arange(n_steps + 1)
+
+    def p_of(pf):
+        return unravel_p(pf) if p is not None else None
+
+    def W_of(tt):
+        return _interp_rows(fwd_nodes, W_fwd, tt)
+
+    ts, lam_jumps = _sde_data_jumps(sol, t, dgdu_discrete, p, u0vec)
+    lam_init, lam_final, cb, cb_times = _reverse_jump_plumbing(
+        ts, lam_jumps, t0, t1, n)
+    T = t0 + t1
+
+    def f_of(uu, pf, tt, wv):
+        return ravel_pytree(prob.f(unravel_u(uu), p_of(pf), tt, wv))[0]
+
+    def f_pullback(uv, tt, wv, lam):
+        return pullback(lambda uu, pf: f_of(uu, pf, tt, wv), uv, pflat, lam)
+
+    if isinstance(sensealg, BacksolveAdjoint):
+        def aug_f(z, _p, tau):
+            tt = T - tau
+            wv = W_of(tt)
+            lam, u_cur = z[:n], z[n + npf:]
+            ub, pb = f_pullback(u_cur, tt, wv, lam)
+            return torch.cat([ub, pb, -f_of(u_cur, pflat, tt, wv)])
+
+        u_end = _flat_rows(sol)[-1]
+        z0 = torch.cat([lam_init, u0vec.new_zeros(npf), u_end])
+        note = "BacksolveAdjoint: z = [λ; q; u]"
+    else:
+        ys_flat, ts_sol = _flat_rows(sol), np.asarray(ts, float)
+
+        def aug_f(z, _p, tau):
+            tt = T - tau
+            ub, pb = f_pullback(_interp_rows(ts_sol, ys_flat, tt), tt,
+                                W_of(tt), z[:n])
+            return torch.cat([ub, pb])
+
+        z0 = torch.cat([lam_init, u0vec.new_zeros(npf)])
+        note = ("InterpolatingAdjoint: z = [λ; q], u(t) interpolated from "
+                "sol.ys — save densely for accuracy")
+
+    def extract(z):
+        return unravel_u(z[:n] + lam_final), p_of(z[n:n + npf])
+
+    return AdjointProblemSpec(
+        prob=ODEProblem(aug_f, z0, (t0, t1), p), callback=cb,
+        tstops=cb_times, n=n, npf=npf, extract=extract, sensealg=sensealg,
+        note=note + (f"; an ODEProblem over τ = t0+t1−t reading the "
+                     f"replayed path — solve on a fixed grid near "
+                     f"dt={dt} (the RHS is Brownian-rough)"), dt=dt)

@@ -118,6 +118,7 @@ def forward_saveat_solve(
     extra_hook: Optional[Callable] = None,
     event_set=None,
     saveat_offsets=None,
+    always_accept: bool = False,
 ) -> ForwardResult:
     """Forward solve capturing the saveat states exactly; `fixed_trip` and
     `event_set` as in `integrate`. `extra_hook(step_record)` runs on every
@@ -125,7 +126,8 @@ def forward_saveat_solve(
     closure keeps its own state). saveat_offsets: (nt,) zero-valued tensor
     carrying the save times' derivatives (DirectAdjoint), passed to
     `integrate` as its stop offsets. Save times past a terminal stop hold
-    the terminal state."""
+    the terminal state. always_accept: `integrate`'s previsible controller
+    (the adaptive SDE path)."""
     kind = time_dtype(u0vec.dtype)
     t0, t1 = kind(t0), kind(t1)
     saveat = np.asarray(saveat, dtype=kind)
@@ -157,7 +159,7 @@ def forward_saveat_solve(
         hook_carry=save_carry0(saveat, t0, tdir, u0vec, t1 - t0),
         store_dense=store_dense, dtmax=dtmax, fixed_dt=fixed_dt,
         fixed_trip=fixed_trip, event_set=event_set,
-        stop_offsets=stop_offsets,
+        stop_offsets=stop_offsets, always_accept=always_accept,
     )
     ys_save = saved_rows(res.hook_carry, res.u_final)
     return ForwardResult(ys_save=ys_save, dense=res.dense,

@@ -38,8 +38,12 @@ they are a loop, so the user's callbacks need not be batchable. Time is a
 host value: the callbacks get t as a numpy scalar of the time dtype.
 Everything runs under `torch.no_grad()`; the results carry no graph.
 
-Not here: SDE and RODE solutions (ROADMAP M12) raise NotImplementedError,
-as do parameter-modifying events (as in JAX).
+An SDE or RODE solution (JAX :63-120, :182-205) is replayed: its solve
+runs again from `sol.solve_args` on the same noise (same key, dt or
+tolerances), one autograd pullback of (u0, p) -> ys takes the data-time
+cotangents, and the gradient is the exact discrete adjoint of the
+realised scheme. Continuous costs and t_grads are refused there, as in
+JAX. Parameter-modifying events raise NotImplementedError (as in JAX).
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ from ..problems import ODEProblem
 from ..sensealg import (BacksolveAdjoint, GaussAdjoint, GaussKronrodAdjoint,
                         InterpolatingAdjoint, QuadratureAdjoint)
 from ..solvers.integrate import (RETCODE_TERMINATED, match_tol, time_dtype)
-from ..utils.pytree import ravel_pytree
+from ..utils.pytree import ravel_pytree, tree_leaves
 from .common import match_cotangents, reverse_joined_solve
 from .continuous import (_dae_lam_fix, _dae_project_jumps,
                          _dae_reverse_stepper, _err_weights, _flat,
@@ -75,12 +79,105 @@ def host_times(t, kind) -> np.ndarray:
 
 
 def refuse_other_problems(sol, who: str):
-    """SDE/RODE solutions are not ported (ROADMAP M12)."""
+    """The ODE reverse designs take ODE solutions only."""
     prob = sol.prob
     if not isinstance(prob, ODEProblem):
         raise NotImplementedError(
-            f"{who} on a {type(prob).__name__} solution: SDE and RODE "
-            "solutions are ROADMAP M12")
+            f"{who} on a {type(prob).__name__} solution is not supported")
+
+
+def _replay_direct(sol, *, t, dgdu_discrete, dgdp_discrete, sensealg,
+                   callback):
+    """Direct sensitivities of an SDE/RODE solution by replay (JAX
+    :63-120): solve again over the same noise from sol.solve_args, and
+    pull the data-time cotangent rows, evaluated at the primal solution,
+    back through (u0, p) -> ys."""
+    from ..problems import remake
+    from ..solve import solve as _solve
+    from ..solvers.sde import Milstein
+
+    prob = sol.prob
+    p = prob.p
+    sa = sol.solve_args
+    if sa is None:
+        raise ValueError(
+            "this SDE/RODE solution carries no replay metadata "
+            "(solve_args); re-solve with the package's solve()")
+    kind = time_dtype(ravel_pytree(prob.u0)[0].dtype)
+    ts_sol = host_times(sol.ts, kind)
+    ts = ts_sol if t is None else host_times(t, kind)
+    if ts.shape != ts_sol.shape or not np.allclose(ts, ts_sol):
+        raise ValueError(
+            "t= must equal the solution's save times for SDE/RODE "
+            "direct sensitivities (cotangent rows align with sol.ys); "
+            "re-solve with saveat=t")
+    if dgdu_discrete is None:
+        raise ValueError("SDE/RODE direct sensitivities need dgdu_discrete")
+    alg = sensealg if sensealg is not None else sol.sensealg
+    kw = dict(saveat=ts_sol, sensealg=alg, key=sa["key"])
+    solver_arg = None
+    if sa["kind"] == "sde_adaptive":
+        kw.update(rtol=sa["rtol"], atol=sa["atol"],
+                  max_steps=sa["max_steps"])
+        # JAX builds AdaptiveMilstein() here, which needs its tree: the
+        # port replays through Milstein(), which solve maps to it
+        if "Milstein" in str(sol.solver):
+            solver_arg = Milstein()
+    else:
+        kw.update(dt=sa["dt"])
+        if not isinstance(sol.solver, str):
+            solver_arg = sol.solver
+    if callback is not None:
+        kw["callback"] = callback
+
+    def detached(tree):
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            return {k: detached(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(detached(v) for v in tree)
+        return tree.detach().clone().requires_grad_()
+
+    u0_l, p_l = detached(prob.u0), detached(p)
+    nt = ts.shape[0]
+    like = ravel_pytree(prob.u0)[0]
+    rows = [_row(sol.ys, i) for i in range(nt)]
+    cot = torch.stack([flat_of(dgdu_discrete(rows[i], p, ts[i], i), like)
+                       for i in range(nt)])
+    leaves = tree_leaves(u0_l) + tree_leaves(p_l)
+    with torch.enable_grad():
+        s = _solve(remake(prob, u0=u0_l, p=p_l), solver_arg, **kw)
+        ys_rows = torch.stack([ravel_pytree(_row(s.ys, i))[0]
+                               for i in range(nt)])
+        grads = torch.autograd.grad(ys_rows, leaves, grad_outputs=cot,
+                                    allow_unused=True)
+    grads = [torch.zeros_like(x) if gr is None else gr
+             for x, gr in zip(leaves, grads)]
+    nu = len(tree_leaves(u0_l))
+    du0 = _rebuild(prob.u0, grads[:nu])
+    dp = _rebuild(p, grads[nu:]) if p is not None else None
+    if dgdp_discrete is not None:
+        pflat, unravel_p = ravel_pytree(p)
+        extra = sum(flat_of(dgdp_discrete(rows[i], p, ts[i], i), pflat)
+                    for i in range(nt))
+        dp = unravel_p(ravel_pytree(dp)[0] + extra)
+    return du0, dp
+
+
+def _row(ys, i):
+    """Row i of every leaf of a tree of (nt, ...) tensors."""
+    if isinstance(ys, dict):
+        return {k: _row(v, i) for k, v in ys.items()}
+    if isinstance(ys, (list, tuple)):
+        return type(ys)(_row(v, i) for v in ys)
+    return ys[i]
+
+
+def _rebuild(tree, leaves):
+    """A tree shaped like `tree` from its leaves in flattening order."""
+    flat = torch.cat([x.reshape(-1) for x in leaves]) if leaves else None
+    return ravel_pytree(tree)[1](flat)
 
 
 def event_set_of(sol, callback, p, unravel_u, kind, max_events, who):
@@ -201,6 +298,22 @@ def adjoint_sensitivities(
     Complex states follow torch's convention: the cotangents are the
     conjugates of JAX's, and a real parameter's gradient is real.
     """
+    from ..problems import RODEProblem, SDEProblem
+
+    if isinstance(sol.prob, (SDEProblem, RODEProblem)):
+        if (g is not None or dgdu_continuous is not None
+                or dgdp_continuous is not None):
+            raise NotImplementedError(
+                "adjoint_sensitivities on SDE/RODE solutions supports "
+                "discrete costs (dgdu_discrete/dgdp_discrete); put a "
+                "running cost in an augmented quadrature state instead")
+        if t_grads:
+            raise NotImplementedError(
+                "t_grads on SDE/RODE solutions is not supported (the "
+                "realized noise grid is tied to the tspan)")
+        return _replay_direct(sol, t=t, dgdu_discrete=dgdu_discrete,
+                              dgdp_discrete=dgdp_discrete,
+                              sensealg=sensealg, callback=callback)
     refuse_other_problems(sol, "adjoint_sensitivities")
     if sol.dense is None:
         raise ValueError("adjoint_sensitivities needs solve(..., dense=True)")

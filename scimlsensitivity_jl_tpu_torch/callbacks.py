@@ -5,8 +5,9 @@ Counterpart of `scimlsensitivity_jl_tpu/callbacks.py`: the callback types
 `PresetTimeCallback`, `PeriodicCallback`, `TerminateSteadyState`,
 `CallbackSet`), their solve-time lowering (`lower_time_callbacks`,
 `as_callback_set`), the flat-state `EventSet` (`build_event_set`),
-`any_modifies_p`, `lift_p_into_state` and the closure guard
-`check_callback_closures`. The SDE lift waits for ROADMAP M12.
+`any_modifies_p`, `lift_p_into_state`, its SDE form
+`lift_p_into_state_sde` (:450-537) and the closure guard
+`check_callback_closures`.
 
 condition(u, p, t) -> scalar (continuous: an event at a zero crossing) or
 bool (discrete: checked at accepted step ends); affect(u, p, t) -> u⁺, or
@@ -49,6 +50,7 @@ __all__ = [
     "any_modifies_p",
     "check_callback_closures",
     "lift_p_into_state",
+    "lift_p_into_state_sde",
 ]
 
 
@@ -400,3 +402,72 @@ def lift_p_into_state(prob, cbs: CallbackSet):
     )
     prob_z = ODEProblem(f_z, (prob.u0, prob.p), prob.tspan, None)
     return prob_z, cbs_z
+
+
+def lift_p_into_state_sde(prob, callbacks: tuple):
+    """The SDE form of `lift_p_into_state` (JAX callbacks.py:450-537): p
+    rides the state z = (u, p) with zero drift and zero noise rows, so
+    the solution and every discrete adjoint are those of the original
+    problem but for the doses on p. Returns (prob_z, callbacks_z, n_u),
+    n_u the flat size of the original state."""
+    from .problems import SDEProblem
+
+    if prob.noise_process is not None:
+        raise NotImplementedError(
+            "modifies_p SDE callbacks + user noise_process: the p-lift "
+            "changes the state (and noise) dimension, which a fixed user "
+            "path cannot follow — use framework noise or fold p into the "
+            "state manually")
+    f, g = prob.f, prob.g
+    n_u = ravel_pytree(prob.u0)[0].shape[0]
+    np_flat = ravel_pytree(prob.p)[0].shape[0] if prob.p is not None else 0
+
+    def f_z(z, _p, t):
+        u, pp = z
+        return (f(u, pp, t), _zeros_like_tree(pp))
+
+    if prob.noise == "general":
+        def g_z(z, _p, t):
+            u, pp = z
+            G = torch.as_tensor(g(u, pp, t))
+            return torch.cat([G, G.new_zeros((np_flat, G.shape[1]))], dim=0)
+    else:
+        def g_z(z, _p, t):
+            u, pp = z
+            return (g(u, pp, t), _zeros_like_tree(pp))
+
+    def wrap_affect(aff, modifies_p):
+        if modifies_p:
+            return lambda z, _p, t: aff(z[0], z[1], t)
+        return lambda z, _p, t: (aff(z[0], z[1], t), z[1])
+
+    def lift_cb(c):
+        if isinstance(c, ContinuousCallback):
+            cond = c.condition
+            return ContinuousCallback(
+                condition=lambda z, _p, t, cond=cond: cond(z[0], z[1], t),
+                affect=wrap_affect(c.affect, c.modifies_p),
+                direction=c.direction, terminal=c.terminal)
+        if isinstance(c, DiscreteCallback):
+            cond = c.condition
+            return DiscreteCallback(
+                condition=lambda z, _p, t, cond=cond: cond(z[0], z[1], t),
+                affect=wrap_affect(c.affect, c.modifies_p),
+                terminal=c.terminal)
+        if isinstance(c, PresetTimeCallback):
+            return PresetTimeCallback(
+                ts=c.ts, affect=wrap_affect(c.affect, c.modifies_p),
+                terminal=c.terminal)
+        if isinstance(c, PeriodicCallback):
+            return PeriodicCallback(
+                affect=wrap_affect(c.affect, c.modifies_p),
+                period=c.period, terminal=c.terminal)
+        raise NotImplementedError(
+            f"modifies_p lift: unsupported SDE callback type "
+            f"{type(c).__name__}")
+
+    prob_z = SDEProblem(
+        f=f_z, g=g_z, u0=(prob.u0, prob.p), tspan=prob.tspan, p=None,
+        noise=prob.noise, interpretation=prob.interpretation,
+        noise_dim=prob.noise_dim)
+    return prob_z, tuple(lift_cb(c) for c in callbacks), n_u

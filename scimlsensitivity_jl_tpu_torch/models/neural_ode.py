@@ -2,8 +2,7 @@
 
 Counterpart of `scimlsensitivity_jl_tpu/models/neural_ode.py`: `mlp_init`,
 `mlp_apply`, `neural_ode_field`, `spiral_data`, `spiral_neural_ode`,
-`mnist_node_init` and `mnist_node_apply`. `neural_sde` waits for the SDE
-problems (ROADMAP M12).
+`mnist_node_init`, `mnist_node_apply` and `neural_sde` (:107-139).
 
 Parameters are plain dicts {'W0','b0','W1','b1',...}, as in the JAX
 package, so `solve`'s autograd rules take them unchanged. `jax.random` keys
@@ -23,7 +22,7 @@ from typing import Sequence
 
 import torch
 
-from ..problems import ODEProblem
+from ..problems import ODEProblem, SDEProblem
 
 __all__ = [
     "mlp_init",
@@ -33,6 +32,7 @@ __all__ = [
     "spiral_data",
     "mnist_node_init",
     "mnist_node_apply",
+    "neural_sde",
 ]
 
 SPIRAL_A = ((-0.1, 2.0), (-2.0, -0.1))
@@ -106,6 +106,38 @@ def spiral_neural_ode(generator: torch.Generator = None, hidden: int = 50,
         if u0 is None:
             u0 = torch.tensor([2.0, 0.0], dtype=dtype, device=device)
         return ODEProblem(f, u0, (0.0, float(T)), p)
+
+    return params, make_prob
+
+
+def neural_sde(generator: torch.Generator = None, d: int = 2,
+               hidden: int = 32, dtype=torch.float32, sigma_scale=0.1, *,
+               device="cuda"):
+    """Neural SDE: drift MLP_f(u) (d → hidden → d, tanh) and diagonal
+    diffusion sigma_scale·softplus(MLP_g(u)). Returns (params, make_prob)
+    with params {"drift": ..., "diffusion": ...} and make_prob(params,
+    u0=None, T=1.0) -> SDEProblem (diagonal noise). The fused kernel field
+    is the caller's choice, as for the ODE models: `fused_mlp2(p["drift"],
+    u)` in an SDEProblem of its own."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    params = {
+        "drift": mlp_init(generator, (d, hidden, d), dtype, device=device),
+        "diffusion": mlp_init(generator, (d, hidden, d), dtype,
+                              device=device),
+    }
+
+    def f(u, p, t):
+        return mlp_apply(p["drift"], u)
+
+    def g(u, p, t):
+        return sigma_scale * torch.nn.functional.softplus(
+            mlp_apply(p["diffusion"], u))
+
+    def make_prob(p, u0=None, T=1.0):
+        if u0 is None:
+            u0 = torch.ones((d,), dtype=dtype, device=device)
+        return SDEProblem(f, g, u0, (0.0, float(T)), p, noise="diagonal")
 
     return params, make_prob
 

@@ -3,12 +3,14 @@
 Counterpart of `scimlsensitivity_jl_tpu/problems.py`: `ODEProblem` (with
 its mass matrix, :54-78), `DDEProblem` (:131-160), `remake`,
 `SecondOrderODEProblem` (:205-227), `NonlinearProblem` and
-`SteadyStateProblem` with `to_nonlinear` (:166-189). SDE and RODE problems
-wait (ROADMAP M12).
+`SteadyStateProblem` with `to_nonlinear` (:166-189), `SDEProblem` and
+`RODEProblem` (:88-128).
 
     ODEProblem(f, u0, tspan, p)          f(u, p, t) -> du
     ODEProblem(..., mass_matrix=M)       M u' = f(u, p, t)
     DDEProblem(f, u0, tspan, p, lags=)   f(u, hist, p, t) -> du
+    SDEProblem(f, g, u0, tspan, p)       du = f dt + g dW
+    RODEProblem(f, u0, tspan, p)         u' = f(u, p, t, W(t))
     NonlinearProblem(f, u0, p)           f(u, p) = 0
     SteadyStateProblem(f, u0, p)         f(u, p, t=∞) = 0
 
@@ -21,8 +23,8 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable, Optional
 
-__all__ = ["ODEProblem", "DDEProblem", "remake", "SecondOrderODEProblem",
-           "NonlinearProblem", "SteadyStateProblem"]
+__all__ = ["ODEProblem", "DDEProblem", "SDEProblem", "RODEProblem", "remake",
+           "SecondOrderODEProblem", "NonlinearProblem", "SteadyStateProblem"]
 
 
 @dataclass(frozen=True)
@@ -85,6 +87,45 @@ class DDEProblem:
     history: Optional[Callable] = None
     max_lag: Optional[float] = None
     dist_kernels: tuple = ()
+
+
+@dataclass(frozen=True)
+class SDEProblem:
+    """SDE du = f(u, p, t) dt + g(u, p, t) dW.
+
+    noise: "diagonal" (g like u, elementwise), "scalar" (g like u, one
+        shared Wiener process) or "general" (g an (n, m) matrix over the
+        flattened state, m = noise_dim Wiener processes).
+    interpretation: "ito" or "stratonovich", the problem's calculus; a
+        scheme of the other calculus gets the drift correction.
+    noise_process: an observed path, `ops.brownian.NoiseGrid(ts, W)` on the
+        solve grid or a callable W(t) (a VirtualBrownianTree, say); None:
+        the solve's own replayable noise from its key.
+    """
+
+    f: Callable
+    g: Callable
+    u0: Any
+    tspan: tuple
+    p: Any = None
+    noise: str = "diagonal"
+    interpretation: str = "ito"
+    noise_dim: Optional[int] = None
+    noise_process: Any = None
+
+
+@dataclass(frozen=True)
+class RODEProblem:
+    """Random ODE u' = f(u, p, t, W(t)) driven by a Wiener path W of shape
+    (noise_dim,) (default: like the flattened state); noise_process as for
+    SDEProblem."""
+
+    f: Callable
+    u0: Any
+    tspan: tuple
+    p: Any = None
+    noise_dim: Optional[int] = None
+    noise_process: Any = None
 
 
 def remake(prob, **kwargs):

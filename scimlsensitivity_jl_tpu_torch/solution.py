@@ -38,6 +38,9 @@ class ODESolution:
         no such record: under `jit` the reverse counts stay on the device).
     events: with callbacks, the forward's `solvers.events.EventRecord`
         (ts, u_pre, idx, count), JAX's (ev_ts, ev_upre, ev_idx, ev_count).
+    solve_args: an SDE or RODE solve's replay record, which the direct
+        API re-solves from: {"kind": "sde" | "rode" | "sde_adaptive", "key",
+        "dt"} or, adaptively, {"kind", "key", "rtol", "atol", "max_steps"}.
     """
 
     ts: torch.Tensor
@@ -53,6 +56,7 @@ class ODESolution:
     t_final: Any = None
     adjoint: Any = None
     events: Any = None
+    solve_args: Any = None
 
     @property
     def success(self):

@@ -15,7 +15,11 @@ a mass-capable stepper, with `dae_init="newton"`). Gradients follow
 requires grad. DDEProblem goes to `adjoints/dde` (solve.py:152-171: the
 fixed grid with dt=, else the adaptive method of steps); NonlinearProblem
 and SteadyStateProblem to `adjoints/steadystate.solve_nonlinear`
-(solve.py:177-190, SteadyStateAdjoint only). SDE and RODE problems and the
+(solve.py:177-190, SteadyStateAdjoint only); SDEProblem to
+`adjoints/sde.solve_sde` (solve.py:111-150: rtol / atol default to 1e-3 /
+1e-6, and parameter-modifying callbacks lift p into the state,
+`callbacks.lift_p_into_state_sde`) and RODEProblem to
+`adjoints/sde.solve_rode` (solve.py:172-176; callbacks refused). The
 sensealgs whose rules are not ported raise NotImplementedError naming the
 ROADMAP item.
 """
@@ -35,7 +39,7 @@ from .callbacks import (any_modifies_p, as_callback_set,
                         lower_time_callbacks)
 from .ops.vjp import probe_forward_mode
 from .problems import (DDEProblem, NonlinearProblem, ODEProblem,
-                       SteadyStateProblem, remake)
+                       RODEProblem, SDEProblem, SteadyStateProblem, remake)
 from .sensealg import (AbstractSensealg, BacksolveAdjoint, DirectAdjoint,
                        ForwardDiffSensitivity, ForwardSensitivity, GaussAdjoint,
                        GaussKronrodAdjoint, InterpolatingAdjoint,
@@ -83,6 +87,7 @@ def solve(
     dtmax=None,
     save_idxs=None,
     dae_init=None,
+    key=None,
 ):
     """Solve a problem; gradients through the result follow `sensealg`.
 
@@ -108,6 +113,11 @@ def solve(
     TRBDF2 for a stiff one), else the adaptive one (Tsit5, Dopri5, BS3 or
     an ESDIRK stepper, dt capped at the smallest lag, `dtmax` for
     state-dependent lags); gradients are autograd through its loop.
+    An SDEProblem takes dt= for the fixed grid (any scheme of
+    `solvers/sde.py`), else the adaptive path on a VirtualBrownianTree
+    (EulerMaruyama or Milstein); an RODEProblem takes dt=. key: the noise's
+    key (`ops.brownian.PRNGKey`, an int, or any object of its protocol;
+    default PRNGKey(0)).
     """
     if isinstance(prob, (NonlinearProblem, SteadyStateProblem)):
         from .adjoints.steadystate import solve_nonlinear
@@ -120,10 +130,25 @@ def solve(
                     f"{sensealg!r}")
             kw["sensealg"] = sensealg
         return solve_nonlinear(prob, **kw)
+    # a strong-order ~1 SDE scheme at rtol 1e-7 would starve max_steps
     if rtol is None:
-        rtol = 1e-7
+        rtol = 1e-3 if isinstance(prob, SDEProblem) else 1e-7
     if atol is None:
-        atol = 1e-9
+        atol = 1e-6 if isinstance(prob, SDEProblem) else 1e-9
+    if isinstance(prob, SDEProblem):
+        return _solve_sde_branch(prob, solver, saveat=saveat, dt=dt,
+                                 sensealg=sensealg, max_steps=max_steps,
+                                 key=key, rtol=rtol, atol=atol,
+                                 callback=callback)
+    if isinstance(prob, RODEProblem):
+        if callback is not None:
+            raise NotImplementedError(
+                f"callbacks on {type(prob).__name__} are not supported — "
+                "don't pass callback=, it would be silently ignored")
+        from .adjoints.sde import solve_rode
+
+        return solve_rode(prob, dt=dt, saveat=saveat, key=key,
+                          sensealg=sensealg)
     if isinstance(prob, DDEProblem):
         if callback is not None:
             raise NotImplementedError(
@@ -140,8 +165,7 @@ def solve(
                          sensealg=sensealg)
     if not isinstance(prob, ODEProblem):
         raise NotImplementedError(
-            f"solve for {type(prob).__name__}: the port solves ODE, DDE, "
-            "nonlinear and steady-state problems so far (ROADMAP M12)")
+            f"solve not implemented for {type(prob).__name__}")
     return _solve_ode(
         prob, solver, saveat=saveat, rtol=rtol, atol=atol, dt0=dt0, dt=dt,
         max_steps=max_steps, tstops=tstops, sensealg=sensealg, dense=dense,
@@ -150,6 +174,31 @@ def solve(
         verbose=verbose, dtmax=dtmax, callback=callback,
         max_events=max_events, save_idxs=save_idxs, dae_init=dae_init,
     )
+
+
+def _solve_sde_branch(prob, solver, *, saveat, dt, sensealg, max_steps, key,
+                      rtol, atol, callback):
+    """JAX solve.py:111-150: parameter-modifying callbacks lift p into
+    the state (zero drift and noise rows), and the solution is un-lifted;
+    its replay record then goes, as the direct API cannot rebuild the
+    doses from the original problem."""
+    from .adjoints.sde import solve_sde
+    from .callbacks import lift_p_into_state_sde
+
+    kw = dict(saveat=saveat, dt=dt, sensealg=sensealg, max_steps=max_steps,
+              key=key, rtol=rtol, atol=atol)
+    items = None
+    if callback is not None:
+        items = tuple(callback) if isinstance(callback, (list, tuple)) \
+            else (callback,)
+    if not items or not any(getattr(c, "modifies_p", False) for c in items):
+        return solve_sde(prob, solver, callback=callback, **kw)
+    prob_z, cbs_z, n_u = lift_p_into_state_sde(prob, items)
+    sol = solve_sde(prob_z, solver, callback=list(cbs_z), **kw)
+    return dataclasses.replace(
+        sol, ys=sol.ys[0], unravel_u=ravel_pytree(prob.u0)[1], prob=prob,
+        u_final=None if sol.u_final is None else sol.u_final[:n_u],
+        solve_args=None)
 
 
 def _mass_matrix_branch(prob, solver, sensealg, dt0, dt, dae_init, u0vec,

@@ -174,7 +174,12 @@ def initial_step_size(fvec, t0, u0, f0, order, rtol, atol, tdir):
     if dmax <= kind(1e-15):
         h1 = max(small, kind(h0 * kind(1e-3)))
     else:
-        h1 = kind(kind(kind(0.01) / dmax) ** kind(1.0 / (order + 1.0)))
+        # XLA rewrites pow(x, 0.5) as sqrt(x), correctly rounded: an
+        # order-1 stepper's first step then matches the JAX package's bit
+        # for bit (the adaptive SDE grid amplifies an ulp step by step)
+        ratio = kind(kind(0.01) / dmax)
+        h1 = (kind(np.sqrt(ratio)) if order == 1
+              else kind(ratio ** kind(1.0 / (order + 1.0))))
     return kind(tdir * min(kind(kind(100.0) * h0), h1))
 
 
@@ -274,6 +279,7 @@ def integrate(
     fixed_trip: bool = False,
     event_set=None,
     stop_offsets=None,
+    always_accept: bool = False,
 ) -> IntegrateResult:
     """Integrate du/dt = fvec(u, t) from t0 to t1 (t1 < t0 allowed).
 
@@ -313,6 +319,9 @@ def integrate(
         clipped to a stop gets the length stop - t as a tensor, `ddt`, and
         time keeps a zero-valued offset until the next clipped step, as
         JAX's traced times do. Events add the event time's offset.
+    always_accept: the previsible controller of JAX's adaptive SDE paths
+        (integrate.py:531-535): every step with a finite error is taken,
+        and the error only sizes the next one.
     """
     stateful = getattr(stepper, "stateful", False)
     if stateful and fixed_trip:
@@ -396,7 +405,7 @@ def integrate(
             bad = not np.isfinite(err_norm)
             if bad:
                 err_norm = kind(2.0)
-            accept = bool(err_norm <= kind(1.0)) and not bad
+            accept = (always_accept or bool(err_norm <= kind(1.0))) and not bad
             # PI controller on |dt| (Soderlind), from this and the last error
             err_cl = max(err_norm, kind(1e-10))
             b1, b2 = beta1, beta2

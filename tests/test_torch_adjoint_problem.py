@@ -251,12 +251,26 @@ def test_refusals_match_jax(case):
     """What JAX's constructor refuses, the port's refuses with the same
     exception type: a missing or a stray forward callback (ValueError),
     QuadratureAdjoint's λ-only layout with events and terminal events
-    (NotImplementedError); SDEAdjointProblem and RODEAdjointProblem name
-    ROADMAP M12."""
+    (NotImplementedError); SDEAdjointProblem refuses an adaptive SDE
+    solution (NotImplementedError) and either constructor a solution of
+    another problem type (TypeError), as JAX's do
+    (adjoint_problem.py:446-453, :557-560, :795-798)."""
     if case in ("sde", "rode"):
+        sde = P.SDEProblem(_decay(P), lambda u, p, t: 0.1 * u, _t([1.0]),
+                           (0.0, 1.0), _t([0.8]))
+        fixed = P.solve(sde, P.EulerMaruyama(), dt=0.1, key=0)
+        if case == "sde":
+            adaptive = P.solve(sde, rtol=1e-2, atol=1e-4, key=0)
+            with pytest.raises(NotImplementedError, match="FIXED-GRID"):
+                P.SDEAdjointProblem(adaptive, dgdu_discrete=_cost)
+        else:
+            with pytest.raises(TypeError, match="RODEProblem"):
+                P.RODEAdjointProblem(fixed, dgdu_discrete=_cost)
         fn = P.SDEAdjointProblem if case == "sde" else P.RODEAdjointProblem
-        with pytest.raises(NotImplementedError, match="M12"):
-            fn(None)
+        ode = P.solve(P.ODEProblem(_decay(P), _t([1.0]), (0.0, 1.0),
+                                   _t([0.8])), P.Tsit5(), dense=True)
+        with pytest.raises(TypeError, match="solution"):
+            fn(ode, dgdu_discrete=_cost)
         return
     terminal = case == "terminal"
     cb = P.ContinuousCallback(lambda u, p, t: u[0] - 0.5,

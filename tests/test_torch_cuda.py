@@ -835,3 +835,118 @@ def test_dde_fused_mlp_on_card_matches_cpu(cuda, adaptive):
     for a, b in zip(g_card, g_cpu):
         assert float(torch.linalg.vector_norm(a - b)
                      / torch.linalg.vector_norm(b)) <= 1e-9
+
+
+def _nsde(device, B=4, widths=(8, 16, 8)):
+    """A neural SDE whose drift and diffusion are fused_mlp2 (K3/K4), with
+    seeded float64 weights."""
+    gen = torch.Generator().manual_seed(0)
+    params = {"drift": P.mlp_init(gen, widths, torch.float64, device=device),
+              "diffusion": P.mlp_init(gen, widths, torch.float64,
+                                      device=device)}
+    u0 = (0.1 * torch.randn((B, widths[0]), generator=gen,
+                            dtype=torch.float64)).to(device)
+    prob = P.SDEProblem(
+        lambda u, p, t: mlp.fused_mlp2(p["drift"], u),
+        lambda u, p, t: 0.1 * torch.nn.functional.softplus(
+            mlp.fused_mlp2(p["diffusion"], u)),
+        u0, (0.0, 1.0), params)
+    return prob, params
+
+
+@pytest.mark.parametrize("rule", ["DirectAdjoint", "InterpolatingAdjoint",
+                                  "BacksolveAdjoint"])
+def test_neural_sde_on_card_matches_cpu(cuda, rule):
+    """The neural SDE through K3/K4 under each rule, EulerMaruyama at dt
+    1/16, on the numpy-backed key (the same draws on both): the card's
+    gradient against the CPU run's to 1e-9 relative."""
+    grads = []
+    for device in (cuda, "cpu"):
+        prob, params = _nsde(device)
+        leaves = [v.requires_grad_() for d in params.values()
+                  for v in d.values()]
+        sol = P.solve(prob, P.EulerMaruyama(), dt=1 / 16, key=P.NumpyKey(3),
+                      sensealg=getattr(P, rule)())
+        grads.append(torch.autograd.grad(torch.sum(sol.ys[-1] ** 2), leaves))
+    for a, b in zip(*grads):
+        assert torch.linalg.norm(a.cpu() - b) <= 1e-9 * torch.linalg.norm(b)
+
+
+@pytest.mark.parametrize("scheme", ["Milstein", "RKMilGeneral",
+                                    "StrongTaylor15", "ImplicitEM",
+                                    "EulerHeun", "adaptive Milstein"])
+def test_sde_kernel_field_forward_mode_refused(cuda, scheme):
+    """A scheme that differentiates the kernel diffusion or drift by
+    forward mode raises ForwardModeUnsupported naming the Function before
+    any launch (EulerHeun through the Itô drift transform)."""
+    from scimlsensitivity_jl_tpu_torch.ops.vjp import ForwardModeUnsupported
+
+    prob, _ = _nsde(cuda)
+    solver = (P.Milstein() if scheme == "adaptive Milstein"
+              else getattr(P, scheme)())
+    kw = (dict(rtol=1e-3, atol=1e-6) if scheme == "adaptive Milstein"
+          else dict(dt=1 / 16))
+    mlp.mlp2_fwd_cuda.launches = 0
+    mlp.mlp2_vjp_cuda.launches = 0
+    with pytest.raises(ForwardModeUnsupported, match="FusedMLP2"):
+        P.solve(prob, solver, key=P.NumpyKey(3), **kw)
+    assert mlp.mlp2_fwd_cuda.launches == 0 == mlp.mlp2_vjp_cuda.launches
+
+
+@pytest.mark.parametrize("rode", [False, True])
+def test_fisher_kpp_sde_on_card_matches_cpu(cuda, rode):
+    """The stochastic Fisher–KPP field through K1/K2 (the SDE with noise
+    0.5u, and the RODE f + 0.5·u·W), 16 steps of 1e-9 at n = 4096 in
+    float64, BacksolveAdjoint, the numpy-backed key: card against CPU to
+    1e-9 relative."""
+    n = 4096
+    out = []
+    for device in (cuda, "cpu"):
+        x = torch.arange(n, dtype=torch.float64, device=device) / n
+        u0 = torch.exp(-((x - 0.5) ** 2) * 100.0).requires_grad_()
+        p = torch.tensor([1e-7, 1.5], dtype=torch.float64,
+                         device=device).requires_grad_()
+        field = rd1d.make_rd1d_field(n, 1.0 / n)
+        if rode:
+            prob = P.RODEProblem(lambda u, q, t, W: field(u, q, t)
+                                 + 0.5 * u * W, u0, (0.0, 16e-9), p)
+            sol = P.solve(prob, dt=1e-9, key=P.NumpyKey(3),
+                          sensealg=P.BacksolveAdjoint())
+        else:
+            prob = P.SDEProblem(field, lambda u, q, t: 0.5 * u, u0,
+                                (0.0, 16e-9), p)
+            sol = P.solve(prob, P.EulerMaruyama(), dt=1e-9,
+                          key=P.NumpyKey(3), sensealg=P.BacksolveAdjoint())
+        out.append(torch.autograd.grad(torch.sum(sol.ys[-1] ** 2), (u0, p)))
+    for a, b in zip(*out):
+        assert torch.linalg.norm(a.cpu() - b) <= 1e-9 * torch.linalg.norm(b)
+
+
+@pytest.mark.parametrize("rule", ["BacksolveAdjoint", "InterpolatingAdjoint"])
+def test_adaptive_sde_memory_on_card(cuda, rule):
+    """Adaptive EulerMaruyama on the Brownian tree at a state of 2^19
+    float64 values (4 MiB; GBM with noise 0.5u, the port's own key): the
+    tree keeps its queries' W (two per step in the forward, a few more
+    where the reverse's tb − ta rounds off the forward's step) and one walk
+    of 28 nodes, so the gradient's peak stays under (6 + s)·steps + 64
+    states, s = 1 for InterpolatingAdjoint's stored nodes. A tree that kept
+    every node its queries touched held about 20 states per step."""
+    n = 1 << 19
+    u0 = torch.ones(n, dtype=torch.float64, device=cuda).requires_grad_()
+    p = torch.tensor([0.2, 0.5], dtype=torch.float64,
+                     device=cuda).requires_grad_()
+    prob = P.SDEProblem(lambda u, q, t: q[0] * u, lambda u, q, t: q[1] * u,
+                        u0, (0.0, 1.0), p)
+    torch.cuda.synchronize(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    sol = P.solve(prob, saveat=[0.0, 1.0], key=P.PRNGKey(7), rtol=1e-2,
+                  atol=1e-4, sensealg=getattr(P, rule)())
+    gu, gp = torch.autograd.grad(torch.sum(sol.ys[-1]), (u0, p))
+    torch.cuda.synchronize(cuda)
+    peak = torch.cuda.max_memory_allocated(cuda) - base
+    steps = sol.stats.n_accepted
+    assert sol.retcode == 0 and 0 < steps < 1024
+    assert bool(torch.isfinite(gu).all()) and bool(torch.isfinite(gp).all())
+    stored = 1 if rule == "InterpolatingAdjoint" else 0
+    assert peak <= ((6 + stored) * steps + 64) * n * 8, (peak, steps)

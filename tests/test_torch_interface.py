@@ -261,14 +261,6 @@ def test_event_solution_matches_jax(ball_ref, ball_sol):
 
 # -- the refusals, as JAX's ---------------------------------------------------
 
-class SDEProblem:
-    """Stands in for an SDE problem, which the port does not have yet."""
-
-    def __init__(self, prob):
-        self.f, self.u0, self.tspan, self.p = (prob.f, prob.u0, prob.tspan,
-                                               prob.p)
-
-
 @pytest.mark.parametrize("case", ["no callback", "stray callback",
                                   "continuous cost without g", "sde", "dae",
                                   "no dense"])
@@ -276,7 +268,9 @@ def test_refusals_match_jax(ball_sol, lv_sol, case):
     """A missing callback on an event solution, a callback on a solution
     without events and a derivative-only continuous cost over a continuous
     event raise as JAX's do (ValueError, ValueError, NotImplementedError);
-    SDE/RODE solutions name ROADMAP M12 (JAX solves those); on a DAE
+    on an SDE solution a continuous cost and t_grads raise, and
+    SDEAdjointProblem refuses an adaptive one, as JAX's do
+    (interface.py:191-204, adjoint_problem.py:446-453); on a DAE
     solution (its stepper carries the singular mass) BacksolveAdjoint and
     t_grads raise NotImplementedError, as JAX's do (interface.py:342-360);
     a solution without dense output raises ValueError."""
@@ -297,12 +291,19 @@ def test_refusals_match_jax(ball_sol, lv_sol, case):
                 dgdu_continuous=lambda u, p, t: torch.stack(
                     [2 * u[0], 0.2 * u[1]]))
     elif case == "sde":
-        prob = SDEProblem(lv_sol.prob)
-        with pytest.raises(NotImplementedError, match="M12"):
-            P.adjoint_sensitivities(dataclasses.replace(lv_sol, prob=prob),
-                                    dgdu_discrete=dg)
-        with pytest.raises(NotImplementedError, match="M12"):
-            P.SDEAdjointProblem(lv_sol)
+        prob = P.SDEProblem(lambda u, p, t: -p[0] * u,
+                            lambda u, p, t: 0.1 * u,
+                            torch.tensor([1.0], dtype=DT), (0.0, 1.0),
+                            torch.tensor([1.0], dtype=DT))
+        fixed = P.solve(prob, P.EulerMaruyama(), dt=0.1, key=0)
+        with pytest.raises(NotImplementedError, match="discrete costs"):
+            P.adjoint_sensitivities(fixed, dgdu_discrete=dg,
+                                    g=lambda u, p, t: torch.sum(u ** 2))
+        with pytest.raises(NotImplementedError, match="t_grads"):
+            P.adjoint_sensitivities(fixed, dgdu_discrete=dg, t_grads=True)
+        adaptive = P.solve(prob, rtol=1e-2, atol=1e-4, key=0)
+        with pytest.raises(NotImplementedError, match="FIXED-GRID"):
+            P.SDEAdjointProblem(adaptive, dgdu_discrete=dg)
     elif case == "dae":
         # y' = -y, 0 = z - y: the mass-matrix branch moves M onto SDIRK4
         dae = P.solve(P.ODEProblem(
@@ -339,10 +340,6 @@ def test_failed_forward_poisons_the_gradients(lv_sol):
 
 # public names of the JAX package that wait for later ROADMAP items
 NOT_YET = {
-    "M12": ["SDEProblem", "RODEProblem", "NoiseGrid", "VirtualBrownianTree",
-            "EulerMaruyama", "EulerHeun", "Milstein", "RKMilCommute",
-            "RKMilGeneral", "SRA1", "SRIW1", "SOSRI", "StrongTaylor15",
-            "AdaptiveMilstein", "ImplicitEM"],
     "M14": ["ForwardLSSProblem", "AdjointLSSProblem", "NILSSProblem",
             "NILSASProblem", "shadow_forward", "shadow_adjoint",
             "nilsas_shadow_adjoint"],

@@ -67,3 +67,50 @@ def lotka_volterra_port(u, p, t):
 def assert_close(port, ref, *, rtol=0.0, atol=0.0, msg=""):
     np.testing.assert_allclose(to_numpy(port), to_numpy(ref), rtol=rtol,
                                atol=atol, err_msg=msg)
+
+
+_TORCH_TO_JNP = {torch.float64: jnp.float64, torch.float32: jnp.float32,
+                 torch.bfloat16: jnp.bfloat16}
+_fold_in = jax.jit(jax.random.fold_in)
+_split = jax.jit(jax.random.split)
+_normal = jax.jit(jax.random.normal, static_argnums=(1, 2))
+
+
+class JaxKey:
+    """The port's key protocol (`ops.brownian`: fold_in, split, normal)
+    over `jax.random`: handed to the port's solve in place of its own key,
+    it draws exactly the numbers the JAX package draws from the same
+    jax.random key, so both packages integrate one path. Children and
+    draws are memoised on the key that made them, so the reverse passes'
+    regenerated draws cost a lookup."""
+
+    __slots__ = ("key", "_children", "_draws")
+
+    def __init__(self, key):
+        self.key = key
+        self._children = {}
+        self._draws = {}
+
+    def fold_in(self, data):
+        data = int(data)
+        child = self._children.get(data)
+        if child is None:
+            child = self._children[data] = JaxKey(_fold_in(self.key, data))
+        return child
+
+    def split(self):
+        pair = self._children.get("split")
+        if pair is None:
+            keys = _split(self.key)
+            pair = self._children["split"] = (JaxKey(keys[0]),
+                                              JaxKey(keys[1]))
+        return pair
+
+    def normal(self, shape, dtype, device):
+        memo = (tuple(shape), dtype)
+        z = self._draws.get(memo)
+        if z is None:
+            z = self._draws[memo] = torch.from_numpy(np.array(
+                _normal(self.key, tuple(shape), _TORCH_TO_JNP[dtype]),
+                dtype=np.float64)).to(dtype)
+        return z.to(device)
