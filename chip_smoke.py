@@ -177,6 +177,32 @@ Phases, each printed before the last line:
      amplifies a last-bit difference) and the rules against each other,
      at the fixed-grid arms' noise 0.5·u the rules against each other on
      the card;
+  5n. [shadow]: Lorenz (ρ = 28, d⟨z⟩/dρ ≈ 1.01) in float64 at the settings
+     of the JAX package's tests/test_shadowing.py: ForwardLSS (Cos) and
+     AdjointLSS (TimeDilation 10) on the 1001-row attractor (one
+     trajectory handed to both devices), NILSS (nseg 30, nstep 101) and
+     NILSAS (M 2) on (30, 60), each within the JAX test's tolerance of
+     1.01 and against the port's CPU run; NILSAS segment_parallel against
+     sequential; bench.py's lorenz_nilss in float32 (nseg 10, nstep 100,
+     (0, 20), rtol 1e-6) timed sequential and segment_parallel with the
+     solves' step counts (under load), the idle share from a trace of one
+     segment. These host-paced arms (1-3 ms of host time per field
+     evaluation, 10^4-10^5 evaluations) run in processes of their own
+     (`--background`, three on the card and one on the CPU), started
+     after the build, beside phases 3-5m, which take no timing, and
+     joined here. NILSAS(nseg 4, M 2) through K3/K4 at S4's width in
+     float32 (simt): K3/K4 launches per forward and per gradient against
+     the counts the code gives, forward and gradient times and idle
+     shares; B = 8 float64 card against CPU; ForwardLSS, AdjointLSS and
+     NILSS on that field raising ForwardModeUnsupported with no launch;
+  5o. [ensemble]: the spiral through K3/K4, 16 trajectories with u0 scaled
+     by 1 + i/16 (bench.py:179-197), GaussAdjoint, float32: each
+     trajectory's rows equal its own solve bit for bit, the time per
+     trajectory against one trajectory's gradient;
+  5p. [digits]: the digits model at bench.py:1238-1305's widths, three
+     Adam steps at batch 32 (the loss falls; the third traced by
+     utils.profile.trace for its idle share), the float64 gradient at
+     batch 4 against the CPU; entry() on the card;
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
      kernel device time against its bound and its plain version (K1, K2
@@ -186,10 +212,9 @@ Phases, each printed before the last line:
      RK4 loop (64 steps) and against the plain loop with per-step
      torch.utils.checkpoint (512 steps), with the peak device memory of
      each; the Lotka–Volterra gradient of each rule against its forward,
-     S2q against S1's forward and PDE (c) against the PDE forward; PDE
-     (d)-(f) against the forward at n = 1,048,576 with the peak device
-     memory of (d) and (e); S2i, S2k, S2c, S2p and S2i- (unpinned) against
-     S1's forward, each with the reverse that ran; phase 5f's arms (PDE
+     S2q against S1's forward and PDE (c) against the PDE forward (PDE
+     (d)-(f), S2i-S2p and the spiral arms S1-S5 are checked in phase 5 but
+     not timed, to keep the command near 800 s); phase 5f's arms (PDE
      dose f32 at n = 1,048,576, S2e, S2d, S2t in float32, the ball) each
      against its own forward, with the device's idle share (not traced
      for the spiral's gradients); phase 5g's PDE arms at n = 1,048,576 in
@@ -200,7 +225,8 @@ Phases, each printed before the last line:
      Tsit5) each against its own forward, with the device's idle share;
      phase 5l's and 5m's forwards and gradients (the neural SDE at full
      width, the SDE and RODE Fisher–KPP at n = 1,048,576), each against
-     its own forward, with the device's idle share.
+     its own forward, with the device's idle share; K3/K4 alone at S4's
+     float32 shape on the simt route (in the kernels line).
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -209,13 +235,17 @@ last is a JSON summary of the kernels; the last line is
 
 from __future__ import annotations
 
+import atexit
 import itertools
 import json
+import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1014,6 +1044,10 @@ DAE_INIT = dict(T=0.2, y0=1.3, p=0.8, rtol=1e-8, atol=1e-10, dt0=1e-3,
                 adj_rtol=1e-8, adj_atol=1e-10)
 DAE_INIT_TOL = 1e-5   # against the closed form, as tests/test_dae.py
 SPIRAL_MASS = ((1.0, 0.2), (-0.1, 1.0))
+# the Robertson DAE gradients timed in phase 6j, one run each (~2-10 s a
+# run; sensealg=None, Interpolating and Quadrature are checked in 5j but
+# not timed, for time)
+DAE_TIMED = ("DirectAdjoint", "GaussAdjoint", "FBDF GaussAdjoint")
 
 # the delay equations (phase 5k): u'(t) = mlp2(u(t - τ)) with S4's field
 # (B = 1024, 512→2048→512, float32: the simt route), history u0, on [0, 1]
@@ -1299,6 +1333,306 @@ def fk_adaptive_gradient(P, device, sensealg, grad=True,
     return gu, gp, sol
 
 
+# the shadowing arms (phase 5n): (a) Lorenz at ρ = 28 (d⟨z⟩/dρ ≈ 1.01) in
+# float64 at the settings of the JAX package's tests/test_shadowing.py:
+# ForwardLSS (Cos) and AdjointLSS (TimeDilation 10) on the 1001-row
+# attractor on (30, 40), NILSS (nseg 30, nstep 101) and NILSAS (M 2) on
+# (30, 60), and NILSAS segment_parallel, on the card; NILSS and NILSAS
+# on (30, 31.5) on the card and the CPU; (b) the NILSS of bench.py:358-398
+# (lorenz_nilss) in float32, timed; these are host-paced (~1-3 ms of host
+# time per evaluation of their tangent or adjoint fields, 10^4-10^5 of
+# them), so they run in processes of their own (`--background`) beside
+# phases 3-5m, which take no timing; (c) NILSAS through K3/K4 at S4's
+# width; (d) the refusals on that field
+LORENZ_U0 = (-2.259143724332269, -2.47457604992522, 18.939914218990612)
+LORENZ_TS = [30.0 + 0.01 * i for i in range(1001)]
+# the JAX tests' tolerances around 1.01 (test_shadowing.py)
+SHADOW_ATOL = {"LSS": 0.12, "NIL": 0.25}
+# card against CPU: LSS takes one trajectory on both (the same arithmetic
+# but for the order of sums; 1.8e-11 in the first chip run). NILSS and
+# NILSAS solve their own trajectories, whose adaptive steps part on a
+# last-bit difference (a step accepted on one device, rejected on the
+# other): over JAX's 30 time units the two are different shadowing
+# estimates (NILSS 4.965e-3 apart in the first chip run, past its 1e-3
+# gate), so card against CPU runs on (30, 31.5) in 3 segments, where a
+# parted step moves the result by ~rtol times the growth e^(0.9·1.5);
+# the (30, 60) arms run on the card, held to 1.01
+SHADOW_DEVICE_TOL = {"LSS": 1e-10, "NIL": 1e-6}
+SHADOW_SHORT = dict(tspan=(30.0, 31.5), nseg=3, nstep=26)
+SHADOW_LONG = dict(tspan=(30.0, 60.0), nseg=30, nstep=101)
+# NILSAS segment_parallel against sequential (the rtol of the JAX package's
+# tests/test_parallel.py:132 for two executions of one algorithm)
+NILSAS_PAR_RTOL = 1e-6
+LORENZ_BENCH = dict(nseg=10, nstep=100)  # bench.py:bench_nilss
+NILSAS_S4 = dict(nseg=4, nstep=17, M=2)
+NILSAS_S4_TOLS = dict(rtol=1e-5, atol=1e-7, adj_rtol=1e-5, adj_atol=1e-7)
+NILSAS_S4_B_CPU = 8
+# the ensembles (phase 5o): the spiral through K3/K4, u0 scaled by
+# 1 + i/ENS_TRAJ (bench.py:179-197), GaussAdjoint, float32; the bench's 256
+# trajectories cut to 16 for time
+ENS_TRAJ = 16
+# digits and entry points (phase 5p): bench.py:1238-1305's widths (64→32
+# encoder, 32→64→32 field, 10-way head), Adam(3e-3)
+DIGITS_B, DIGITS_B_CPU = 32, 4
+
+
+def lorenz_field(u, p, t):
+    return torch.stack([10.0 * (u[1] - u[0]), u[0] * (p[0] - u[2]) - u[1],
+                        u[0] * u[1] - (8.0 / 3.0) * u[2]])
+
+
+def lorenz_g(u, p, t):
+    return u[2]
+
+
+def lorenz_prob(P, device, tspan, u0=LORENZ_U0, dtype=torch.float64):
+    return P.ODEProblem(lorenz_field,
+                        torch.tensor(u0, dtype=dtype, device=device), tspan,
+                        torch.tensor([28.0], dtype=dtype, device=device))
+
+
+def nilsas_s4_solve(P, setup, params, **kw):
+    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2
+
+    _, u0, _ = setup
+    prob = P.ODEProblem(lambda u, p, t: fused_mlp2(p, u), u0, (0.0, 1.0),
+                        params)
+    return P.solve(prob, P.Tsit5(), saveat=torch.linspace(0.0, 1.0, 17),
+                   sensealg=P.NILSAS(**NILSAS_S4), **NILSAS_S4_TOLS, **kw)
+
+
+def nilsas_s4_gradient(P, setup):
+    """(d/dθ of Σ over the save rows of mean(u²) per leaf, solution)."""
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in setup[0].items()}
+    sol = nilsas_s4_solve(P, setup, params)
+    loss = torch.sum(torch.mean(sol.ys.float() ** 2, dim=(1, 2)))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return dict(zip(params, grads)), sol
+
+
+def nilsas_s4_forward(P, setup):
+    with torch.no_grad():
+        return nilsas_s4_solve(P, setup, setup[0])
+
+
+def lorenz_bench_nilss(P, device, segment_parallel, tspan=(0.0, 20.0),
+                       nseg=LORENZ_BENCH["nseg"], record=None):
+    prob = lorenz_prob(P, device, tspan, u0=(1.0, 1.0, 25.0),
+                       dtype=torch.float32)
+    return P.shadow_forward(
+        P.NILSSProblem(prob, P.NILSS(nseg=nseg, nstep=LORENZ_BENCH["nstep"]),
+                       g=lorenz_g),
+        rtol=1e-6, atol=1e-8, segment_parallel=segment_parallel,
+        record=record)
+
+
+def digits_setup(P, dtype, device, batch):
+    """The digits batch (synthetic_digits, seeded) and weights."""
+    from scimlsensitivity_jl_tpu_torch.models import digits
+
+    x, y = digits.synthetic_digits(torch.Generator().manual_seed(SEED),
+                                   n=batch, dtype=dtype, device=device)
+    params = digits.digits_node_init(torch.Generator().manual_seed(SEED + 1),
+                                     dtype=dtype, device=device)
+    return params, x, y
+
+
+def digits_gradient(P, setup):
+    """(loss, d loss/dθ per leaf) of the digits cross-entropy."""
+    from scimlsensitivity_jl_tpu_torch.models import digits
+
+    params = {k: {kk: v.detach().clone().requires_grad_()
+                  for kk, v in d.items()} for k, d in setup[0].items()}
+    _, loss_fn = digits.make_digits_train_step(None)
+    loss = loss_fn(params, setup[1], setup[2])
+    names = [(k, kk) for k in params for kk in params[k]]
+    grads = torch.autograd.grad(loss, [params[k][kk] for k, kk in names])
+    return loss.detach(), {f"{k}.{kk}": g for (k, kk), g in zip(names, grads)}
+
+
+def spiral_ensemble(P, setup):
+    """The spiral's GaussAdjoint ensemble of ENS_TRAJ trajectories (u0
+    scaled by 1 + i/ENS_TRAJ), backend "vmap": (d/dθ of Σ(ys − data)² per
+    leaf, the stacked solution)."""
+    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2
+
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in setup[0].items()}
+    _, u0, data, ts = setup
+    prob = P.ODEProblem(lambda u, p, t: fused_mlp2(p, u ** 3), u0,
+                        (0.0, SPIRAL_T1), params)
+    ens = P.EnsembleProblem(prob, prob_func=lambda pr, i: P.remake(
+        pr, u0=pr.u0 * (1.0 + i / ENS_TRAJ)))
+    sols = P.solve_ensemble(ens, P.Tsit5(), trajectories=ENS_TRAJ,
+                            saveat=ts, sensealg=P.GaussAdjoint(),
+                            **SPIRAL_ADAPTIVE)
+    grads = torch.autograd.grad(torch.sum((sols.ys - data) ** 2),
+                                list(params.values()))
+    return dict(zip(params, grads)), sols
+
+
+def lss_arm(P, device):
+    """ForwardLSS (Cos) and AdjointLSS (TimeDilation 10) on the attractor,
+    solved on the CPU (the same bits in every process), then handed to the
+    device."""
+    sol = P.solve(lorenz_prob(P, "cpu", (30.0, 40.0)), P.Tsit5(),
+                  saveat=LORENZ_TS, rtol=1e-11, atol=1e-13, max_steps=16384)
+    sol = P.ODESolution(ts=sol.ts, ys=sol.ys.to(device), stats=sol.stats,
+                        retcode=sol.retcode,
+                        prob=lorenz_prob(P, device, (30.0, 40.0)))
+    fwd = P.shadow_forward(P.ForwardLSSProblem(sol, P.ForwardLSS(
+        LSSregularizer=P.CosWindowing(), g=lorenz_g)))
+    adj = P.shadow_adjoint(P.AdjointLSSProblem(sol, P.AdjointLSS(
+        LSSregularizer=P.TimeDilation(10.0), g=lorenz_g)))
+    return {"ForwardLSS Cos": float(fwd[0]),
+            "AdjointLSS TimeDilation 10": float(adj[0])}
+
+
+def nilss_arm(P, device, tspan, nseg, nstep):
+    from scimlsensitivity_jl_tpu_torch.adjoints.continuous import AdjointRecord
+
+    rec = AdjointRecord()
+    res = P.shadow_forward(
+        P.NILSSProblem(lorenz_prob(P, device, tspan),
+                       P.NILSS(nseg=nseg, nstep=nstep), g=lorenz_g),
+        rtol=1e-8, atol=1e-10, record=rec)
+    return {"value": float(res[0]), "stats": tuple(rec.stats)}
+
+
+def nilsas_arm(P, device, tspan, nseg, nstep, segment_parallel=False):
+    from scimlsensitivity_jl_tpu_torch.adjoints.continuous import AdjointRecord
+
+    rec = AdjointRecord()
+    res = P.nilsas_shadow_adjoint(
+        P.NILSASProblem(lorenz_prob(P, device, tspan),
+                        P.NILSAS(nseg=nseg, nstep=nstep, M=2), g=lorenz_g),
+        fwd_rtol=1e-10, max_steps=32768, record=rec,
+        segment_parallel=segment_parallel)
+    return {"value": float(res[0]), "stats": tuple(rec.stats),
+            "primal": tuple(rec.primal)}
+
+
+def bench_arm(P, device, segment_parallel):
+    """bench.py's lorenz_nilss, timed (CUDA events around one run), with
+    its solves' summed step counts."""
+    from scimlsensitivity_jl_tpu_torch.adjoints.continuous import AdjointRecord
+
+    rec = AdjointRecord()
+    res, ms = event_ms(lambda: lorenz_bench_nilss(P, device, segment_parallel,
+                                                  record=rec))
+    return {"value": float(res[0]), "ms": ms, "stats": tuple(rec.stats)}
+
+
+def nilsas_s4_cpu_arm(P, device):
+    g, _ = nilsas_s4_gradient(P, s4_setup(P, torch.float64, device,
+                                          B=NILSAS_S4_B_CPU))
+    return {k: v.cpu() for k, v in g.items()}
+
+
+def digits_cpu_arm(P, device):
+    loss, g = digits_gradient(P, digits_setup(P, torch.float64, device,
+                                              DIGITS_B_CPU))
+    return {"loss": float(loss), **{k: v.cpu() for k, v in g.items()}}
+
+
+# the background arms: name -> fn(P, device) -> dict of floats or CPU tensors
+SHADOW_ARMS = {
+    "LSS": lss_arm,
+    "NILSS short": lambda P, d: nilss_arm(P, d, **SHADOW_SHORT),
+    "NILSAS short": lambda P, d: nilsas_arm(P, d, **SHADOW_SHORT),
+    "NILSS": lambda P, d: nilss_arm(P, d, **SHADOW_LONG),
+    "NILSAS": lambda P, d: nilsas_arm(P, d, **SHADOW_LONG),
+    "NILSAS segment_parallel": lambda P, d: nilsas_arm(
+        P, d, segment_parallel=True, **SHADOW_LONG),
+    "bench NILSS sequential": lambda P, d: bench_arm(P, d, False),
+    "bench NILSS segment_parallel": lambda P, d: bench_arm(P, d, True),
+    "NILSAS S4 f64": nilsas_s4_cpu_arm,
+    "digits f64": digits_cpu_arm,
+}
+# process -> (device, arms). The card's arms take ~900 s of host time
+# together (~230 s NILSS and ~200-225 s each NILSAS on (30, 60), ~200 s
+# the bench pair), ~300 s in each of three processes, so that all end
+# within phases 3-5m (~420 s)
+BACKGROUND = {
+    "card-nilss": ("cuda", ("NILSS", "bench NILSS segment_parallel")),
+    "card-nilsas": ("cuda", ("NILSAS", "bench NILSS sequential")),
+    "card-nilsas-parallel": ("cuda", ("NILSAS segment_parallel", "LSS",
+                                      "NILSS short", "NILSAS short")),
+    "cpu": ("cpu", ("LSS", "NILSS short", "NILSAS short", "NILSAS S4 f64",
+                    "digits f64")),
+}
+
+
+def run_background(group: str, path: str) -> int:
+    """`chip_smoke.py --background GROUP PATH`: the arms of BACKGROUND[GROUP]
+    on its device, each result with its seconds, saved to PATH
+    (torch.save; read back by the run that started this process)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import scimlsensitivity_jl_tpu_torch as P
+
+    device, arms = BACKGROUND[group]
+    # the card's arms are host-paced Python; the CPU's S4-width NILSAS
+    # takes a second thread
+    torch.set_num_threads(1 if device == "cuda" else 2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    results = {}
+    for arm in arms:
+        t = time.perf_counter()
+        results[arm] = SHADOW_ARMS[arm](P, device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        results[arm]["seconds"] = time.perf_counter() - t
+        print(f"[background {group}] {arm}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+    torch.save(results, path)
+    return 0
+
+
+class Background:
+    """The BACKGROUND processes of one run: started together, joined at
+    phase 5n, killed at exit if still running."""
+
+    def __init__(self, workdir: str):
+        self.workdir, self.procs = workdir, {}
+        for group in BACKGROUND:
+            with open(os.path.join(workdir, f"{group}.log"), "w") as log:
+                self.procs[group] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--background", group,
+                     os.path.join(workdir, f"{group}.pt")],
+                    stdout=log, stderr=subprocess.STDOUT)
+
+    def results(self, timeout: float) -> dict:
+        """{arm: results} per device ("cuda", "cpu"), waiting at most
+        `timeout` seconds in all; a failed or late process fails the run
+        with its log."""
+        deadline = time.perf_counter() + timeout
+        out = {"cuda": {}, "cpu": {}}
+        for group, proc in self.procs.items():
+            try:
+                rc = proc.wait(max(deadline - time.perf_counter(), 1.0))
+            except subprocess.TimeoutExpired:
+                rc = None
+            with open(os.path.join(self.workdir, f"{group}.log")) as log:
+                text = log.read()
+            print(f"[shadow] background {group}: exit {rc}; "
+                  + " | ".join(line for line in text.splitlines()
+                               if line.startswith("[background")))
+            check(rc == 0, f"background {group} failed or ran late: "
+                  f"{text[-3000:]}")
+            out[BACKGROUND[group][0]].update(torch.load(
+                os.path.join(self.workdir, f"{group}.pt"), weights_only=True))
+        return out
+
+    def stop(self):
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.workdir, ignore_errors=True)
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1348,6 +1682,11 @@ def main() -> int:
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[setup] ptxas {name}: {line.strip()}")
+
+    # the host-paced Lorenz arms of phase 5n, card and CPU, run beside
+    # phases 3-5m in processes of their own
+    background = Background(tempfile.mkdtemp(prefix="chip_smoke_"))
+    atexit.register(background.stop)
 
     # -- 3. kernels vs plain versions on the card --------------------------
     max_abs = {}
@@ -1767,14 +2106,12 @@ def main() -> int:
     lv_runs = dict(lv_rules, **{
         "ForwardDiffSensitivity(chunk_size=2)":
             P.ForwardDiffSensitivity(chunk_size=2)})
-    lv_grads, lv_times = {}, {}
+    lv_grads = {}
     t = time.perf_counter()
     for name, sensealg in lv_runs.items():
-        # the CPU run first, so that the timed card run finds the host side
-        # warm (each takes seconds: one timed run, read in phase 6d)
+        # each gradient is timed in phase 6d, after the background processes
         g_cpu, _ = lv_solve(P, "cpu", sensealg, grad=True)
-        (g_card, sol), lv_times[name] = event_ms(
-            lambda: lv_solve(P, dev, sensealg, grad=True))
+        g_card, sol = lv_solve(P, dev, sensealg, grad=True)
         lv_grads[name] = g_card
         err = rel_l2(g_card, g_cpu)
         rev = sol.adjoint.stats if sol.adjoint is not None else "none"
@@ -2033,43 +2370,17 @@ def main() -> int:
     lv_interp = {"InterpolatingAdjoint": P.InterpolatingAdjoint(),
                  "GaussKronrodAdjoint": P.GaussKronrodAdjoint()}
     for name, sensealg in lv_interp.items():
-        (g_card, sol), lv_times[name] = event_ms(
-            lambda: lv_solve(P, dev, sensealg, grad=True))
+        g_card, sol = lv_solve(P, dev, sensealg, grad=True)
         err = max_rel(g_card, lv_grads[LV_RULES[0]])
         print(f"[interp f64] Lotka-Volterra {name}: {sol.adjoint.reverse} "
               f"reverse; forward {sol.stats}; reverse {sol.adjoint.stats}; "
               f"against ForwardDiffSensitivity max relative difference per "
-              f"entry {err:.2e} (tol {LV_RULE_TOL:g}); {lv_times[name]:.1f} "
-              f"ms; grad [u0, p] {g_card.tolist()}")
+              f"entry {err:.2e} (tol {LV_RULE_TOL:g}); grad [u0, p] "
+              f"{g_card.tolist()}")
         check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0,
               f"LV {name} retcode")
         check(err <= LV_RULE_TOL, f"LV {name} off ForwardDiffSensitivity")
     lv_runs.update(lv_interp)
-
-    # the auto-pinned against the unpinned reverse on [0, LV_TRACE_T1], in
-    # turns: whether pinning pays here (ROADMAP M5)
-    lv_pin = {
-        "pinned": P.InterpolatingAdjoint(),
-        "adaptive": P.InterpolatingAdjoint(pinned_reverse=False)}
-    lv_pin_fns = {name: (lambda s=s: lv_solve(P, dev, s, grad=True,
-                                              t1=LV_TRACE_T1))
-                  for name, s in lv_pin.items()}
-    lv_pin_out = {}
-    med = interleaved_ms(lv_pin_fns, rounds=3, outputs=lv_pin_out)
-    err = max_rel(lv_pin_out["adaptive"][0], lv_pin_out["pinned"][0])
-    for name, (_, sol) in lv_pin_out.items():
-        print(f"[time] {card}: Lotka-Volterra f64 on [0, {LV_TRACE_T1}] "
-              f"InterpolatingAdjoint, {sol.adjoint.reverse} reverse: "
-              f"{med[name]:.3f} ms (CUDA events, median of 3 interleaved); "
-              f"forward {sol.stats}; reverse {sol.adjoint.stats}")
-        check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0
-              and sol.adjoint.reverse == name, f"LV [0, {LV_TRACE_T1}] "
-              f"{name}: {sol.adjoint.reverse} reverse, retcode")
-    print(f"[interp f64] Lotka-Volterra on [0, {LV_TRACE_T1}]: adaptive "
-          f"against pinned max relative difference per entry {err:.2e} (tol "
-          f"{LV_RULE_TOL:g}); pinned {med['adaptive'] / med['pinned']:.2f}x "
-          "faster")
-    check(err <= LV_RULE_TOL, "LV adaptive reverse off the pinned one")
 
     elapsed("phase 5e [interp f64]")
 
@@ -2320,11 +2631,11 @@ def main() -> int:
     hess = {}
     for name, sensealg in (("DirectAdjoint", P.DirectAdjoint()),
                            ("GaussAdjoint", P.GaussAdjoint())):
-        (H, ms) = event_ms(lambda: lv_hessian(P, dev, sensealg))
+        H = lv_hessian(P, dev, sensealg)
         hess[name] = H
         asym = float((H - H.T).abs().max() / H.abs().max())
         print(f"[direct f64] Lotka-Volterra Hessian under {name}: "
-              f"{ms:.1f} ms; max|H - H^T| / max|H| {asym:.2e} (tol "
+              f"max|H - H^T| / max|H| {asym:.2e} (tol "
               f"{HESS_SYM_TOL:g}); row 0 {H[0].tolist()}")
         check(bool(torch.isfinite(H).all()) and asym <= HESS_SYM_TOL,
               f"{name} Hessian not symmetric")
@@ -2577,11 +2888,10 @@ def main() -> int:
         "FBDF GaussAdjoint": (P.GaussAdjoint(), P.FBDF, False),
         "rotated GaussAdjoint": (P.GaussAdjoint(), P.SDIRK4, True),
     }
-    dae_grads, dae_times = {}, {}
+    dae_grads = {}
     for arm, (sensealg, solver, rotated) in dae_arms.items():
         g_cpu, sol_c = dae_gradient(P, "cpu", sensealg, solver(), rotated)
-        (g, sol), dae_times[arm] = event_ms(
-            lambda: dae_gradient(P, dev, sensealg, solver(), rotated))
+        g, sol = dae_gradient(P, dev, sensealg, solver(), rotated)
         dae_grads[arm] = g
         rev = sol.adjoint.stats if sol.adjoint is not None else None
         rev_c = sol_c.adjoint.stats if sol_c.adjoint is not None else None
@@ -2593,8 +2903,7 @@ def main() -> int:
               f"{type(sol.sensealg).__name__}; forward {sol.stats} (CPU "
               f"{sol_c.stats}); reverse {rev} (CPU {rev_c}); grad [log p, "
               f"u0_d] {g.tolist()}; card vs CPU rel L2 {e_c:.3e} (tol "
-              f"{F64_GRAD_TOL:g} where the step counts agree: {same}); "
-              f"{dae_times[arm]:.1f} ms")
+              f"{F64_GRAD_TOL:g} where the step counts agree: {same})")
         check(sol.retcode == 0 and sol_c.retcode == 0
               and (rev is None or rev.retcode == 0), f"DAE {arm} retcode")
         # cuSOLVER's LU against LAPACK's may move a stiff step (ROADMAP §3):
@@ -2965,6 +3274,233 @@ def main() -> int:
     print(f"[fkpp] phase 5m: {time.perf_counter() - t:.1f} s")
     elapsed("phase 5m [fkpp]")
 
+    # -- 5n. [shadow]: (b) the bench's float32 NILSS, timed; (a) the
+    # background processes' Lorenz arms, card against CPU; (c) NILSAS
+    # through K3/K4 at S4's width; (d) the refusals on that field ----------
+    t = time.perf_counter()
+    shadow_launches = {}
+    bg = background.results(timeout=600.0)
+    card_r, cpu_r = bg["cuda"], bg["cpu"]
+    # the idle share of (b) from a trace of one of its segments in this
+    # process, after the join: the whole run is ~10^6 launches, too many to
+    # read back
+    busy, wall = profiled_ms(lambda: lorenz_bench_nilss(
+        P, dev, False, tspan=(0.0, 1.0), nseg=1))
+    lb = {par: card_r[f"bench NILSS {par}"]
+          for par in ("sequential", "segment_parallel")}
+    for par, r in lb.items():
+        print(f"[time] {card}: Lorenz NILSS f32 (bench.py lorenz_nilss: nseg "
+              f"{LORENZ_BENCH['nseg']}, nstep {LORENZ_BENCH['nstep']}, (0, "
+              f"20), rtol 1e-6) {par}: {r['ms']:.3f} ms (CUDA events around "
+              f"one run, UNDER LOAD: in a background process beside phases "
+              f"3-5m and two other card processes); solves' summed steps "
+              f"{r['stats']}; d<z>/dρ {r['value']:.6f}")
+        check(math.isfinite(r["value"]), f"bench NILSS {par}: {r['value']}")
+    print(f"[time] {card}: Lorenz NILSS f32 segment_parallel / sequential "
+          f"{lb['segment_parallel']['ms'] / lb['sequential']['ms']:.3f}; one "
+          f"segment (0, 1) profiled in this process: kernels {busy:.3f} ms of "
+          f"{wall:.3f} ms wall, device idle {100 * (1 - busy / wall):.1f}%")
+    for key in ("ForwardLSS Cos", "AdjointLSS TimeDilation 10"):
+        v_card, v_cpu = card_r["LSS"][key], cpu_r["LSS"][key]
+        rel = abs(v_card - v_cpu) / abs(v_cpu)
+        print(f"[shadow f64] Lorenz {key} on the 1001-row attractor: card "
+              f"{v_card:.12f} ({card_r['LSS']['seconds']:.1f} s), CPU "
+              f"{v_cpu:.12f} ({cpu_r['LSS']['seconds']:.1f} s); card vs CPU "
+              f"rel {rel:.3e} (tol {SHADOW_DEVICE_TOL['LSS']:g}); |card - "
+              f"1.01| {abs(v_card - 1.01):.4f} (tol {SHADOW_ATOL['LSS']:g}, "
+              "the JAX test's)")
+        check(rel <= SHADOW_DEVICE_TOL["LSS"], f"{key}: card off the CPU")
+        check(abs(v_card - 1.01) <= SHADOW_ATOL["LSS"],
+              f"{key}: {v_card} is not d<z>/dρ ≈ 1.01")
+    for arm in ("NILSS short", "NILSAS short"):
+        v_card, v_cpu = card_r[arm]["value"], cpu_r[arm]["value"]
+        rel = abs(v_card - v_cpu) / abs(v_cpu)
+        print(f"[shadow f64] Lorenz {arm} ({SHADOW_SHORT}): card "
+              f"{v_card:.12f} ({card_r[arm]['stats']}), CPU {v_cpu:.12f} "
+              f"({cpu_r[arm]['stats']}); card vs CPU rel {rel:.3e} (tol "
+              f"{SHADOW_DEVICE_TOL['NIL']:g})")
+        check(rel <= SHADOW_DEVICE_TOL["NIL"], f"{arm}: card off the CPU")
+    for arm in ("NILSS", "NILSAS", "NILSAS segment_parallel"):
+        r = card_r[arm]
+        print(f"[shadow f64] Lorenz {arm} on (30, 60), 30 segments, on the "
+              f"card: {r['value']:.12f} in {r['seconds']:.1f} s (segments "
+              f"{r['stats']}{', primal ' + str(r['primal']) if 'primal' in r else ''}"
+              f"); |card - 1.01| {abs(r['value'] - 1.01):.4f} (tol "
+              f"{SHADOW_ATOL['NIL']:g}, the JAX test's)")
+        check(abs(r["value"] - 1.01) <= SHADOW_ATOL["NIL"],
+              f"{arm}: {r['value']} is not d<z>/dρ ≈ 1.01")
+    v_par = card_r["NILSAS segment_parallel"]["value"]
+    v_seq = card_r["NILSAS"]["value"]
+    rel = abs(v_par - v_seq) / abs(v_seq)
+    print(f"[shadow f64] Lorenz NILSAS segment_parallel against sequential "
+          f"on the card (one dense primal each): rel {rel:.3e} (tol "
+          f"{NILSAS_PAR_RTOL:g}, tests/test_parallel.py:132)")
+    check(rel <= NILSAS_PAR_RTOL, "NILSAS segment_parallel off sequential")
+
+    # (c) NILSAS through K3/K4 at S4's width, float32 on the simt route
+    ns32 = s4_setup(P, torch.float32, dev)
+    for w in wrappers:
+        w.launches = 0
+    sol_f, ms_f = event_ms(lambda: nilsas_s4_forward(P, ns32))
+    torch.cuda.synchronize()
+    got_f = tuple(w.launches for w in wrappers)
+    att = sol_f.stats.n_accepted + sol_f.stats.n_rejected
+    want_f = (2 + 6 * att, 0)  # f0, the initial step's probe, 6 per attempt
+    print(f"[shadow f32] NILSAS({NILSAS_S4}) at S4's width (B = {S4_B}, "
+          f"{S4_WIDTHS}, Tsit5 {NILSAS_S4_TOLS}) forward: {sol_f.stats}; K3 "
+          f"{got_f[0]} and K4 {got_f[1]} launches (expected {want_f})")
+    check(got_f == want_f, f"NILSAS S4 forward launched {got_f}")
+    (g_ns, sol_ns), got = count_path(lambda: nilsas_s4_gradient(P, ns32))
+    shadow_launches["NILSAS S4 f32"] = {"K3": got[0], "K4": got[1]}
+    rec = sol_ns.adjoint
+    seg_evals = (2 * NILSAS_S4["nseg"]
+                 + 6 * (rec.stats.n_accepted + rec.stats.n_rejected))
+    want = (2 + 6 * (sol_ns.stats.n_accepted + sol_ns.stats.n_rejected)
+            + 2 + 6 * (rec.primal.n_accepted + rec.primal.n_rejected) + 1
+            + seg_evals, 3 * seg_evals)
+    print(f"[shadow f32] NILSAS S4 gradient: forward {sol_ns.stats}, primal "
+          f"{rec.primal}, segments {rec.stats}; K3 {got[0]} and K4 {got[1]} "
+          f"launches per gradient (expected {want}: one K3 and M+1 = 3 K4 per "
+          f"evaluation of the adjoint field), routes {path_routes}; max|grad| "
+          f"per leaf {({k: float(v.abs().max()) for k, v in g_ns.items()})}")
+    check(got == want, f"NILSAS S4 gradient launched {got}")
+    check(path_routes["K3"] == {"simt": got[0]}, "NILSAS S4 off simt")
+    check(rec.stats.retcode == 0 and all(
+        bool(torch.isfinite(v).all()) for v in g_ns.values()),
+        "NILSAS S4 gradient failed or not finite")
+    _, ms_g = event_ms(lambda: nilsas_s4_gradient(P, ns32))
+    busy_f, wall_f = profiled_ms(lambda: nilsas_s4_forward(P, ns32))
+    busy_g, wall_g = profiled_ms(lambda: nilsas_s4_gradient(P, ns32))
+    print(f"[time] {card}: NILSAS S4 f32 forward {ms_f:.3f} ms, gradient "
+          f"{ms_g:.3f} ms ({ms_g / ms_f:.2f}x; CUDA events, one run each); "
+          f"profiled runs: forward kernels {busy_f:.3f} ms of {wall_f:.3f} "
+          f"ms, idle {100 * (1 - busy_f / wall_f):.1f}%; gradient kernels "
+          f"{busy_g:.3f} ms of {wall_g:.3f} ms, idle "
+          f"{100 * (1 - busy_g / wall_g):.1f}%")
+    (g_c, sol_c), got = count_path(lambda: nilsas_s4_gradient(
+        P, s4_setup(P, torch.float64, dev, B=NILSAS_S4_B_CPU)))
+    shadow_launches[f"NILSAS B={NILSAS_S4_B_CPU} f64"] = {"K3": got[0],
+                                                          "K4": got[1]}
+    g_cpu = {k: v for k, v in cpu_r["NILSAS S4 f64"].items()
+             if k != "seconds"}
+    errs = leaf_errors(g_c, g_cpu)
+    print(f"[shadow f64] NILSAS B = {NILSAS_S4_B_CPU} at S4's width: card vs "
+          f"CPU rel L2 {fmt_errors(errs)} (tol {F64_GRAD_TOL:g}); "
+          f"{sol_c.adjoint.stats}; K3 {got[0]} and K4 {got[1]} launches; the "
+          f"CPU's in {cpu_r['NILSAS S4 f64']['seconds']:.1f} s")
+    check(max(errs.values()) <= F64_GRAD_TOL, "NILSAS S4 f64 off the CPU")
+    # (d) the forward-mode rules on the kernel field refuse, no launch
+    for w in wrappers:
+        w.launches = 0
+    refused = []
+    s4_sol = P.ODESolution(ts=sol_f.ts, ys=sol_f.ys, stats=sol_f.stats,
+                           retcode=0, prob=sol_f.prob)
+    sg = lambda u, q, t: torch.mean(u ** 2)  # noqa: E731
+    for name, build in (
+            ("ForwardLSS", lambda: P.ForwardLSSProblem(
+                s4_sol, P.ForwardLSS(g=sg))),
+            ("AdjointLSS", lambda: P.AdjointLSSProblem(
+                s4_sol, P.AdjointLSS(g=sg))),
+            ("NILSS", lambda: P.shadow_forward(P.NILSSProblem(
+                sol_f.prob, P.NILSS(nseg=4, nstep=17), g=sg)))):
+        try:
+            build()
+        except ForwardModeUnsupported as err:
+            refused.append(name)
+            check("FusedMLP2" in str(err), f"{name}: refusal unnamed")
+        else:
+            raise AssertionError(f"{name} on the kernel field did not raise")
+    got = tuple(w.launches for w in wrappers)
+    print(f"[shadow f32] {', '.join(refused)} on the S4 kernel field raise "
+          f"ForwardModeUnsupported after K3 {got[0]} and K4 {got[1]} launches")
+    check(got == (0, 0), "a shadowing refusal launched a kernel")
+    del ns32, sol_f, s4_sol, g_ns, sol_ns
+    print(f"[shadow] phase 5n: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5n [shadow]")
+
+    # -- 5o. [ensemble]: the spiral through K3/K4, ENS_TRAJ trajectories
+    t = time.perf_counter()
+    ens32 = spiral_setup(P, torch.float32, dev, data64)
+    ((g, sols), ms), got = count_path(lambda: event_ms(
+        lambda: spiral_ensemble(P, ens32)))
+    ens_launches = {"ensemble": {"K3": got[0], "K4": got[1]}}
+    check(bool((sols.retcode == 0).all()), "ensemble failed")
+    from scimlsensitivity_jl_tpu_torch.ops.mlp import fused_mlp2
+    own = []
+    for i in range(ENS_TRAJ):
+        with torch.no_grad():
+            s = P.solve(P.ODEProblem(
+                lambda u, p, t_: fused_mlp2(p, u ** 3),
+                ens32[1] * (1.0 + i / ENS_TRAJ), (0.0, SPIRAL_T1), ens32[0]),
+                P.Tsit5(), saveat=ens32[3], sensealg=P.GaussAdjoint(),
+                **SPIRAL_ADAPTIVE)
+        own.append(torch.equal(s.ys, sols.ys[i]))
+    _, ms_one = event_ms(lambda: spiral_gradient(
+        P, ens32, dict(SPIRAL_ADAPTIVE, sensealg=P.GaussAdjoint())))
+    print(f"[ensemble f32] the spiral through K3/K4, {ENS_TRAJ} trajectories "
+          f"(u0·(1 + i/{ENS_TRAJ})), GaussAdjoint, rtol 1e-3, backend "
+          f"\"vmap\": each trajectory's rows equal its own solve bit for "
+          f"bit: {all(own)}; K3/K4 launches {ens_launches}; max|grad| per "
+          f"leaf {({k: float(v.abs().max()) for k, v in g.items()})}")
+    check(all(own), "an ensemble trajectory differs from its own solve")
+    check(all(bool(torch.isfinite(v).all()) for v in g.values()),
+          "ensemble gradient not finite")
+    per = ms / ENS_TRAJ
+    print(f"[time] {card}: spiral ensemble f32 gradient {ms:.3f} ms (the "
+          f"first run): {per:.3f} ms per trajectory against {ms_one:.3f} ms "
+          f"for one trajectory's own gradient ({per / ms_one:.3f}x; CUDA "
+          f"events, one run each)")
+    del g, sols, ens32
+    print(f"[ensemble] phase 5o: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5o [ensemble]")
+
+    # -- 5p. [digits]: two training steps at batch DIGITS_B on the card, the
+    # f64 gradient at batch DIGITS_B_CPU against the CPU, one step traced by
+    # utils.profile.trace, entry() on the card
+    t = time.perf_counter()
+    from scimlsensitivity_jl_tpu_torch.entry import entry
+    from scimlsensitivity_jl_tpu_torch.models import digits
+    from scimlsensitivity_jl_tpu_torch.utils import profile as sml_profile
+
+    params, x, y = digits_setup(P, torch.float32, dev, DIGITS_B)
+    leaves = [v.requires_grad_() for d in params.values() for v in d.values()]
+    opt = torch.optim.Adam(leaves, lr=3e-3)
+    step, _ = digits.make_digits_train_step(opt)
+    losses = []
+    for _ in range(2):
+        losses.append(float(step(params, x, y)))
+    with sml_profile.trace(os.path.join(background.workdir, "trace")) as tr:
+        losses.append(float(step(params, x, y)))
+    print(f"[digits f32] batch {DIGITS_B} (64→32 encoder, 32→64→32 field, "
+          f"10-way head, Backsolve checkpointed, Tsit5 rtol 1e-3), Adam 3e-3 "
+          f"on one batch: loss {losses[0]:.6f} -> {losses[1]:.6f} -> "
+          f"{losses[2]:.6f}")
+    check(losses[1] < losses[0], "digits loss did not fall")
+    print(f"[time] {card}: digits f32 training step at batch {DIGITS_B} "
+          f"under utils.profile.trace: {tr.wall_ms:.3f} ms wall, kernels "
+          f"{tr.device_ms():.3f} ms, device idle {100 * tr.idle_share():.1f}%")
+    loss_c, g_c = digits_gradient(P, digits_setup(P, torch.float64, dev,
+                                                  DIGITS_B_CPU))
+    ref = cpu_r["digits f64"]
+    errs = leaf_errors(g_c, {k: v for k, v in ref.items()
+                             if k not in ("loss", "seconds")})
+    e_loss = abs(float(loss_c) - ref["loss"]) / abs(ref["loss"])
+    print(f"[digits f64] batch {DIGITS_B_CPU}: card vs CPU loss rel "
+          f"{e_loss:.3e}, gradient rel L2 {fmt_errors(errs)} (tol "
+          f"{F64_GRAD_TOL:g})")
+    check(max(errs.values()) <= F64_GRAD_TOL and e_loss <= F64_GRAD_TOL,
+          "digits f64 card off the CPU")
+    fn, args = entry()
+    loss_e, grads_e = fn(*args)
+    check(bool(torch.isfinite(loss_e)) and all(
+        bool(torch.isfinite(v).all()) and v.is_cuda for v in grads_e.values()),
+        "entry() on the card")
+    print(f"[entry] entry() on the card: loss {float(loss_e):.6f}, gradient "
+          f"leaves {sorted(grads_e)} on {grads_e['W0'].device}")
+    del params, x, y, leaves, opt
+    print(f"[digits] phase 5p: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5p [digits]")
+
     # -- 6. timings: the megakernel path first ---------------------------------
     u0, p = flagship_inputs(MEGA_N, torch.float32, dev)
     arms = {
@@ -3106,23 +3642,9 @@ def main() -> int:
 
     elapsed("phase 6b (PDE timings)")
 
-    # -- 6c. neural-ODE timings ------------------------------------------------
-    setup32 = spiral_setup(P, torch.float32, dev, data64)
-    arms = {"S1 forward": lambda: spiral_forward(
-        P, setup32, spiral_arms["S1 fixed grid, unroll -> DirectAdjoint"])}
-    for arm, kw in spiral_arms.items():
-        arms[arm.split(" ")[0] + " gradient"] = (
-            lambda kw=kw: spiral_gradient(P, setup32, kw))
-    # 5 rounds (10 until phase 5f's timings took their time)
-    med = interleaved_ms(arms, rounds=5)
-    for name, fn in arms.items():
-        busy, wall = profiled_ms(fn)
-        print(f"[time] {card}: spiral f32 {name}: {med[name]:.3f} ms "
-              f"({med[name] / med['S1 forward']:.2f}x S1 forward; CUDA events, "
-              f"median of 5 interleaved); profiled run: kernels {busy:.3f} ms "
-              f"of {wall:.3f} ms wall, device idle "
-              f"{100 * (1 - busy / wall):.1f}%")
-
+    # -- 6c. neural-ODE timings: S4 bf16 and the kernels (the spiral arms
+    # are not timed, to keep the command near 800 s; PERF.md keeps their
+    # last times; 5b checks those arms every run) ---------------------------
     setup_bf = s4_setup(P, torch.bfloat16, dev)
     arms = {"S4 forward": lambda: s4_forward(P, setup_bf),
             "S4 gradient": lambda: s4_gradient(P, setup_bf)}
@@ -3230,6 +3752,7 @@ def main() -> int:
     elapsed("phase 6c (neural-ODE timings)")
 
     # -- 6d. forward mode and QuadratureAdjoint timings -------------------------
+    lv_times = {}
     for _ in range(2):  # the second forward is the one kept
         _, lv_times["forward"] = event_ms(
             lambda: lv_solve(P, dev, None, grad=False))
@@ -3261,59 +3784,9 @@ def main() -> int:
                   f"{100 * (1 - busy / wall):.1f}%")
     del u0, p
 
-    # -- 6e. [interp] timings: PDE (d)-(f) at n = 1,048,576, the spiral arms
-    n = SIZES[1]
-    field = rd1d.make_rd1d_field(n, 1.0 / n)
-    u0, p = flagship_inputs(n, torch.float32, dev)
-    arms = {"forward": lambda: flagship_forward(P, field, u0, p)}
-    for arm, (_, sensealg, _) in pde_interp.items():
-        arms[arm] = (lambda sensealg=sensealg: flagship_gradient(
-            P, field, n, u0, p, sensealg))
-    med = interleaved_ms(arms, rounds=3)
-    for arm, fn in arms.items():
-        busy, wall = profiled_ms(fn)
-        label = arm if arm == "forward" else f"{arm} {pde_interp[arm][0]}"
-        print(f"[time] {card}: n={n} f32 {label}: {med[arm]:.3f} ms "
-              f"({med[arm] / med['forward']:.2f}x forward; CUDA events, "
-              f"median of 3 interleaved); profiled run: kernels "
-              f"{busy:.3f} ms of {wall:.3f} ms wall, device idle "
-              f"{100 * (1 - busy / wall):.1f}%")
-    for arm in ("(d)", "(e)"):
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        arms[arm]()
-        torch.cuda.synchronize()
-        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        print(f"[time] {card}: n={n} f32 {arm} {pde_interp[arm][0]}: peak "
-              f"device memory {peak:.1f} MiB above the inputs "
-              "(max_memory_allocated)")
-    del u0, p
-
-    # the spiral arms against S1's forward (S2's and S3's rows are phase
-    # 6c's): 3 interleaved rounds, the warm-up round's record naming the
-    # reverse that ran (no trace: each gradient holds ~10^3 launches)
-    setup32 = spiral_setup(P, torch.float32, dev, data64)
-    arms = {"S1 forward": lambda: spiral_forward(
-        P, setup32, spiral_arms["S1 fixed grid, unroll -> DirectAdjoint"])}
-    spiral_timed = {f"{arm.split(' ')[0]} gradient": kw
-                    for arm, kw in spiral_interp.items()}
-    spiral_timed["S2i- gradient"] = dict(
-        SPIRAL_ADAPTIVE, sensealg=P.InterpolatingAdjoint(pinned_reverse=False))
-    for name, kw in spiral_timed.items():
-        arms[name] = lambda kw=kw: spiral_gradient(P, setup32, kw)
-    ran = {}
-    med = interleaved_ms(arms, rounds=2, outputs=ran)  # 3 before phase 5f
-    for name in arms:
-        extra = ""
-        if name in spiral_timed:
-            rec = ran[name][1].adjoint
-            extra = f"; {rec.reverse} reverse {rec.stats}"
-        print(f"[time] {card}: spiral f32 {name}: {med[name]:.3f} ms "
-              f"({med[name] / med['S1 forward']:.2f}x S1 forward; CUDA events, "
-              f"median of 2 interleaved){extra}")
-    del setup32
-    elapsed("phase 6e [interp] timings")
+    # -- 6e. [interp] timings: not taken, to keep the command near 800 s
+    # (PERF.md keeps the last times of PDE (d)-(f) and S2i-S2p); 5e checks
+    # those arms every run
 
     # -- 6f. [events] timings: each arm against its own forward, CUDA events
     # (median of EV_TIMING_ROUNDS interleaved rounds after a warm-up round,
@@ -3427,6 +3900,11 @@ def main() -> int:
               f"profiled run: kernels {busy:.3f} ms of {wall:.3f} ms wall, "
               f"device idle {100 * (1 - busy / wall):.1f}%")
     del u0, p, sol32
+    # the GaussAdjoint Hessian (~14 s a run) is not timed, for time
+    _, ms = event_ms(lambda: lv_hessian(P, dev, P.DirectAdjoint()))
+    print(f"[time] {card}: Lotka-Volterra f64 Hessian under DirectAdjoint "
+          f"(reverse over reverse): {ms:.1f} ms (CUDA events around one run, "
+          "after phase 5g's)")
     elapsed("phase 6g [direct] timings")
 
     # -- 6h. [unroll] and [stiff] timings: each arm against its own
@@ -3462,7 +3940,7 @@ def main() -> int:
     elapsed("phase 6h [unroll] and [stiff] timings")
 
     # -- 6j. [dae] and [dde] timings: each gradient against its own forward;
-    # the Robertson DAE arms from 5j's timed card runs, one run each; the
+    # the Robertson DAE arms DAE_TIMED one run each, after 5j's; the
     # spiral under the invertible mass and the delayed S4 field at full
     # width, CUDA events (median of EV_TIMING_ROUNDS interleaved rounds
     # after a warm-up round) and one profiled run for the idle share
@@ -3470,13 +3948,14 @@ def main() -> int:
         for _ in range(2):  # the second forward is the one kept
             sol, ms_f = event_ms(lambda: dae_gradient(
                 P, dev, None, solver(), grad=False))
-        for arm, (_, arm_solver, rotated) in dae_arms.items():
-            if arm_solver is solver and not rotated:
+        for arm, (sensealg, arm_solver, rotated) in dae_arms.items():
+            if arm_solver is solver and arm in DAE_TIMED:
+                _, ms = event_ms(lambda: dae_gradient(
+                    P, dev, sensealg, solver(), rotated))
                 print(f"[time] {card}: Robertson DAE f64 {solver.__name__} "
-                      f"{arm} gradient: {dae_times[arm]:.3f} ms "
-                      f"({dae_times[arm] / ms_f:.2f}x its forward of "
-                      f"{ms_f:.3f} ms, {sol.stats}; CUDA events around one "
-                      "run, phase 5j's)")
+                      f"{arm} gradient: {ms:.3f} ms ({ms / ms_f:.2f}x its "
+                      f"forward of {ms_f:.3f} ms, {sol.stats}; CUDA events "
+                      "around one run, after phase 5j's)")
     setup32 = spiral_setup(P, torch.float32, dev, data64)
     kw32 = spiral_mass_kw(P, dict(SPIRAL_ADAPTIVE, sensealg=P.GaussAdjoint()))
     arms = {"S2m forward": lambda: spiral_mass_gradient(P, setup32, kw32,
@@ -3523,6 +4002,34 @@ def main() -> int:
     elapsed("phase 6k [sde] timings")
 
     # Lotka-Volterra last: its traces hold the most launches of any
+    # the auto-pinned against the unpinned reverse on [0, LV_TRACE_T1], in
+    # turns: whether pinning pays here (ROADMAP M5)
+    lv_pin = {
+        "pinned": P.InterpolatingAdjoint(),
+        "adaptive": P.InterpolatingAdjoint(pinned_reverse=False)}
+    lv_pin_fns = {name: (lambda s=s: lv_solve(P, dev, s, grad=True,
+                                              t1=LV_TRACE_T1))
+                  for name, s in lv_pin.items()}
+    lv_pin_out = {}
+    med = interleaved_ms(lv_pin_fns, rounds=3, outputs=lv_pin_out)
+    err = max_rel(lv_pin_out["adaptive"][0], lv_pin_out["pinned"][0])
+    for name, (_, sol) in lv_pin_out.items():
+        print(f"[time] {card}: Lotka-Volterra f64 on [0, {LV_TRACE_T1}] "
+              f"InterpolatingAdjoint, {sol.adjoint.reverse} reverse: "
+              f"{med[name]:.3f} ms (CUDA events, median of 3 interleaved); "
+              f"forward {sol.stats}; reverse {sol.adjoint.stats}")
+        check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0
+              and sol.adjoint.reverse == name, f"LV [0, {LV_TRACE_T1}] "
+              f"{name}: {sol.adjoint.reverse} reverse, retcode")
+    print(f"[interp f64] Lotka-Volterra on [0, {LV_TRACE_T1}]: adaptive "
+          f"against pinned max relative difference per entry {err:.2e} (tol "
+          f"{LV_RULE_TOL:g}); pinned {med['adaptive'] / med['pinned']:.2f}x "
+          "faster")
+    check(err <= LV_RULE_TOL, "LV adaptive reverse off the pinned one")
+
+    for name, sensealg in lv_runs.items():
+        _, lv_times[name] = event_ms(
+            lambda: lv_solve(P, dev, sensealg, grad=True))
     for name, sensealg in [("forward", None)] + list(lv_runs.items()):
         ms = lv_times[name]
         busy, wall = profiled_ms(lambda: lv_solve(
@@ -3530,7 +4037,7 @@ def main() -> int:
         print(f"[time] {card}: Lotka-Volterra f64 (11 saves, rtol 1e-10) "
               f"{name}{'' if name == 'forward' else ' gradient'}: {ms:.3f} ms "
               f"({ms / lv_times['forward']:.2f}x the forward; CUDA events "
-              f"around one run, phase 5d's for a gradient); profiled run on "
+              f"around one run, after phase 5d's warm one); profiled run on "
               f"[0, {LV_TRACE_T1}]: kernels {busy:.3f} ms of {wall:.3f} ms "
               f"wall, device idle {100 * (1 - busy / wall):.1f}%")
     elapsed("phase 6d")
@@ -3539,6 +4046,14 @@ def main() -> int:
     k1_bound = 8 * n / HBM_BYTES_PER_S * 1e3
     k2_bound = 12 * n / HBM_BYTES_PER_S * 1e3
     s4 = mlp_timing[("S4", torch.bfloat16)]
+
+    def s4_f32(kname):
+        """The kernel at S4's float32 shape on the simt route, the shape of
+        the device-bound cells (DDE, neural SDE, NILSAS)."""
+        t32 = mlp_timing[("S4", torch.float32)]
+        return {"s4_f32_simt_ms": t32[kname],
+                "s4_f32_bound_ms": t32["bound"][kname][0],
+                "s4_f32_bound_by": t32["bound"][kname][1]}
     interp_k = {k: sum(got[k] for got in interp_launches.values())
                 for k in ("K1", "K2")}
     interp_node = [sum(got[i] for got in interp_node_launches.values())
@@ -3551,7 +4066,8 @@ def main() -> int:
                 for k in ("K1", "K2", "K3", "K4")}
     unroll_k = {k: sum(got.get(k, 0) for got in unroll_launches.values())
                 for k in ("K1", "K2", "K3", "K4")}
-    new_paths = dict(dae_launches, **dde_launches, **nsde_launches)
+    new_paths = dict(dae_launches, **dde_launches, **nsde_launches,
+                     **shadow_launches, **ens_launches)
     new_k = {k: sum(got[k] for got in new_paths.values())
              for k in ("K3", "K4")}
     fk_k = {k: sum(got[k] for got in fk_launches.values())
@@ -3621,7 +4137,7 @@ def main() -> int:
          "max_abs_err": max_abs["K3"],
          "ms": s4["K3"], "plain_ms": s4["K3_plain"],
          "bound_ms": s4["bound"]["K3"][0], "bound_by": s4["bound"]["K3"][1],
-         "library_ms": None},
+         "library_ms": None, **s4_f32("K3")},
         {"name": "mlp2_vjp (K4)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:68",
@@ -3642,7 +4158,7 @@ def main() -> int:
          "max_abs_err": max_abs["K4"],
          "ms": s4["K4"], "plain_ms": s4["K4_plain"],
          "bound_ms": s4["bound"]["K4"][0], "bound_by": s4["bound"]["K4"][1],
-         "library_ms": None},
+         "library_ms": None, **s4_f32("K4")},
     ]
     for name, label, line in (("K5", "rd1d_rk4_fwd", 223),
                               ("K6", "rd1d_rk4_vjp", 253)):
@@ -3664,4 +4180,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--background"]:
+        sys.exit(run_background(sys.argv[2], sys.argv[3]))
     sys.exit(main())

@@ -25,13 +25,18 @@ reference's aliases (`ZygoteAdjoint` ... -> `DirectAdjoint`, `ZygoteVJP`
 `PresetTimeCallback`, `PeriodicCallback`, `TerminateSteadyState`,
 `CallbackSet`). Gradients run under `ForwardDiffSensitivity`,
 `ForwardSensitivity`, `BacksolveAdjoint`, `InterpolatingAdjoint`,
-`GaussAdjoint`, `GaussKronrodAdjoint`, `QuadratureAdjoint` and
-`DirectAdjoint` (fixed grid and adaptive, with `remat`), so
-`sensealg=None` differentiates every plain ODE; ROADMAP.md lists the rest.
-Beside them: the classic, neural-ODE and PDE models (`models/classic.py`,
-`models/neural_ode.py`, `models/pde.py`), the fused MLP field `fused_mlp2`
-(`ops/mlp.py`) and the RK4 block megakernel `make_rd1d_rk4_block`
-(`ops/rd1d.py`), which the JAX package keeps in its submodules.
+`GaussAdjoint`, `GaussKronrodAdjoint`, `QuadratureAdjoint`,
+`DirectAdjoint` (fixed grid and adaptive, with `remat`) and the shadowing
+rules `ForwardLSS`, `AdjointLSS`, `NILSS` and `NILSAS`, whose problems
+(`ForwardLSSProblem`, `AdjointLSSProblem`, `NILSSProblem`,
+`NILSASProblem`, `shadow_forward`, `shadow_adjoint`,
+`nilsas_shadow_adjoint`) are public too; ensembles (`EnsembleProblem`,
+`solve_ensemble`, `ensemble_summary`, `make_mesh`). Every public name of
+the JAX package is here. Beside them: the classic, neural-ODE, PDE and
+digits models (`models/`), the fused MLP field `fused_mlp2` (`ops/mlp.py`),
+the RK4 block megakernel `make_rd1d_rk4_block` (`ops/rd1d.py`), which the
+JAX package keeps in its submodules, the profiling helpers
+(`utils/profile.py`) and the entry points (`entry.py`).
 
 The package imports torch, never jax. Importing it builds and loads no
 kernel: the CUDA kernels of `ops/rd1d.py` and `ops/mlp.py` are compiled at
@@ -46,6 +51,15 @@ from .adjoints.adjoint_problem import (
     SDEAdjointProblem,
 )
 from .adjoints.interface import adjoint_sensitivities
+from .adjoints.shadowing import (
+    AdjointLSSProblem,
+    ForwardLSSProblem,
+    NILSASProblem,
+    NILSSProblem,
+    nilsas_shadow_adjoint,
+    shadow_adjoint,
+    shadow_forward,
+)
 from .adjoints.steadystate import (
     NonlinearSolution,
     solve_nonlinear,
@@ -95,6 +109,12 @@ from .models.pde import (
 from .ops.brownian import NoiseGrid, NumpyKey, PRNGKey, VirtualBrownianTree
 from .ops.mlp import fused_mlp2
 from .ops.rd1d import make_rd1d_rk4_block
+from .parallel.ensemble import (
+    EnsembleProblem,
+    ensemble_summary,
+    make_mesh,
+    solve_ensemble,
+)
 from .problems import (DDEProblem, NonlinearProblem, ODEProblem,
                        RODEProblem, SDEProblem, SecondOrderODEProblem,
                        SteadyStateProblem, remake)
@@ -186,4 +206,8 @@ __all__ = [
     "spiral_neural_ode", "mnist_node_init", "mnist_node_apply", "neural_sde",
     "heat1d_field", "heat1d_problem", "brusselator_2d_field",
     "brusselator_2d_problem", "make_rd1d_rk4_block",
+    "ForwardLSSProblem", "AdjointLSSProblem", "NILSSProblem",
+    "NILSASProblem", "shadow_forward", "shadow_adjoint",
+    "nilsas_shadow_adjoint",
+    "EnsembleProblem", "solve_ensemble", "ensemble_summary", "make_mesh",
 ]

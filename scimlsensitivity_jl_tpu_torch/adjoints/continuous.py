@@ -168,12 +168,16 @@ class AdjointRecord:
     ("adaptive", "pinned", "pinned, then adaptive" when the auto-pinned
     pass tripped its guard, or "checkpointed"); `resolves`, the intervals
     of nonzero width that the checkpointed reverse solved forward again.
-    The checkpointed Stats sum the local reverse solves. None until a
-    backward ran."""
+    The checkpointed Stats sum the local reverse solves. Under NILSS and
+    NILSAS (`solve`'s shadowing rule) `reverse` names the method and
+    `stats` sums its segment solves. None until a backward ran."""
 
     stats: Optional[Stats] = None
     reverse: Optional[str] = None
     resolves: int = 0
+    # NILSAS under `solve`: its primal solve's Stats (the segment solves'
+    # go to `stats`)
+    primal: Optional[Stats] = None
 
 
 class AuxOut(NamedTuple):

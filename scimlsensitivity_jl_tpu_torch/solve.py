@@ -20,8 +20,8 @@ and SteadyStateProblem to `adjoints/steadystate.solve_nonlinear`
 1e-6, and parameter-modifying callbacks lift p into the state,
 `callbacks.lift_p_into_state_sde`) and RODEProblem to
 `adjoints/sde.solve_rode` (solve.py:172-176; callbacks refused). The
-sensealgs whose rules are not ported raise NotImplementedError naming the
-ROADMAP item.
+shadowing sensealgs (ForwardLSS, AdjointLSS, NILSS, NILSAS) take the
+shadowing rule (solve.py:620-631, `_make_shadowing_solve_fn` :681-804).
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ from .callbacks import (any_modifies_p, as_callback_set,
 from .ops.vjp import probe_forward_mode
 from .problems import (DDEProblem, NonlinearProblem, ODEProblem,
                        RODEProblem, SDEProblem, SteadyStateProblem, remake)
-from .sensealg import (AbstractSensealg, BacksolveAdjoint, DirectAdjoint,
-                       ForwardDiffSensitivity, ForwardSensitivity, GaussAdjoint,
+from .sensealg import (NILSAS, NILSS, AbstractSensealg, AdjointLSS,
+                       BacksolveAdjoint, DirectAdjoint, ForwardDiffSensitivity,
+                       ForwardLSS, ForwardSensitivity, GaussAdjoint,
                        GaussKronrodAdjoint, InterpolatingAdjoint,
                        QuadratureAdjoint, SteadyStateAdjoint,
                        default_sensealg)
@@ -51,6 +52,8 @@ from .solvers.integrate import time_dtype
 from .utils.pytree import ravel_pytree, tree_size
 
 __all__ = ["solve"]
+
+_SHADOWING_RULES = (ForwardLSS, AdjointLSS, NILSS, NILSAS)
 
 _CONTINUOUS_RULES = (
     InterpolatingAdjoint,
@@ -117,7 +120,9 @@ def solve(
     `solvers/sde.py`), else the adaptive path on a VirtualBrownianTree
     (EulerMaruyama or Milstein); an RODEProblem takes dt=. key: the noise's
     key (`ops.brownian.PRNGKey`, an int, or any object of its protocol;
-    default PRNGKey(0)).
+    default PRNGKey(0)). Under NILSS or NILSAS, key is the key of their
+    random initial tangents or terminal adjoints (default
+    NumpyKey(sensealg.rng_seed)).
     """
     if isinstance(prob, (NonlinearProblem, SteadyStateProblem)):
         from .adjoints.steadystate import solve_nonlinear
@@ -173,6 +178,7 @@ def solve(
         bwd_solver=bwd_solver, adaptive=adaptive, unroll=unroll,
         verbose=verbose, dtmax=dtmax, callback=callback,
         max_events=max_events, save_idxs=save_idxs, dae_init=dae_init,
+        key=key,
     )
 
 
@@ -318,7 +324,7 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
                tstops, sensealg, dense, adj_rtol, adj_atol, adj_max_steps,
                bwd_solver, adaptive=True, unroll=False, verbose=False,
                dtmax=None, callback=None, max_events=32, save_idxs=None,
-               dae_init=None):
+               dae_init=None, key=None):
     solver = solver or Tsit5()
     t0, t1 = prob.tspan
     u0vec, unravel_u = ravel_pytree(prob.u0)
@@ -519,9 +525,16 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
         fn = make_forward_sensitivity_solve_fn(prob.f, solver, sensealg, opts,
                                                t0, t1)
         ys, aux = fn(prob.u0, prob.p, saveat)
+    elif isinstance(sensealg, _SHADOWING_RULES):
+        if cbs is not None:
+            raise NotImplementedError(
+                "shadowing sensealgs are incompatible with callbacks "
+                "(as in the reference)")
+        ys, aux = _shadowing_solve(prob, solver, sensealg, opts, t0, t1,
+                                   saveat, sv_t, key)
     else:
         raise NotImplementedError(
-            f"sensealg {sensealg!r}: not ported (ROADMAP M4 onward)")
+            f"sensealg {sensealg!r} not supported for ODEs")
 
     if verbose and aux.stats.retcode != 0:
         print(f"solve: non-success retcode {aux.stats.retcode} (1=MaxIters, "
@@ -549,3 +562,141 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
         adjoint=aux.adjoint,
         events=getattr(aux, "events", None),
     )
+
+
+class _ShadowingSolve(torch.autograd.Function):
+    """(u0vec, pflat, save times) -> (saveat rows, u_final); the backward
+    runs the shadowing problem on the saved rows and gives p its
+    gradient. u0 and the save times get zeros (the reference's
+    NoTangent), and u_final's cotangent is dropped, as in JAX."""
+
+    @staticmethod
+    def forward(ctx, u0vec, pflat, sv, run):
+        ys, u_final = run.forward(u0vec, pflat)
+        ctx.run = run
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(u0vec, pflat, sv, ys)
+        return ys, u_final
+
+    @staticmethod
+    def backward(ctx, d_ys, d_uf):
+        u0vec, pflat, sv, ys = ctx.saved_tensors
+        if d_ys is None:
+            d_ys = torch.zeros_like(ys)
+        dp = ctx.run.backward(u0vec, pflat, ys, d_ys)
+        return torch.zeros_like(u0vec), dp, torch.zeros_like(sv), None
+
+
+class _ShadowingRule:
+    """The forward and backward of one shadowing `solve` (JAX
+    solve.py:620-631, `_make_shadowing_solve_fn` :681-804).
+
+    The forward is the continuous rules' forward solve. The backward
+    builds dgdu_discrete from the cotangent rows Δᵢ (a plain sum loss over
+    a uniform saveat grid then gives the sensitivity of the time average):
+    ForwardLSS and AdjointLSS take the rows at the save times; NILSS and
+    NILSAS, which run on their own segment grids, lift them to the
+    piecewise-constant field of the nearest save time (JAX :737-765; as
+    JAX states, the reference's jevery instead zeroes dgdu between data
+    times and divides by every internal step). Their segment solves take
+    adj_rtol / adj_atol (default JAX's 1e-8 / 1e-10); NILSAS's primal
+    solve takes the solve's rtol / atol and max_steps (JAX: fwd_rtol
+    1e-11, fwd_atol 1e-13, max_steps 16384, its test's solve settings)."""
+
+    def __init__(self, prob, solver, sensealg, opts, t0, t1, saveat,
+                 unravel_u, unravel_p, record, key):
+        self.prob, self.solver, self.sensealg, self.opts = (prob, solver,
+                                                            sensealg, opts)
+        self.t0, self.t1, self.saveat = t0, t1, saveat
+        self.unravel_u, self.unravel_p, self.record = (unravel_u, unravel_p,
+                                                       record)
+        self.key = key
+        self.stats = self.dense = self.t_final = None
+
+    def forward(self, u0vec, pflat):
+        from .adjoints.common import forward_saveat_solve
+        from .ops.vjp import make_vjp_kernels
+
+        p, opts = self.unravel_p(pflat), self.opts
+        kern = make_vjp_kernels(self.prob.f, self.prob.u0, p)
+        fwd = forward_saveat_solve(
+            self.solver, lambda uv, t: kern.fvec(uv, p, t), u0vec, self.t0,
+            self.t1, self.saveat, rtol=opts.rtol, atol=opts.atol,
+            dt0=opts.dt0, max_steps=opts.max_steps, tstops=opts.tstops,
+            store_dense=opts.dense, dtmax=opts.dtmax)
+        self.stats, self.dense, self.t_final = (fwd.stats, fwd.dense,
+                                                fwd.t_final)
+        return fwd.ys_save, fwd.u_final
+
+    def backward(self, u0vec, pflat, ys, d_ys):
+        from .adjoints import shadowing as sh
+        from .solvers.integrate import Stats
+
+        sensealg, opts, saveat = self.sensealg, self.opts, self.saveat
+        p = self.unravel_p(pflat)
+        prob = remake(self.prob, u0=self.unravel_u(u0vec), p=p)
+        delta = d_ys.reshape(ys.shape[0], -1)
+        if isinstance(sensealg, (ForwardLSS, AdjointLSS)):
+            sol = ODESolution(ts=torch.from_numpy(saveat), ys=ys,
+                              stats=Stats(0, 0, 0, 0), retcode=0, prob=prob)
+            lss = (sh.ForwardLSSProblem if isinstance(sensealg, ForwardLSS)
+                   else sh.AdjointLSSProblem)(
+                sol, sensealg, dgdu_discrete=lambda u, pp, t, i: delta[i])
+            dp = (sh.shadow_forward(lss) if isinstance(sensealg, ForwardLSS)
+                  else sh.shadow_adjoint(lss))
+            return dp.to(pflat.dtype)
+        nt = saveat.shape[0]
+
+        def delta_dgdu(u, pp, t):
+            # the nearest save time's row (piecewise constant in t)
+            i = min(max(int(np.searchsorted(saveat, t)), 0), nt - 1)
+            im = max(i - 1, 0)
+            near = abs(saveat[i] - t) <= abs(saveat[im] - t)
+            return delta[i if near else im]
+
+        tols = dict(rtol=1e-8 if opts.adj_rtol is None else opts.adj_rtol,
+                    atol=1e-10 if opts.adj_atol is None else opts.adj_atol,
+                    record=self.record, key=self.key)
+        if isinstance(sensealg, NILSS):
+            if getattr(sensealg, "g", None) is None:
+                raise ValueError(
+                    "NILSS under a gradient of solve needs NILSS(g=...): the "
+                    "time-dilation terms evaluate the objective itself "
+                    "(reference check_for_g, nilss.jl:638-640)")
+            dp = sh.nilss_shadow_forward(
+                sh.NILSSProblem(prob, sensealg, g=sensealg.g,
+                                dgdu_continuous=delta_dgdu),
+                self.solver, **tols)
+        else:
+            # Δ has no direct p-dependence: p-terms of the loss are
+            # differentiated by the surrounding autograd
+            dp = sh.nilsas_shadow_adjoint(
+                sh.NILSASProblem(
+                    prob, sensealg, dgdu_continuous=delta_dgdu,
+                    dgdp_continuous=lambda u, pp, t: torch.zeros_like(pflat)),
+                self.solver, fwd_rtol=opts.rtol, fwd_atol=opts.atol,
+                max_steps=opts.max_steps, **tols)
+        return dp.to(pflat.dtype)
+
+
+def _shadowing_solve(prob, solver, sensealg, opts, t0, t1, saveat, sv_t,
+                     key=None):
+    """(ys, AuxOut) of a solve under ForwardLSS, AdjointLSS, NILSS or
+    NILSAS; the gradient reaches p only."""
+    from .adjoints.continuous import AdjointRecord, AuxOut
+
+    u0vec, unravel_u = ravel_pytree(prob.u0)
+    if prob.p is None:
+        raise ValueError("shadowing sensitivities need parameters")
+    pflat, unravel_p = ravel_pytree(prob.p)
+    kind = time_dtype(u0vec.dtype)
+    record = AdjointRecord()
+    rule = _ShadowingRule(prob, solver, sensealg, opts, kind(t0), kind(t1),
+                          np.asarray(saveat, dtype=kind), unravel_u,
+                          unravel_p, record, key)
+    sv = sv_t if sv_t is not None else torch.from_numpy(
+        np.asarray(saveat, dtype=kind))
+    ys_save, u_final = _ShadowingSolve.apply(u0vec, pflat, sv, rule)
+    return unravel_u(ys_save), AuxOut(
+        dense=rule.dense, t_final=rule.t_final, u_final=u_final,
+        stats=rule.stats, adjoint=record)

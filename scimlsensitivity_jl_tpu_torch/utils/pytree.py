@@ -107,6 +107,19 @@ def from_numpy_tree(tree, device, dtype: torch.dtype):
     return convert(tree)
 
 
+def tree_to(tree, device):
+    """Every tensor of a tree (dicts, lists, tuples) on `device`, as
+    differentiable copies; anything else (numbers, arrays, named tuples
+    such as Stats) as it is."""
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {key: tree_to(v, device) for key, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not hasattr(tree, "_fields"):
+        return type(tree)(tree_to(v, device) for v in tree)
+    return tree
+
+
 def _is_number_sequence(seq) -> bool:
     """A flat list of numbers (e.g. `p=[D, k]`) is one vector, not a tree."""
     return len(seq) > 0 and all(

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import scimlsensitivity_jl_tpu_torch as P
+from scimlsensitivity_jl_tpu_torch.adjoints.continuous import AdjointRecord
 from scimlsensitivity_jl_tpu_torch.ops import mlp, rd1d
 
 pytestmark = pytest.mark.cuda
@@ -950,3 +951,96 @@ def test_adaptive_sde_memory_on_card(cuda, rule):
     assert bool(torch.isfinite(gu).all()) and bool(torch.isfinite(gp).all())
     stored = 1 if rule == "InterpolatingAdjoint" else 0
     assert peak <= ((6 + stored) * steps + 64) * n * 8, (peak, steps)
+
+
+def _mlp_problem(device, B=8, widths=(8, 16, 8), T=0.5):
+    """u' = fused_mlp2(θ, u) (K3/K4) with seeded float64 weights."""
+    gen = torch.Generator().manual_seed(5)
+    params = P.mlp_init(gen, widths, torch.float64, device=device)
+    params = {k: v.requires_grad_() for k, v in params.items()}
+    u0 = (0.3 * torch.randn((B, widths[0]), generator=gen,
+                            dtype=torch.float64)).to(device)
+    return P.ODEProblem(lambda u, p, t: mlp.fused_mlp2(p, u), u0, (0.0, T),
+                        params), params
+
+
+def test_nilsas_kernel_field_on_card_matches_cpu(cuda):
+    """NILSAS(nseg 2, M 2) on the fused MLP field (B = 8, 8→16→8, float64)
+    with g = mean(u²): K3 once and K4 M+1 = 3 times per evaluation of the
+    adjoint field, and the card's d⟨g⟩/dθ against the CPU's to 1e-9
+    relative (the terminal draw is a host draw, the same on both). A
+    smooth g: under solve's rule the lifted cotangent rows jump midway
+    between save times, and on this small field a one-ulp move of u0
+    moves that gradient by up to 2.1e-7 on the CPU
+    (tests/shadowing_roundoff_witness.py; chip_smoke 5n holds the rule on
+    S4's field, where it does not)."""
+    out = []
+    for device in (cuda, "cpu"):
+        prob, params = _mlp_problem(device)
+        prob = P.remake(prob, p={k: v.detach() for k, v in params.items()})
+        rec = AdjointRecord()
+        mlp.mlp2_fwd_cuda.launches = mlp.mlp2_vjp_cuda.launches = 0
+        res = P.nilsas_shadow_adjoint(
+            P.NILSASProblem(prob, P.NILSAS(nseg=2, nstep=5, M=2),
+                            g=lambda u, p, t: torch.mean(u ** 2)),
+            rtol=1e-8, atol=1e-10, fwd_rtol=1e-8, fwd_atol=1e-10, record=rec)
+        out.append(res.cpu())
+        if device == cuda:
+            seg_evals = 2 * 2 + 6 * (rec.stats.n_accepted
+                                     + rec.stats.n_rejected)
+            prim = 2 + 6 * (rec.primal.n_accepted + rec.primal.n_rejected)
+            assert mlp.mlp2_vjp_cuda.launches == 3 * seg_evals
+            assert mlp.mlp2_fwd_cuda.launches == prim + 1 + seg_evals
+    assert torch.isfinite(out[0]).all()
+    assert torch.linalg.norm(out[0] - out[1]) <= 1e-9 * torch.linalg.norm(
+        out[1])
+
+
+def test_shadowing_kernel_field_refusals_launch_nothing(cuda):
+    """ForwardLSS, AdjointLSS and NILSS on the fused MLP field on the card
+    raise ForwardModeUnsupported naming it, with no K3 or K4 launch."""
+    from scimlsensitivity_jl_tpu_torch.ops.vjp import ForwardModeUnsupported
+
+    prob, _ = _mlp_problem(cuda, B=1)
+    with torch.no_grad():
+        sol = P.solve(prob, P.Tsit5(), saveat=torch.linspace(0.0, 0.5, 11))
+    g = lambda u, p, t: u[0]  # noqa: E731
+    mlp.mlp2_fwd_cuda.launches = mlp.mlp2_vjp_cuda.launches = 0
+    for build in (lambda: P.ForwardLSSProblem(sol, P.ForwardLSS(g=g)),
+                  lambda: P.AdjointLSSProblem(sol, P.AdjointLSS(g=g)),
+                  lambda: P.shadow_forward(P.NILSSProblem(
+                      prob, P.NILSS(nseg=2, nstep=5), g=g))):
+        with pytest.raises(ForwardModeUnsupported, match="FusedMLP2"):
+            build()
+    assert mlp.mlp2_fwd_cuda.launches == mlp.mlp2_vjp_cuda.launches == 0
+
+
+def test_ensemble_on_kernel_field_equals_single_solves(cuda):
+    """Two trajectories of the fused MLP field under GaussAdjoint: the
+    ensemble's rows equal each trajectory's own solve bit for bit, the
+    "vmap" and "shard_map" (one-card mesh) gradients are equal, and equal
+    the sum of the single solves' gradients."""
+    prob, params = _mlp_problem(cuda, B=2)
+    leaves = list(params.values())
+    scale = (1.0, 1.5)
+
+    def prob_func(pr, i):
+        return P.remake(pr, u0=pr.u0 * scale[i])
+
+    kw = dict(saveat=[0.0, 0.5], sensealg=P.GaussAdjoint(), rtol=1e-8,
+              atol=1e-10)
+    singles = [P.solve(prob_func(prob, i), P.Tsit5(), **kw) for i in (0, 1)]
+    g_single = [sum(gs) for gs in zip(*[
+        torch.autograd.grad(torch.sum(s.ys[-1] ** 2), leaves)
+        for s in singles])]
+    got = {}
+    for backend in ("vmap", "shard_map"):
+        ens = P.solve_ensemble(P.EnsembleProblem(prob, prob_func), P.Tsit5(),
+                               trajectories=2, backend=backend,
+                               mesh=P.make_mesh(), **kw)
+        for i in (0, 1):
+            assert torch.equal(ens.ys[i], singles[i].ys)
+        got[backend] = torch.autograd.grad(torch.sum(ens.ys[:, -1] ** 2),
+                                           leaves)
+    for a, b, c in zip(got["vmap"], got["shard_map"], g_single):
+        assert torch.equal(a, b) and torch.equal(a, c)

@@ -338,14 +338,9 @@ def test_failed_forward_poisons_the_gradients(lv_sol):
 
 # -- the public names and save_idxs -----------------------------------------
 
-# public names of the JAX package that wait for later ROADMAP items
-NOT_YET = {
-    "M14": ["ForwardLSSProblem", "AdjointLSSProblem", "NILSSProblem",
-            "NILSASProblem", "shadow_forward", "shadow_adjoint",
-            "nilsas_shadow_adjoint"],
-    "M15": ["EnsembleProblem", "solve_ensemble", "ensemble_summary",
-            "make_mesh"],
-}
+# public names of the JAX package that wait for later ROADMAP items (none:
+# the port exports every one)
+NOT_YET = {}
 
 
 def test_public_names_match_jax():
