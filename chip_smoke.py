@@ -99,11 +99,13 @@ Phases, each printed before the last line:
      u and λ off 16-byte alignment and λ off u's alignment, with 1 kernel
      and no memset per call in a profiler trace; K3, K4 in
      float64, float32 and bfloat16 at the spiral's, a ragged and S4's
-     shape, bfloat16 also at an aligned ragged shape, each on the route
-     mlp2_route picks and S4 also forced onto WMMA, with the per-route
-     counters checked, and 2 kernels per K3 and per K4 call on each route
-     in a profiler trace; K5, K6 in float64 and float32 at the flagship
-     and a ragged geometry; K2, K4 and K6 return the same bits twice);
+     shape, float32 and bfloat16 also at an aligned ragged shape, each on
+     the route mlp2_route picks and S4 also forced onto WMMA, with the
+     per-route counters checked, and 2 kernels per K3 and per K4 call on
+     each route in a profiler trace (S4 float32, whose products split,
+     also one memset of their counters); K5, K6 in float64 and float32 at
+     the flagship and a ragged geometry; K2, K4 and K6 return the same
+     bits twice);
   4. the PDE's float64 gradient on the card against the port's own CPU run
      (plain path), with retcode, dispatch and kernel-launch checks, then
      float32 against the card's float64;
@@ -133,8 +135,10 @@ Phases, each printed before the last line:
      against the port's CPU run, one dose recorded, sensealg=None on
      GaussAdjoint, K1/K2 launches, then float32 at n = 1,048,576 against
      the card's float64; S2e, S2d and S2t, card against CPU, with the same
-     event count on both (at least one) and their K3/K4 launches; the
-     bouncing ball under GaussAdjoint against ForwardDiffSensitivity;
+     event count on both (at least one) and their K3/K4 launches, then in
+     float32 on the card against the card's float64 (retcode, event
+     count); the bouncing ball under GaussAdjoint against
+     ForwardDiffSensitivity;
   5g. [direct f64]: each direct arm at n = 262,144, the card against the
      port's CPU run and against the card's solve gradient of its rule
      (adaptive reverse, the same reverse tolerances), its K1/K2 launches in
@@ -211,14 +215,14 @@ Phases, each printed before the last line:
      the cuBLAS products as a yardstick; the megakernel against the plain
      RK4 loop (64 steps) and against the plain loop with per-step
      torch.utils.checkpoint (512 steps), with the peak device memory of
-     each; the Lotka–Volterra gradient of each rule against its forward,
-     S2q against S1's forward and PDE (c) against the PDE forward (PDE
-     (d)-(f), S2i-S2p and the spiral arms S1-S5 are checked in phase 5 but
-     not timed, to keep the command near 800 s); phase 5f's arms (PDE
-     dose f32 at n = 1,048,576, S2e, S2d, S2t in float32, the ball) each
-     against its own forward, with the device's idle share (not traced
-     for the spiral's gradients); phase 5g's PDE arms at n = 1,048,576 in
-     float32, each direct call against the dense forward it reads, with
+     each; the Lotka–Volterra gradient of each rule against its forward
+     (not traced), S2q against S1's forward and PDE (c) against the PDE
+     forward (PDE (d)-(f), S2i-S2p and the spiral arms S1-S5 are checked
+     in phase 5 but not timed, to keep the command near 800 s); phase 5f's
+     arms (PDE dose f32 at n = 1,048,576, the ball; the spiral's S2e, S2d
+     and S2t not timed, to keep the command under ~900 s) each against its
+     own forward, with the device's idle share; phase 5g's PDE arms at
+     n = 1,048,576 in float32, each direct call against the dense forward it reads, with
      the device's idle share, and its gradient from the warm-up round
      against the card's float64 one, with its K1/K2 launches; phase 5j's Robertson gradients against their
      forwards, the spiral under the mass and the delayed S4 field (RK4 and
@@ -226,7 +230,8 @@ Phases, each printed before the last line:
      phase 5l's and 5m's forwards and gradients (the neural SDE at full
      width, the SDE and RODE Fisher–KPP at n = 1,048,576), each against
      its own forward, with the device's idle share; K3/K4 alone at S4's
-     float32 shape on the simt route (in the kernels line).
+     float32 shape on the simt route, per launch, and the float32 cuBLAS
+     products of the same work as a yardstick (in the kernels line).
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -280,6 +285,7 @@ MLP_SHAPES = {"spiral": (None, 2, 50, 2), "ragged": (37, 5, 67, 3),
 # the one mlp2_route picks); bfloat16 S4 also on the WMMA route it left
 MLP_CHECKS = ([(dt, label, None) for dt in (torch.float64, torch.float32)
                for label in ("spiral", "ragged", "S4")]
+              + [(torch.float32, "aligned", None)]
               + [(torch.bfloat16, label, None)
                  for label in ("spiral", "ragged", "S4", "aligned")]
               + [(torch.bfloat16, "S4", "wmma")])
@@ -302,6 +308,10 @@ MLP_TOL = {torch.float64: 1e-12, torch.float32: 1e-4, torch.bfloat16: 2e-2}
 NODE_F64_TOL = 1e-9   # S1-S4 card f64 vs CPU f64, relative L2 per leaf
 # S4 card f32 vs card f64: 385 evaluations of 512-2048-term float32 sums
 S4_F32_TOL = 1e-4
+# S2e, S2d, S2t card f32 vs card f64, relative L2 per leaf: their adaptive
+# steps differ (atol 1e-6 sits near float32's resolution of |u| ~ 2); the
+# port's CPU runs of the two types part by at most 2.1e-6
+SPIRAL_F32_TOL = 1e-4
 # S4 bf16 vs card f32: the bf16 state rounds at every stage (unit roundoff
 # 2^-9 of |u| against increments of ~|u|/64), which compounds over 385
 # stages to a few percent; an O(1) error is a wrong result
@@ -416,9 +426,9 @@ def profiled_ms(fn, calls=1, kernels=None):
     so the rest of the wall time is the device idling on the host. Only
     device activity is traced: with host operators traced as well, the
     traces of one process lost device events after some forty of them.
-    With `kernels`, fn launches that many distinct kernels once each per
-    call, and the time per call is the sum of the mean times of the
-    trace's `kernels` most launched kernels, which a trace that lost some
+    With `kernels`, fn launches that many distinct kernels (or memsets)
+    once each per call, and the time per call is the sum of the mean
+    times of the trace's `kernels` most launched of them, which a trace that lost some
     launches, or that holds a stray event of earlier work, still gives.
     A trace without device activity (or with fewer kernels) is taken again,
     four times at most, each retry printing what the trace held."""
@@ -1787,19 +1797,23 @@ def main() -> int:
     # kernels per K3/K4 call on each route, from a profiler trace of one
     # call, among the process's first traces (later ones can lose events)
     for label, dtype in (("spiral", torch.float32), ("ragged", torch.bfloat16),
-                         ("S4", torch.bfloat16)):
+                         ("S4", torch.bfloat16), ("S4", torch.float32)):
         x, w0, b0, w1, b1, g = mlp_inputs(MLP_SHAPES[label], dtype, dev)
         _, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
         route = mlp.mlp2_route(*x.shape, *w1.shape, dtype, True)
         counts = {"K3": kernels_per_call(lambda: mlp.mlp2_fwd_cuda(
-                      x, w0, b0, w1, b1))[0],
+                      x, w0, b0, w1, b1)),
                   "K4": kernels_per_call(lambda: mlp.mlp2_vjp_cuda(
-                      x, w0, w1, h, g))[0]}
-        print(f"[kernels] {label} {str(dtype)[6:]} route {route}: kernels per "
-              f"call in the profiler trace: K3 {counts['K3']}, K4 "
-              f"{counts['K4']}")
-        check(counts == {"K3": 2, "K4": 2},
-              f"{label}: K3/K4 launched {counts} kernels per call, not 2")
+                      x, w0, w1, h, g))}
+        # a float32 call whose plan splits a product zeroes its counters
+        memsets = int(dtype == torch.float32 and label == "S4")
+        print(f"[kernels] {label} {str(dtype)[6:]} route {route}: kernels "
+              f"(memsets) per call in the profiler trace: K3 "
+              f"{counts['K3'][0]} ({counts['K3'][1]}), K4 {counts['K4'][0]} "
+              f"({counts['K4'][1]})")
+        check(counts == {"K3": (2, memsets), "K4": (2, memsets)},
+              f"{label}: K3/K4 launched {counts} (kernels, memsets) per "
+              f"call, not (2, {memsets})")
 
     for dtype in (torch.float64, torch.float32):
         n, S, chunk, bwd_chunk = RK4_GEOMS["flagship"]
@@ -2469,6 +2483,7 @@ def main() -> int:
                       SPIRAL_ADAPTIVE, sensealg=P.InterpolatingAdjoint())}
     saveat_kw = dict(SPIRAL_ADAPTIVE, sensealg=P.GaussAdjoint())
     event_node_launches = {}
+    grads64 = {}
     t = time.perf_counter()
     runs = [(name, kw, spiral_gradient) for name, kw in event_arms.items()]
     runs += [(name, kw, spiral_dense_gradient)
@@ -2480,6 +2495,7 @@ def main() -> int:
         g_cpu, sol_c = grad_fn(P, setup_cpu, kw)
         errs = leaf_errors(g_card, g_cpu)
         event_node_launches[name.split(" ")[0] + " " + name.split(" ")[1]] = got
+        grads64[name] = (g_card, sol)
         ev = ("" if sol.events is None else
               f"; {sol.events.count} events (CPU {sol_c.events.count}) at "
               f"{[round(float(x), 6) for x in sol.events.ts[:sol.events.count]]}")
@@ -2498,6 +2514,30 @@ def main() -> int:
         check(max(errs.values()) <= NODE_F64_TOL,
               f"{name}: f64 card gradient off the CPU run")
     print(f"[events f64] spiral event, dense and saveat card and CPU runs: "
+          f"{time.perf_counter() - t:.1f} s")
+    # the same arms in float32 on the card, untimed (K3/K4 on the float32
+    # engine at B = 1): retcodes, the f64 run's event count, and each
+    # gradient against the card's f64 one
+    t = time.perf_counter()
+    setup32 = spiral_setup(P, torch.float32, dev, data64)
+    for name, kw, grad_fn in runs:
+        g32, sol32 = grad_fn(P, setup32, kw)
+        g64, sol64 = grads64[name]
+        errs = leaf_errors(g32, g64)
+        ev = ("" if sol32.events is None else
+              f"; {sol32.events.count} events (f64 {sol64.events.count})")
+        print(f"[events f32] {name}: forward {sol32.stats} (f64 "
+              f"{sol64.stats}){ev}; against the card's f64 gradient rel L2 "
+              f"{fmt_errors(errs)} (tol {SPIRAL_F32_TOL:g})")
+        check(sol32.retcode == 0, f"f32 {name} retcode {sol32.retcode}")
+        if sol32.events is not None:
+            check(sol32.events.count == sol64.events.count,
+                  f"f32 {name}: {sol32.events.count} events, f64 "
+                  f"{sol64.events.count}")
+        check(max(errs.values()) <= SPIRAL_F32_TOL,
+              f"{name}: f32 card gradient off the f64 one")
+    del setup32, grads64
+    print(f"[events f32] spiral event, dense and saveat float32 runs: "
           f"{time.perf_counter() - t:.1f} s")
 
     # the bouncing ball (bench.py:289-316) in float64, a field of plain
@@ -3681,9 +3721,12 @@ def main() -> int:
         bounds = mlp_bound_ms(shape, dtype)
         key = (label, dtype)
         mlp_timing[key] = {"bound": bounds}
+        # device operations per call: 2 kernels, and the memset of the
+        # split counters where a float32 product splits (as at S4)
+        ops = 2 + int(dtype == torch.float32 and label == "S4")
         for name, fn in versions.items():
             busy, wall = profiled_ms(fn, calls=calls,
-                                     kernels=None if "_" in name else 2)
+                                     kernels=None if "_" in name else ops)
             mlp_timing[key][name] = busy
             kname = name[:2]
             flops = (2 if kname == "K3" else 4) * (shape[0] or 1) * shape[2] * (
@@ -3725,29 +3768,69 @@ def main() -> int:
               "bound")
     parts = {"EpiBiasTanh": "h = tanh(x·W0 + b0)", "EpiBias<": "y = h·W1 + b1",
              "EpiDz": "launch 1 (dW1, dz, g sums)",
-             "ColFinals": "launch 2 (dx, dW0, db0, db1)"}
-    for kname in ("K3", "K4"):
-        fn = pairs[kname]["wgmma"]
+             "ColFinals": "launch 2 (dx, dW0, db0, db1)",
+             "Memset": "memset of the split counters"}
+
+    def per_launch(fn, calls, ops=2):
+        """'label µs' per launch of each of fn's two kernels (and its
+        memset: ops 3), profiler means; a trace that lost one is taken
+        again, four times at most (see profiled_ms)."""
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                fn()
-            torch.cuda.synchronize()
-        rows = [f"{label} {e.self_device_time_total / e.count:.2f} us"
-                for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and e.count
-                for key, label in parts.items() if key in e.key]
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            rows = [f"{label} {e.self_device_time_total / e.count:.2f} us"
+                    for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and e.count
+                    for key, label in parts.items() if key in e.key]
+            if len(rows) == ops:
+                break
+        return rows
+
+    for kname in ("K3", "K4"):
+        rows = per_launch(pairs[kname]["wgmma"], 20)
         print(f"[time] {card}: S4 bf16 {kname} wgmma per kernel (profiler, "
               f"mean of 20 calls): {', '.join(rows)}")
     yard = {"K3": lambda: (x @ w0, h @ w1),
             "K4": lambda: (h.T @ g, g @ w1.T, x.T @ dzc, dzc @ w0.T)}
-    lib = {k: profiled_ms(fn, calls=20)[0] for k, fn in yard.items()}
+    # the larger of two traces: a trace that lost launches reads low
+    lib = {k: max(profiled_ms(fn, calls=20)[0] for _ in range(2))
+           for k, fn in yard.items()}
     print(f"[time] {card}: S4 bf16 yardstick the port never calls, bf16 "
           f"torch.matmul (cuBLAS) of the same products: K3's 2 "
           f"{lib['K3'] * 1e3:.2f} us, K4's 4 {lib['K4'] * 1e3:.2f} us per "
-          "call (no epilogues, no column sums); profiler over 20 calls")
+          "call (no epilogues, no column sums); the larger of two profiler "
+          "traces over 20 calls")
     mlp_timing[("S4", torch.bfloat16)]["cublas"] = lib
+
+    # S4 float32 on the simt route: each launch, and the float32 cuBLAS
+    # products of the same work (full float32: TF32 would round the inputs)
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the float32 yardstick would run in TF32")
+    x, w0, b0, w1, b1, g = mlp_inputs(MLP_SHAPES["S4"], torch.float32, dev)
+    _, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
+    dzc = h.clone()  # any (B, hid) float32 operand
+    for kname, fn in (("K3", lambda: mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)),
+                      ("K4", lambda: mlp.mlp2_vjp_cuda(x, w0, w1, h, g))):
+        print(f"[time] {card}: S4 f32 {kname} simt per kernel (profiler, "
+              f"mean of 5 calls): {', '.join(per_launch(fn, 5, ops=3))}")
+    yard = {"K3": lambda: (x @ w0, h @ w1),
+            "K4": lambda: (h.T @ g, g @ w1.T, x.T @ dzc, dzc @ w0.T)}
+    lib32 = {k: max(profiled_ms(fn, calls=5)[0] for _ in range(2))
+             for k, fn in yard.items()}
+    t32 = mlp_timing[("S4", torch.float32)]
+    print(f"[time] {card}: S4 f32 yardstick the port never calls, float32 "
+          f"torch.matmul (cuBLAS, allow_tf32 False) of the same products: "
+          f"K3's 2 {lib32['K3'] * 1e3:.2f} us, K4's 4 "
+          f"{lib32['K4'] * 1e3:.2f} us per call (no epilogues, no column "
+          f"sums); the simt kernels {t32['K3'] / lib32['K3']:.2f}x and "
+          f"{t32['K4'] / lib32['K4']:.2f}x of it; the larger of two profiler "
+          "traces over 5 calls")
+    t32["cublas"] = lib32
+    del x, w0, b0, w1, b1, g, h, dzc
 
     elapsed("phase 6c (neural-ODE timings)")
 
@@ -3790,10 +3873,9 @@ def main() -> int:
 
     # -- 6f. [events] timings: each arm against its own forward, CUDA events
     # (median of EV_TIMING_ROUNDS interleaved rounds after a warm-up round,
-    # whose results the float32 checks read; one round for the spiral's
-    # arms, ~1-3 s per gradient) and one profiled run for the device's idle
-    # share, for the arms that `traced` names: not the spiral's gradients
-    # (idle 95-97% as PERF.md records)
+    # whose results the float32 checks read) and one profiled run for the
+    # device's idle share, for the arms that `traced` names: not the
+    # spiral's gradients in 6h and 6j (idle 95-97% as PERF.md records)
     def ev_time(tag, arms, checks=None, traced=lambda name: True,
                 rounds=EV_TIMING_ROUNDS):
         out = {}
@@ -3820,8 +3902,6 @@ def main() -> int:
     ev_time(f"PDE dose n={n} f32", arms)
     del u0, p
 
-    setup32 = spiral_setup(P, torch.float32, dev, data64)
-
     def spiral_checks(name, out):
         if "forward" in name:
             return ""
@@ -3832,23 +3912,10 @@ def main() -> int:
         return (f"; forward {sol.stats}"
                 + ("" if ev is None else f", {ev.count} events"))
 
-    arms = {"S2e forward": lambda: spiral_forward(
-        P, setup32, spiral_event_kw(P, SPIRAL_ADAPTIVE))}
-    for name, kw in event_arms.items():
-        arms[f"{name} gradient"] = (lambda kw=kw: spiral_gradient(
-            P, setup32, kw))
-    ev_time("spiral f32", arms, spiral_checks,
-            traced=lambda name: "forward" in name, rounds=1)
-    arms = {"S2d forward (dense)": lambda: spiral_forward(
-        P, setup32, dict(SPIRAL_ADAPTIVE, dense=True))}
-    for name, kw in dense_arms.items():
-        arms[f"{name} gradient"] = (lambda kw=kw: spiral_dense_gradient(
-            P, setup32, kw))
-    arms["S2t GaussAdjoint saveat gradient"] = (
-        lambda: spiral_saveat_gradient(P, setup32, saveat_kw))
-    ev_time("spiral f32", arms, spiral_checks,
-            traced=lambda name: "forward" in name, rounds=1)
-    del setup32
+    # the spiral's event, dense and saveat arms (S2e, S2d, S2t) are checked
+    # in 5f (float64 card against CPU, float32 against float64) and not
+    # timed here, to keep the command under ~900 s (PERF.md keeps their
+    # last times)
     arms = {"forward": lambda: ball_solve(P, dev, None, grad=False),
             "GaussAdjoint gradient": lambda: ball_solve(
                 P, dev, P.GaussAdjoint(), grad=True),
@@ -3970,7 +4037,9 @@ def main() -> int:
         arms = {f"{arm} forward": lambda a=adaptive: dde_forward(P, dde32, a),
                 f"{arm} gradient": lambda a=adaptive: dde_gradient(
                     P, dde32, a)}
-        ev_time(f"DDE S4 f32 (B = {S4_B}, τ = {DDE_TAU})", arms)
+        ev_time(f"DDE S4 f32 (B = {S4_B}, τ = {DDE_TAU})", arms,
+                lambda name, out: "" if "forward" in name else
+                f"; steps {out[1].stats}")
     del dde32
     elapsed("phase 6j [dae] and [dde] timings")
 
@@ -4030,16 +4099,14 @@ def main() -> int:
     for name, sensealg in lv_runs.items():
         _, lv_times[name] = event_ms(
             lambda: lv_solve(P, dev, sensealg, grad=True))
-    for name, sensealg in [("forward", None)] + list(lv_runs.items()):
+    # (not traced, to keep the command under ~900 s: PERF.md keeps the
+    # idle shares, 93-97%, of the last traces on [0, 0.5])
+    for name in ["forward"] + list(lv_runs):
         ms = lv_times[name]
-        busy, wall = profiled_ms(lambda: lv_solve(
-            P, dev, sensealg, grad=name != "forward", t1=LV_TRACE_T1))
         print(f"[time] {card}: Lotka-Volterra f64 (11 saves, rtol 1e-10) "
               f"{name}{'' if name == 'forward' else ' gradient'}: {ms:.3f} ms "
               f"({ms / lv_times['forward']:.2f}x the forward; CUDA events "
-              f"around one run, after phase 5d's warm one); profiled run on "
-              f"[0, {LV_TRACE_T1}]: kernels {busy:.3f} ms of {wall:.3f} ms "
-              f"wall, device idle {100 * (1 - busy / wall):.1f}%")
+              f"around one run, after phase 5d's warm one)")
     elapsed("phase 6d")
 
     n = SIZES[0]
@@ -4052,6 +4119,7 @@ def main() -> int:
         the device-bound cells (DDE, neural SDE, NILSAS)."""
         t32 = mlp_timing[("S4", torch.float32)]
         return {"s4_f32_simt_ms": t32[kname],
+                "s4_f32_library_ms": t32["cublas"][kname],
                 "s4_f32_bound_ms": t32["bound"][kname][0],
                 "s4_f32_bound_by": t32["bound"][kname][1]}
     interp_k = {k: sum(got[k] for got in interp_launches.values())
@@ -4137,7 +4205,7 @@ def main() -> int:
          "max_abs_err": max_abs["K3"],
          "ms": s4["K3"], "plain_ms": s4["K3_plain"],
          "bound_ms": s4["bound"]["K3"][0], "bound_by": s4["bound"]["K3"][1],
-         "library_ms": None, **s4_f32("K3")},
+         "library_ms": s4["cublas"]["K3"], **s4_f32("K3")},
         {"name": "mlp2_vjp (K4)", "route": "cuda",
          "source": "scimlsensitivity_jl_tpu_torch/csrc/mlp2.cu",
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_mlp.py:68",
@@ -4158,7 +4226,7 @@ def main() -> int:
          "max_abs_err": max_abs["K4"],
          "ms": s4["K4"], "plain_ms": s4["K4_plain"],
          "bound_ms": s4["bound"]["K4"][0], "bound_by": s4["bound"]["K4"][1],
-         "library_ms": None, **s4_f32("K4")},
+         "library_ms": s4["cublas"]["K4"], **s4_f32("K4")},
     ]
     for name, label, line in (("K5", "rd1d_rk4_fwd", 223),
                               ("K6", "rd1d_rk4_vjp", 253)):

@@ -29,11 +29,13 @@
 //       blocks that sum each column of partials in order: db0 and db1.
 //
 // What bounds them on an H100: at the batched field's shape (B = 1024,
-// 512 -> 2048 -> 512, bfloat16) K3 does 4 B din hid = 4.29 GFLOP on
-// 10.5 MB, 4.3 us at the 989 TFLOP/s bf16 tensor-core peak against 3.1 us
-// of HBM time: arithmetic bounds it, and K4 (8.59 GFLOP, 8.7 us) likewise.
-// The spiral's 2 -> 50 -> 2 field at B = 1 computes next to nothing: its
-// launches are its cost, hence two per call.
+// 512 -> 2048 -> 512) K3 does 4 B din hid = 4.29 GFLOP, K4 8.59. In
+// bfloat16 that is 4.3 us (K4 8.7 us) at the 989 TFLOP/s tensor-core peak
+// against 3.1 us of HBM time for K3's 10.5 MB; in float32, which must not
+// round to TF32, 64.1 us (K4 128.2 us) at the 67 TFLOP/s of the CUDA cores'
+// FMAs against 6.3 us of HBM time: arithmetic bounds both. The spiral's
+// 2 -> 50 -> 2 field at B = 1 computes next to nothing: its launches are
+// its cost, hence two per call.
 //
 // Routes, one entry point each, chosen by the caller (ops/mlp.py:mlp2_route):
 //  * wgmma (bfloat16; din, hid, dout multiples of 8; 16-byte aligned
@@ -62,17 +64,44 @@
 //    storage-layout shared tiles, 16-byte loads, a register prefetch of the
 //    next 32-deep slice, the epilogue through a float32 tile in shared
 //    memory. Kept for ragged widths; it is the slower route.
-//  * simt (float32, float64, which must not round to TF32): the CUDA cores,
-//    a 64x64 tile per block of 256 threads, 4x4 outputs per thread.
+//  * simt (float32 and float64, which must not round to TF32): the CUDA
+//    cores. float32 (Ffma) is held back by how fast its FMAs are fed: a
+//    thread holds 8x4 outputs of a 128x64 tile as 2x2 sub-blocks read by
+//    conflict-free 16- and 8-byte shared loads (32 FMAs per 4 loads), and
+//    two blocks share an SM: 109-125 registers, no spill. 8x8 per thread
+//    on 128x128 tiles wants ~155 registers: at one block per SM it ran
+//    slower, at two it spilled (compare_mlp2.py --variant). Both operands
+//    sit in shared memory as rows of k, in a ring of 4 slices 16 deep that
+//    cp.async fills while the FMAs run on an earlier slice: 16-byte copies
+//    of an operand read as stored when its rows are 16-byte aligned, one
+//    float per copy otherwise; an operand stored with k contiguous (x, h,
+//    g, dzc as A; W1^T, W0^T as B) is turned around on the way in, one
+//    float per copy. A tile inside both operands whose depth is whole
+//    slices runs a main loop without edge checks; any other zero fills
+//    past an edge and skips the zeros of a short last slice. At S4 the
+//    products have 64-256 such tiles for 132 SMs x 2, so each launch's
+//    plan (plan_launch) splits the depth of its products over blocks of
+//    about equal depth, at least 256: each block of a split tile stores
+//    its partial, and the tile's last block to arrive (an atomic count in
+//    the call's workspace, zeroed by the launcher on the call's stream)
+//    adds the partials in split order and runs the epilogue once. A launch
+//    whose 128x64 blocks cannot cover the SMs (B = 1, the spiral) takes as
+//    long as one block, so it takes 64x64 tiles with 4x4 outputs per
+//    thread, split alike: a block of half the work (the spiral's K3 / K4
+//    ~30% faster than on 128x64 tiles, compare_mlp2.py --variant).
+//    float64 keeps the unpipelined 64x64 tile of 4x4 per thread (Simt):
+//    its cells are B = 8 parity checks.
 // Ragged edges are masked at the loads (zero fill) and at the stores.
 //
 // Determinism: every output element is one thread's (or one fragment's)
-// sum over K in a fixed order; the column sums db0 and db1 go through fixed
-// partials (per tile: a fixed shuffle tree and a fixed pass over warps) and
-// a fixed-order final sum. No atomics, no split-K: two calls return the same
-// bits. Every launcher uses the caller's stream, never synchronises,
-// allocates nothing (the wrapper passes dzc and the partials), and returns
-// the first CUDA error.
+// sum over K in a fixed order, or, for a split float32 product, the sum of
+// its splits' partials in split order, whichever block adds them; the
+// column sums db0 and db1 go through fixed partials (per tile: a fixed
+// shuffle tree and a fixed pass over warps) and a fixed-order final sum.
+// No sum follows the order in which blocks arrive: two calls return the
+// same bits. Every launcher uses the caller's stream, never synchronises,
+// allocates nothing (the wrapper passes dzc, the partials and the split
+// workspace), and returns the first CUDA error.
 
 #include <atomic>
 #include <climits>
@@ -299,7 +328,7 @@ struct ColFinals {
   }
 };
 
-// -- engine: CUDA-core tiles (float32, float64) ---------------------------------
+// -- engine: CUDA-core tiles (float64) ------------------------------------------
 
 template <typename T>
 struct Simt {
@@ -384,6 +413,345 @@ struct Simt {
     }
   }
 };
+
+// -- engine: float32 CUDA-core tiles, pipelined, depth split over blocks ----------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// one float, or zero when !ok (src is then not read)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(dst), "l"(src),
+               "r"(ok ? 4 : 0)
+               : "memory");
+}
+// 16 bytes, of which the first `bytes` are read and the rest zero filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// W = 4 or 2 consecutive floats from shared memory, aligned to their size
+template <int W>
+__device__ __forceinline__ void frag(float* r, const float* s) {
+  if constexpr (W == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(s);
+    r[0] = v.x, r[1] = v.y, r[2] = v.z, r[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(s);
+    r[0] = v.x, r[1] = v.y;
+  }
+}
+
+// A float32 product of a launch: Job's operands and epilogue, and the split
+// of the depth: each output tile is summed by `splits` blocks, each over kc
+// of K; each block stores its partial tile in `work`, and the tile's last
+// block to arrive (counted in `count`) adds the partials in split order and
+// runs the epilogue once.
+template <bool TA_, bool TB_, typename Epi_>
+struct F32Job {
+  static constexpr bool TA = TA_, TB = TB_;
+  using Epi = Epi_;
+  const float* A;
+  const float* B;
+  int64_t M, N, K, lda, ldb;
+  bool vec_a, vec_b;  // 16-byte copies (TA's A, non-TB's B: rows of k as stored)
+  Epi epi;
+  int tiles_n, out_tiles;
+  int splits;         // blocks per output tile
+  int64_t kc;         // depth per block, a multiple of the slice depth
+  float* work;        // splits x out_tiles partial tiles when splits > 1
+  unsigned* count;    // out_tiles arrival counters, zeroed before the launch
+  int tiles;          // the job's blocks, out_tiles x splits (pair_kernel's count)
+};
+
+// BM x BN tiles on 256 threads (16 x 16), each thread TM x TN outputs as 2 x 2
+// sub-blocks of TM/2 x TN/2 at rows ty TM/2 + [0, TM/2) and BM/2 + the same
+// (columns likewise), so that a warp (4 ty by 8 tx) reads its fragments as
+// contiguous 16-byte (or 8-byte) vectors: no bank conflict. (Contiguous
+// 4 x 4 sub-blocks, one 16-byte load per 4 columns, ran the S4 products
+// slower.) Both operands sit in shared memory as rows of k (As[k][m],
+// Bs[k][n]), in a ring of kStages slices of kBK filled by cp.async while
+// the FMAs run on the slice before; an operand stored with k contiguous (A
+// unless TA, B when TB) is turned around on the way in, one float per
+// copy, a warp reading 8 consecutive k of 4 rows, which the padded rows
+// spread over 32 banks.
+template <int BM, int BN, int TM, int TN, int MinBlocks>
+struct Ffma {
+  static constexpr int kBM = BM, kBN = BN, kBK = 16, kStages = 4, kPad = 4;
+  static constexpr int kTX = BN / TN, kTY = BM / TM;
+  static constexpr int kThreads = kTX * kTY, kMinBlocks = MinBlocks;
+  static constexpr int kLdA = BM + kPad, kLdB = BN + kPad;  // floats per row of k
+  static constexpr int kStageFloats = kBK * (kLdA + kLdB);
+  static constexpr int kFlag = kStages * kStageFloats * 4;  // the split's arrival flag
+  static constexpr int kSmem = kFlag + 16;
+  static constexpr int kQuads = TM * TN / 4;  // float4s of a thread's partial
+  static_assert(kTX == 16 && kTY == 16, "the warp layout takes 16 x 16 threads");
+  static_assert((TM == 4 || TM == 8) && (TN == 4 || TN == 8), "half tiles of 2 or 4");
+
+  // A thread's copies of one operand into a stage, C columns of it from c0
+  // (rows past cols, and k past the split's depth, are zero filled). Set up
+  // once per tile; copy(stage, k, depth) fetches the slice at depth k of
+  // the split (depth: the split's).
+  //
+  // Rows: an operand stored as rows of k (element (k, c) at G[k ld + c]),
+  // in 16-byte chunks of 4 columns when vec (aligned rows), else one float
+  // per copy; chunk i of a slice is row i / (C / 4), columns 4 (i % (C / 4)).
+  template <int C, int LD>
+  struct Rows {
+    static constexpr int kPerRow = C / 4, kStep = kThreads / kPerRow, kCopies = kBK / kStep;
+    const float* G;    // the operand: a valid address for a zero-filled copy
+    const float* src;  // the thread's first chunk at depth 0
+    int64_t ld;
+    uint32_t dst;      // its offset in a stage
+    int kk, left;      // its row in the slice; its columns inside the operand
+    bool vec;
+    __device__ Rows(const float* G_, int64_t ld_, int64_t kb, int64_t c0, int64_t cols,
+                    bool vec_)
+        : G(G_), ld(ld_), vec(vec_) {
+      kk = threadIdx.x / kPerRow;
+      const int c = (threadIdx.x % kPerRow) * 4;
+      src = G + (kb + kk) * ld + c0 + c;
+      const int64_t l = cols - c0 - c;
+      left = l <= 0 ? 0 : l >= 4 ? 4 : static_cast<int>(l);
+      dst = (kk * LD + c) * 4;
+    }
+    // every chunk of the tile lies inside the operand and takes 16 bytes
+    __device__ bool whole(int64_t c0, int64_t cols) const { return vec && c0 + C <= cols; }
+    __device__ __forceinline__ void copy_whole(uint32_t stage, int64_t k) const {
+      const float* p = src + k * ld;
+#pragma unroll
+      for (int r = 0; r < kCopies; ++r)
+        cp_async16(stage + dst + r * kStep * LD * 4, p + r * kStep * ld, 16);
+    }
+    __device__ __forceinline__ void copy(uint32_t stage, int64_t k, int64_t depth) const {
+      const float* p = src + k * ld;
+#pragma unroll
+      for (int r = 0; r < kCopies; ++r) {
+        const bool in = k + kk + r * kStep < depth;
+        const uint32_t d = stage + dst + r * kStep * LD * 4;
+        const float* q = p + r * kStep * ld;
+        if (vec) {
+          const int bytes = in ? 4 * left : 0;
+          cp_async16(d, bytes ? q : G, bytes);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = in && e < left;
+            cp_async4(d + 4 * e, ok ? q + e : G, ok);
+          }
+        }
+      }
+    }
+  };
+
+  // Turned: an operand stored with k contiguous (element (k, c) at
+  // G[c ld + k]), turned around one float per copy: a thread takes one k of
+  // the slice, k = t % 8 + 8 ((t / 32) % 2), in the columns c + 16 r, c =
+  // (t / 8) % 4 + 4 (t / 64), so that a warp reads 8 consecutive k of 4
+  // rows and writes 32 distinct banks.
+  template <int C, int LD>
+  struct Turned {
+    static constexpr int kCopies = kBK * C / kThreads;
+    const float* G;
+    const float* src;  // the thread's first float at depth 0
+    int64_t ld;
+    uint32_t dst;
+    int kk;
+    unsigned cols_in;  // bit r: column c + 16 r lies inside the operand
+    __device__ Turned(const float* G_, int64_t ld_, int64_t kb, int64_t c0, int64_t cols, bool)
+        : G(G_), ld(ld_) {
+      const int t = threadIdx.x;
+      kk = (t & 7) | ((t >> 2) & 8);
+      const int c = ((t >> 3) & 3) | ((t >> 6) << 2);
+      src = G + (c0 + c) * ld + kb + kk;
+      dst = (kk * LD + c) * 4;
+      cols_in = 0;
+#pragma unroll
+      for (int r = 0; r < kCopies; ++r)
+        if (c0 + c + 16 * r < cols) cols_in |= 1u << r;
+    }
+    __device__ bool whole(int64_t c0, int64_t cols) const { return c0 + C <= cols; }
+    __device__ __forceinline__ void copy_whole(uint32_t stage, int64_t k) const {
+      const float* p = src + k;
+#pragma unroll
+      for (int r = 0; r < kCopies; ++r) cp_async4(stage + dst + 64 * r, p + 16 * r * ld, true);
+    }
+    __device__ __forceinline__ void copy(uint32_t stage, int64_t k, int64_t depth) const {
+      const bool in = k + kk < depth;
+      const float* p = src + k;
+#pragma unroll
+      for (int r = 0; r < kCopies; ++r) {
+        const bool ok = in && ((cols_in >> r) & 1u);
+        cp_async4(stage + dst + 64 * r, ok ? p + 16 * r * ld : G, ok);
+      }
+    }
+  };
+
+  template <class J>
+  static __device__ __forceinline__ void tile(const J& j, int b, unsigned char* smem) {
+    constexpr bool TA = J::TA, TB = J::TB;
+    constexpr int HM = TM / 2, HN = TN / 2;
+    // row i of a thread: ty HM + i in the tile's first half, then the same
+    // rows of its second half (columns likewise)
+    auto row = [](int i, int ty) { return i < HM ? ty * HM + i : BM / 2 + ty * HM + i - HM; };
+    auto col = [](int k, int tx) { return k < HN ? tx * HN + k : BN / 2 + tx * HN + k - HN; };
+    const int ot = b % j.out_tiles, split = b / j.out_tiles;  // output tile, split
+    const int64_t tm = ot / j.tiles_n;
+    const int64_t m0 = tm * BM;
+    const int64_t n0 = static_cast<int64_t>(ot % j.tiles_n) * BN;
+    const int64_t kb = split * j.kc;
+    const int64_t ke = kb + j.kc < j.K ? kb + j.kc : j.K;
+    const int nk = static_cast<int>(cdiv(ke - kb, kBK));
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int tx = (warp % 2) * 8 + lane % 8, ty = (warp / 2) * 4 + lane / 8;
+    const uint32_t ring = smem_u32(smem);
+    using FeedA = typename std::conditional<TA, Rows<BM, kLdA>, Turned<BM, kLdA>>::type;
+    using FeedB = typename std::conditional<TB, Turned<BN, kLdB>, Rows<BN, kLdB>>::type;
+    const FeedA fa(j.A, j.lda, kb, m0, j.M, j.vec_a);
+    const FeedB fb(j.B, j.ldb, kb, n0, j.N, j.vec_b);
+
+    float acc[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int k = 0; k < TN; ++k) acc[i][k] = 0.f;
+    auto step = [&](const float* As, const float* Bs) {  // one k of the slice
+      float a[TM], bv[TN];
+      frag<HM>(a, As + row(0, ty));
+      frag<HM>(a + HM, As + row(HM, ty));
+      frag<HN>(bv, Bs + col(0, tx));
+      frag<HN>(bv + HN, Bs + col(HN, tx));
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int k = 0; k < TN; ++k) acc[i][k] = fmaf(a[i], bv[k], acc[i][k]);
+    };
+
+    // the main loop, in two copies: a tile inside both operands whose split
+    // is whole slices deep copies without a check; any other checks every
+    // copy and skips the zeros of a last, partial slice
+    auto run = [&](auto whole) {
+      constexpr bool kWhole = decltype(whole)::value;
+      auto load = [&](int kt) {  // slice kt into its stage
+        const uint32_t sa = ring + (kt % kStages) * kStageFloats * 4;
+        const int64_t k = static_cast<int64_t>(kt) * kBK;
+        if constexpr (kWhole) {
+          fa.copy_whole(sa, k);
+          fb.copy_whole(sa + kBK * kLdA * 4, k);
+        } else {
+          fa.copy(sa, k, ke - kb);
+          fb.copy(sa + kBK * kLdA * 4, k, ke - kb);
+        }
+      };
+#pragma unroll
+      for (int s = 0; s < kStages - 1; ++s) {
+        if (s < nk) load(s);
+        cp_async_commit();
+      }
+      for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<kStages - 2>();  // slice kt has landed
+        __syncthreads();               // and every thread is done with slice kt - 1
+        if (kt + kStages - 1 < nk) load(kt + kStages - 1);  // into slice kt - 1's stage
+        cp_async_commit();
+        const float* As = reinterpret_cast<const float*>(smem) + (kt % kStages) * kStageFloats;
+        const float* Bs = As + kBK * kLdA;
+        const int64_t kn = ke - kb - static_cast<int64_t>(kt) * kBK;
+        if (kWhole || kn >= kBK) {
+#pragma unroll
+          for (int kk = 0; kk < kBK; ++kk) step(As + kk * kLdA, Bs + kk * kLdB);
+        } else {
+          for (int kk = 0; kk < kn; ++kk) step(As + kk * kLdA, Bs + kk * kLdB);
+        }
+      }
+    };
+    if (fa.whole(m0, j.M) && fb.whole(n0, j.N) && (ke - kb) % kBK == 0)
+      run(std::true_type{});
+    else
+      run(std::false_type{});
+    cp_async_wait<0>();
+    __syncthreads();  // the ring is free
+
+    if (j.splits > 1) {  // store the partial; the tile's last block sums them in order
+      const int64_t per_tile = static_cast<int64_t>(kQuads) * kThreads;
+      float4* own = reinterpret_cast<float4*>(j.work) +
+                    (static_cast<int64_t>(split) * j.out_tiles + ot) * per_tile + threadIdx.x;
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) {
+        const int i = q / (TN / 4), k = (q % (TN / 4)) * 4;
+        own[q * kThreads] = make_float4(acc[i][k], acc[i][k + 1], acc[i][k + 2], acc[i][k + 3]);
+      }
+      __threadfence();
+      __syncthreads();
+      unsigned* flag = reinterpret_cast<unsigned*>(smem + kFlag);
+      if (threadIdx.x == 0) {
+        const unsigned arrived = atomicAdd(j.count + ot, 1u) + 1u;  // relaxed, gpu scope
+        *flag = arrived == static_cast<unsigned>(j.splits);
+      }
+      __syncthreads();
+      if (!*flag) return;
+      __threadfence();
+      const float4* part = reinterpret_cast<const float4*>(j.work) +
+                           static_cast<int64_t>(ot) * per_tile + threadIdx.x;
+      const int64_t stride = static_cast<int64_t>(j.out_tiles) * per_tile;  // split to split
+#pragma unroll
+      for (int q = 0; q < kQuads; ++q) {
+        const int i = q / (TN / 4), k = (q % (TN / 4)) * 4;
+        const float4 mine = make_float4(acc[i][k], acc[i][k + 1], acc[i][k + 2], acc[i][k + 3]);
+        float4 s = split == 0 ? mine : __ldcg(part + q * kThreads);
+        for (int p = 1; p < j.splits; ++p) {
+          const float4 v = p == split ? mine : __ldcg(part + p * stride + q * kThreads);
+          s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+        }
+        acc[i][k] = s.x, acc[i][k + 1] = s.y, acc[i][k + 2] = s.z, acc[i][k + 3] = s.w;
+      }
+    }
+
+    float cs[TN];
+#pragma unroll
+    for (int k = 0; k < TN; ++k) cs[k] = 0.f;
+    const auto epi = j.epi;  // in registers
+    const int64_t M = j.M, N = j.N;
+#pragma unroll
+    for (int i = 0; i < TM; ++i) {
+      const int64_t gm = m0 + row(i, ty);
+#pragma unroll
+      for (int k = 0; k < TN; ++k) {
+        const int64_t gn = n0 + col(k, tx);
+        if (gm < M && gn < N) cs[k] += epi(gm, gn, acc[i][k]);
+      }
+    }
+    if constexpr (J::Epi::kColSum) {  // the tile's column sums: over ty, in order
+      float* red = reinterpret_cast<float*>(smem);  // kTY x BN
+#pragma unroll
+      for (int k = 0; k < TN; ++k)
+        red[ty * BN + col(k, tx)] = cs[k];
+      __syncthreads();
+      if (threadIdx.x < BN && n0 + threadIdx.x < N) {
+        float s = red[threadIdx.x];
+        for (int r = 1; r < kTY; ++r) s += red[r * BN + threadIdx.x];
+        epi.colsum(tm, n0 + threadIdx.x, s);
+      }
+    }
+  }
+};
+
+// the float32 tile plans, two blocks per SM: 128 x 64 (8 x 4 per thread)
+// where a launch's blocks cover the SMs; else the launch takes as long as
+// one block, and a 64 x 64 block (4 x 4 per thread) takes less. On an H100
+// (compare_mlp2.py --variant final big-only 64x64): the spiral's K3 / K4
+// ~7.3 / ~6.7 us on this pair, ~10.4 / ~10.9 us on 128 x 64 alone; S4
+// float32 ~130 / ~255 us on this pair, ~159 / ~303 us on 64 x 64 alone.
+using FfmaBig = Ffma<128, 64, 8, 4, 2>;
+using FfmaSmall = Ffma<64, 64, 4, 4, 2>;
 
 // -- engine: WMMA tiles (bfloat16 of any shape) ----------------------------------
 //
@@ -539,9 +907,6 @@ struct Wmma {
 
 // -- engine: wgmma tiles fed by TMA (bfloat16, aligned widths) -------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
                : "memory");
@@ -944,9 +1309,216 @@ struct Args {
   const T *x, *w0, *b0, *w1, *b1, *h, *g;
   T *y, *hout, *dx, *dw0, *db0, *dw1, *db1, *dzc;
   acc_t<T>* part;  // cdiv(B, 64) rows of hid, then cdiv(B, 64) rows of dout
+  float* work;  // float32 route: the split products' partial tiles, then
+                // their arrival counters (mlp2_simt_f32_workspace)
   int64_t B, din, hid, dout;
   cudaStream_t s;
 };
+
+// -- float32 launch plans: the tile, and the split of each product's depth --------
+
+constexpr int64_t kMinSplitDepth = 256;  // a split block sums at least this deep
+
+struct Prod {
+  int64_t M, N, K;
+};
+struct SplitPlan {
+  int splits;
+  int64_t kc;
+};
+struct LaunchPlan {
+  bool big;  // FfmaBig, else FfmaSmall
+  int n;     // products in the launch
+  Prod prod[2];
+  SplitPlan split[2];
+  int bm() const { return big ? FfmaBig::kBM : FfmaSmall::kBM; }
+  int bn() const { return big ? FfmaBig::kBN : FfmaSmall::kBN; }
+};
+
+// The launch's blocks, kMinBlocks per SM, each about as deep as the
+// launch's products (tiles times depth) over those slots, at least
+// kMinSplitDepth: each product's depth is cut into that many equal splits
+// (in slices of kBK), none shallower than kMinSplitDepth unless K is.
+template <class Eng>
+void plan_splits(LaunchPlan& p) {
+  int64_t work = 0;
+  for (int i = 0; i < p.n; ++i)
+    work += int64_t(tiles_of(p.prod[i].M, p.prod[i].N, Eng::kBM, Eng::kBN)) * p.prod[i].K;
+  const int64_t slots = int64_t(Eng::kMinBlocks) * (sm_count() > 0 ? sm_count() : 1);
+  int64_t depth = cdiv(cdiv(work, slots), Eng::kBK) * Eng::kBK;
+  if (depth < kMinSplitDepth) depth = kMinSplitDepth;
+  for (int i = 0; i < p.n; ++i) {
+    const int64_t K = p.prod[i].K, most = K / kMinSplitDepth;
+    int64_t s = cdiv(K, depth);
+    if (s > most) s = most > 1 ? most : 1;
+    const int64_t kc = cdiv(cdiv(K, s), Eng::kBK) * Eng::kBK;
+    p.split[i] = {static_cast<int>(cdiv(K, kc)), kc};
+  }
+}
+
+// The big tile when the launch's products, split no finer than
+// kMinSplitDepth, have a block of it for every SM.
+LaunchPlan plan_launch(std::initializer_list<Prod> prods) {
+  LaunchPlan p{};
+  int64_t blocks = 0;
+  for (const Prod& q : prods) {
+    p.prod[p.n++] = q;
+    const int64_t deep = q.K / kMinSplitDepth;
+    blocks += int64_t(tiles_of(q.M, q.N, FfmaBig::kBM, FfmaBig::kBN)) * (deep > 1 ? deep : 1);
+  }
+  p.big = blocks >= sm_count();
+  if (p.big) plan_splits<FfmaBig>(p);
+  else plan_splits<FfmaSmall>(p);
+  return p;
+}
+
+// the launch's split workspace: partial floats and arrival counters
+void plan_workspace(const LaunchPlan& p, int64_t& floats, int64_t& counters) {
+  const int bm = p.bm(), bn = p.bn();
+  floats = counters = 0;
+  for (int i = 0; i < p.n; ++i) {
+    if (p.split[i].splits < 2) continue;
+    const int64_t t = tiles_of(p.prod[i].M, p.prod[i].N, bm, bn);
+    floats += p.split[i].splits * t * bm * bn;
+    counters += t;
+  }
+}
+
+// K3's two launches or K4's two, each with its one or two products
+void plans_of(int64_t B, int64_t din, int64_t hid, int64_t dout, bool bwd, LaunchPlan (&p)[2]) {
+  if (!bwd) {
+    p[0] = plan_launch({{B, hid, din}});   // h = tanh(x W0 + b0)
+    p[1] = plan_launch({{B, dout, hid}});  // y = h W1 + b1
+  } else {
+    p[0] = plan_launch({{hid, dout, B}, {B, hid, dout}});  // dW1, dz
+    p[1] = plan_launch({{B, din, hid}, {din, hid, B}});    // dx, dW0
+  }
+}
+
+// The call's split workspace, in 4-byte words: the larger launch's partial
+// floats (the two launches run in turn), then both launches' counters.
+// *counters gets the counters, *floats the offset at which they start.
+int64_t f32_workspace(int64_t B, int64_t din, int64_t hid, int64_t dout, bool bwd,
+                      int64_t* floats, int64_t* counters) {
+  LaunchPlan p[2];
+  plans_of(B, din, hid, dout, bwd, p);
+  *floats = *counters = 0;
+  for (const LaunchPlan& q : p) {
+    int64_t f, c;
+    plan_workspace(q, f, c);
+    *floats = f > *floats ? f : *floats;
+    *counters += c;
+  }
+  return *counters ? *floats + *counters : 0;
+}
+
+// a product of launch plan p: its tiles, its split, and its share of the
+// workspace, which it takes from the front of work and count
+template <class Eng, bool TA, bool TB, typename Epi>
+F32Job<TA, TB, Epi> make_f32_job(const LaunchPlan& p, int i, const float* A, const float* B,
+                                 int64_t lda, int64_t ldb, Epi epi, float*& work,
+                                 unsigned*& count) {
+  F32Job<TA, TB, Epi> j{};
+  j.A = A;
+  j.B = B;
+  j.M = p.prod[i].M;
+  j.N = p.prod[i].N;
+  j.K = p.prod[i].K;
+  j.lda = lda;
+  j.ldb = ldb;
+  // an operand read as stored (rows of k) takes 16-byte copies when its rows
+  // are 16-byte aligned
+  j.vec_a = TA && reinterpret_cast<uintptr_t>(A) % 16 == 0 && lda % 4 == 0;
+  j.vec_b = !TB && reinterpret_cast<uintptr_t>(B) % 16 == 0 && ldb % 4 == 0;
+  j.epi = epi;
+  j.tiles_n = static_cast<int>(cdiv(j.N, Eng::kBN));
+  j.out_tiles = tiles_of(j.M, j.N, Eng::kBM, Eng::kBN);
+  j.splits = p.split[i].splits;
+  j.kc = p.split[i].kc;
+  j.tiles = j.out_tiles * j.splits;
+  if (j.splits > 1) {
+    j.work = work;
+    j.count = count;
+    work += int64_t(j.tiles) * Eng::kBM * Eng::kBN;
+    count += j.out_tiles;
+  }
+  return j;
+}
+
+// K3 or K4's plans and workspace: the counters (zeroed here, on the call's
+// stream, so that a captured call zeroes its own) follow the partials
+cudaError_t f32_setup(const Args<float>& a, bool bwd, LaunchPlan (&p)[2], unsigned*& count) {
+  plans_of(a.B, a.din, a.hid, a.dout, bwd, p);
+  int64_t floats, counters;
+  f32_workspace(a.B, a.din, a.hid, a.dout, bwd, &floats, &counters);
+  count = reinterpret_cast<unsigned*>(a.work + floats);
+  if (counters == 0) return cudaSuccess;
+  return cudaMemsetAsync(count, 0, counters * sizeof(unsigned), a.s);
+}
+
+template <class Run>
+cudaError_t with_plan(const LaunchPlan& p, Run run) {
+  if (p.big) return run(FfmaBig{});
+  return run(FfmaSmall{});
+}
+
+cudaError_t fwd_f32(const Args<float>& a) {
+  LaunchPlan p[2];
+  unsigned* c;
+  cudaError_t e = f32_setup(a, false, p, c);
+  if (e != cudaSuccess) return e;
+  e = with_plan(p[0], [&](auto eng) {
+    using Eng = decltype(eng);
+    float* w = a.work;
+    return launch<Eng>(make_f32_job<Eng, false, false>(p[0], 0, a.x, a.w0, a.din, a.hid,
+                                                       EpiBiasTanh<float>{a.b0, a.hout, a.hid},
+                                                       w, c),
+                       NoJob{0}, NoTail{0}, a.s);
+  });
+  if (e != cudaSuccess) return e;
+  return with_plan(p[1], [&](auto eng) {
+    using Eng = decltype(eng);
+    float* w = a.work;
+    return launch<Eng>(make_f32_job<Eng, false, false>(p[1], 0, a.hout, a.w1, a.hid, a.dout,
+                                                       EpiBias<float>{a.b1, a.y, a.dout}, w, c),
+                       NoJob{0}, NoTail{0}, a.s);
+  });
+}
+
+cudaError_t bwd_f32(const Args<float>& a) {
+  LaunchPlan p[2];
+  unsigned* c;
+  cudaError_t e = f32_setup(a, true, p, c);
+  if (e != cudaSuccess) return e;
+  float* p0 = a.part;                          // dz: one row per row tile
+  float* p1 = a.part + cdiv(a.B, 64) * a.hid;  // g: one row per 64 rows
+  const int64_t parts0 = cdiv(a.B, p[0].bm());
+  // 1: dW1 (hid, dout) = h^T g and dz (B, hid) = (g W1^T)(1 - h^2); g's sums
+  e = with_plan(p[0], [&](auto eng) {
+    using Eng = decltype(eng);
+    float* w = a.work;
+    const auto dw1 = make_f32_job<Eng, true, false>(p[0], 0, a.h, a.g, a.hid, a.dout,
+                                                    EpiStore<float>{a.dw1, a.dout}, w, c);
+    const auto dz = make_f32_job<Eng, false, true>(p[0], 1, a.g, a.w1, a.dout, a.dout,
+                                                   EpiDz<float>{a.h, a.dzc, a.hid, p0}, w, c);
+    return launch<Eng>(dw1, dz, make_partials(a.g, a.B, a.dout, p1), a.s);
+  });
+  if (e != cudaSuccess) return e;
+  // 2: dx (B, din) = dzc W0^T and dW0 (din, hid) = x^T dzc; db0, db1
+  const float* dzc = a.dzc;
+  return with_plan(p[1], [&](auto eng) {
+    using Eng = decltype(eng);
+    float* w = a.work;
+    const auto dx = make_f32_job<Eng, false, true>(p[1], 0, dzc, a.w0, a.hid, a.hid,
+                                                   EpiStore<float>{a.dx, a.din}, w, c);
+    const auto dw0 = make_f32_job<Eng, true, false>(p[1], 1, a.x, dzc, a.din, a.hid,
+                                                    EpiStore<float>{a.dw0, a.hid}, w, c);
+    return launch<Eng>(dx, dw0,
+                       make_finals<Eng, float>({p0, parts0, a.hid, a.db0},
+                                               {p1, cdiv(a.B, 64), a.dout, a.db1}),
+                       a.s);
+  });
+}
 
 template <typename T, class Eng>  // simt, wmma
 cudaError_t fwd_tiles(const Args<T>& a) {
@@ -1063,9 +1635,10 @@ bool wgmma_takes(const Args<bf16>& a, std::initializer_list<const void*> ptrs) {
 
 template <typename T>
 Args<T> fwd_args(const void* x, const void* w0, const void* b0, const void* w1,
-                 const void* b1, void* y, void* h, int64_t B, int64_t din,
-                 int64_t hid, int64_t dout, void* stream) {
+                 const void* b1, void* y, void* h, void* work,
+                 int64_t B, int64_t din, int64_t hid, int64_t dout, void* stream) {
   Args<T> a{};
+  a.work = static_cast<float*>(work);
   a.x = static_cast<const T*>(x);
   a.w0 = static_cast<const T*>(w0);
   a.b0 = static_cast<const T*>(b0);
@@ -1084,9 +1657,10 @@ Args<T> fwd_args(const void* x, const void* w0, const void* b0, const void* w1,
 template <typename T>
 Args<T> bwd_args(const void* x, const void* w0, const void* w1, const void* h,
                  const void* g, void* dx, void* dw0, void* db0, void* dw1,
-                 void* db1, void* dzc, void* part, int64_t B, int64_t din,
-                 int64_t hid, int64_t dout, void* stream) {
+                 void* db1, void* dzc, void* part, void* work,
+                 int64_t B, int64_t din, int64_t hid, int64_t dout, void* stream) {
   Args<T> a{};
+  a.work = static_cast<float*>(work);
   a.x = static_cast<const T*>(x);
   a.w0 = static_cast<const T*>(w0);
   a.w1 = static_cast<const T*>(w1);
@@ -1112,40 +1686,50 @@ inline int check_widths(int64_t B, int64_t din, int64_t hid, int64_t dout) {
   return widths_fit(B, din, hid, dout) ? 1 : 0;
 }
 
+// the float32 route's contract: a split plan gets its workspace
+bool f32_takes(const Args<float>& a, bool bwd) {
+  int64_t floats, counters;
+  return a.work != nullptr ||
+         f32_workspace(a.B, a.din, a.hid, a.dout, bwd, &floats, &counters) == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
 // K3: y (B, dout), h (B, hid). K4: dx, dW0, db0, dW1, db1, with scratch dzc
 // (B, hid) in the data type and part, cdiv(B, 64) (hid + dout) values in the
-// accumulation type. Each returns 0 or a cudaError_t.
+// accumulation type. work is the float32 route's split workspace
+// (mlp2_simt_f32_workspace; null where it needs none), which the other
+// routes do not read. Each returns 0 or a cudaError_t.
 #define MLP2_ENTRY_POINTS(ROUTE, SUFFIX, T, FWD, BWD, TAKES_FWD, TAKES_BWD)      \
   int mlp2_fwd_##ROUTE##_##SUFFIX(const void* x, const void* w0, const void* b0, \
                                   const void* w1, const void* b1, void* y,       \
-                                  void* h, int64_t B, int64_t din, int64_t hid,  \
-                                  int64_t dout, void* stream) {                  \
+                                  void* h, void* work, int64_t B,                \
+                                  int64_t din, int64_t hid, int64_t dout,        \
+                                  void* stream) {                                \
     const int ok = check_widths(B, din, hid, dout);                              \
     if (ok <= 0) return ok < 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);   \
-    const Args<T> a = fwd_args<T>(x, w0, b0, w1, b1, y, h, B, din, hid, dout,    \
-                                  stream);                                       \
+    const Args<T> a = fwd_args<T>(x, w0, b0, w1, b1, y, h, work, B, din, hid,   \
+                                  dout, stream);                                 \
     if (!(TAKES_FWD)) return static_cast<int>(cudaErrorInvalidValue);            \
     return static_cast<int>(FWD(a));                                             \
   }                                                                              \
   int mlp2_bwd_##ROUTE##_##SUFFIX(                                               \
       const void* x, const void* w0, const void* w1, const void* h,              \
       const void* g, void* dx, void* dw0, void* db0, void* dw1, void* db1,       \
-      void* dzc, void* part, int64_t B, int64_t din, int64_t hid, int64_t dout,  \
-      void* stream) {                                                            \
+      void* dzc, void* part, void* work, int64_t B, int64_t din,                 \
+      int64_t hid, int64_t dout, void* stream) {                                 \
     const int ok = check_widths(B, din, hid, dout);                              \
     if (ok <= 0) return ok < 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);   \
     const Args<T> a = bwd_args<T>(x, w0, w1, h, g, dx, dw0, db0, dw1, db1, dzc,  \
-                                  part, B, din, hid, dout, stream);              \
+                                  part, work, B, din, hid, dout, stream);        \
     if (!(TAKES_BWD)) return static_cast<int>(cudaErrorInvalidValue);            \
     return static_cast<int>(BWD(a));                                             \
   }
 
-MLP2_ENTRY_POINTS(simt, f32, float, (fwd_tiles<float, Simt<float>>),
-                  (bwd_tiles<float, Simt<float>>), true, true)
+MLP2_ENTRY_POINTS(simt, f32, float, fwd_f32, bwd_f32, f32_takes(a, false),
+                  f32_takes(a, true))
 MLP2_ENTRY_POINTS(simt, f64, double, (fwd_tiles<double, Simt<double>>),
                   (bwd_tiles<double, Simt<double>>), true, true)
 MLP2_ENTRY_POINTS(wmma, bf16, bf16, (fwd_tiles<bf16, Wmma>),
@@ -1155,5 +1739,15 @@ MLP2_ENTRY_POINTS(wgmma, bf16, bf16, fwd_wgmma, bwd_wgmma,
                   wgmma_takes(a, {x, w0, w1, h, g, dx, dw0, db0, dw1, db1, dzc, part}))
 
 #undef MLP2_ENTRY_POINTS
+
+// The float32 route's split workspace for K3 (bwd = 0) or K4 (bwd = 1) at
+// these widths on the current device, in 4-byte words (a float32 buffer,
+// new each call: the launcher zeroes the counters in it); 0 where the plan
+// splits nothing.
+int64_t mlp2_simt_f32_workspace(int64_t B, int64_t din, int64_t hid, int64_t dout, int bwd) {
+  if (check_widths(B, din, hid, dout) <= 0) return 0;
+  int64_t floats, counters;
+  return f32_workspace(B, din, hid, dout, bwd != 0, &floats, &counters);
+}
 
 }  // extern "C"

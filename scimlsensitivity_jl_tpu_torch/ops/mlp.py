@@ -21,10 +21,11 @@ Each kernel sits behind a `torch.library` operator, `mlp2_fwd` (K3) and
 launches the kernels of `csrc/mlp2.cu` (`mlp2_fwd_cuda`, `mlp2_vjp_cuda`) or
 raises. `mlp2_route` picks the engine before launch: wgmma tiles fed by TMA
 for aligned bfloat16 widths, WMMA tiles for other bfloat16 shapes, CUDA-core
-tiles for float32 and float64; nothing on the card falls back to the plain
-version. Each CUDA wrapper counts its calls in `.launches` and, per route,
-in `.routes`. What bounds the kernels on an H100 and what the design does
-about it is noted in `csrc/mlp2.cu`. The pullback operator (K4) registers a
+tiles for float32 (pipelined, the depth of a product split over blocks
+where its tiles alone would leave SMs idle) and float64; nothing on the
+card falls back to the plain version. Each CUDA wrapper counts its calls
+in `.launches` and, per route, in `.routes`. What bounds the kernels on an
+H100 and what the design does about it is noted in `csrc/mlp2.cu`. The pullback operator (K4) registers a
 backward that raises `ops.vjp.DoubleBackwardUnsupported`, and `FusedMLP2`
 refuses a complex input before launch.
 
@@ -36,6 +37,7 @@ shape goes through the kernels (ROADMAP §3).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -93,7 +95,9 @@ def mlp2_vjp_reference(x, w0, w1, h, g):
 _ROUTE_DTYPES = {"wgmma": (torch.bfloat16,), "wmma": (torch.bfloat16,),
                  "simt": (torch.float32, torch.float64)}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
-_ROWS_PER_PART = 64  # rows of g (and of dz at most) per column partial
+# rows of g per column partial, and the fewest rows of a dz tile on any
+# route (db0's partials are one row per row tile)
+_ROWS_PER_PART = 64
 
 
 def mlp2_route(B: int, din: int, hid: int, dout: int, dtype: torch.dtype,
@@ -122,11 +126,13 @@ def load_mlp2_library() -> ctypes.CDLL:
         for route, dtypes in _ROUTE_DTYPES.items():
             for dtype in dtypes:
                 fn = getattr(lib, f"mlp2_fwd_{route}_{_SUFFIX[dtype]}")
-                fn.argtypes = [ptr] * 7 + [i64] * 4 + [ptr]
+                fn.argtypes = [ptr] * 8 + [i64] * 4 + [ptr]
                 fn.restype = ctypes.c_int
                 fn = getattr(lib, f"mlp2_bwd_{route}_{_SUFFIX[dtype]}")
-                fn.argtypes = [ptr] * 12 + [i64] * 4 + [ptr]
+                fn.argtypes = [ptr] * 13 + [i64] * 4 + [ptr]
                 fn.restype = ctypes.c_int
+        lib.mlp2_simt_f32_workspace.argtypes = [i64] * 4 + [ctypes.c_int]
+        lib.mlp2_simt_f32_workspace.restype = i64
         lib._mlp2_typed = True
     return lib
 
@@ -179,6 +185,34 @@ def _check_args(x, w0, b0, w1, b1, h=None, g=None, route=None):
     return B, din, hid, dout, route
 
 
+@functools.lru_cache(maxsize=None)
+def _split_words(device: int, B: int, din: int, hid: int, dout: int,
+                 bwd: bool) -> int:
+    """4-byte words of the float32 route's split workspace for K3 or K4 at
+    these widths on that device (the plan follows its SM count); 0 where
+    the plan splits no product."""
+    with torch.cuda.device(device):
+        return load_mlp2_library().mlp2_simt_f32_workspace(
+            B, din, hid, dout, int(bwd))
+
+
+def _split_workspace(x, route, B, din, hid, dout, bwd):
+    """The float32 call's split workspace on the simt route, new each call
+    (the partial tiles and their arrival counters, which the launcher
+    zeroes on the call's stream), or None where the plan splits nothing and
+    on the other routes."""
+    if route != "simt" or x.dtype != torch.float32:
+        return None
+    words = _split_words(x.device.index, B, din, hid, dout, bwd)
+    if words == 0:
+        return None
+    return torch.empty(words, dtype=torch.float32, device=x.device)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
 def mlp2_fwd_cuda(x, w0, b0, w1, b1, *, route=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 on the current stream: (y, h), two launches. `route` (private:
@@ -190,8 +224,9 @@ def mlp2_fwd_cuda(x, w0, b0, w1, b1, *, route=None
     h = x.new_empty((B, hid))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        work = _split_workspace(x, route, B, din, hid, dout, False)
         rc = launch(x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(),
-                    b1.data_ptr(), y.data_ptr(), h.data_ptr(),
+                    b1.data_ptr(), y.data_ptr(), h.data_ptr(), _ptr(work),
                     B, din, hid, dout, stream)
     if rc != 0:
         raise RuntimeError(f"mlp2_fwd ({route}) launch failed: cudaError {rc}")
@@ -205,8 +240,9 @@ mlp2_fwd_cuda.routes = dict.fromkeys(_ROUTE_DTYPES, 0)
 
 
 def mlp2_vjp_cuda(x, w0, w1, h, g, *, route=None):
-    """K4 on the current stream: (dx, dW0, db0, dW1, db1) in two launches,
-    no atomics, so two calls give the same bits. `route` as for
+    """K4 on the current stream: (dx, dW0, db0, dW1, db1) in two launches;
+    every sum runs in a fixed order (split products add their partials in
+    split order), so two calls give the same bits. `route` as for
     `mlp2_fwd_cuda`."""
     B, din, hid, dout, route = _check_args(x, w0, None, w1, None, h, g,
                                            route=route)
@@ -223,10 +259,12 @@ def mlp2_vjp_cuda(x, w0, w1, h, g, *, route=None):
                        dtype=_acc_dtype(x.dtype), device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
+        work = _split_workspace(x, route, B, din, hid, dout, True)
         rc = launch(x.data_ptr(), w0.data_ptr(), w1.data_ptr(), h.data_ptr(),
                     g.data_ptr(), dx.data_ptr(), dw0.data_ptr(),
                     db0.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-                    dzc.data_ptr(), part.data_ptr(), B, din, hid, dout, stream)
+                    dzc.data_ptr(), part.data_ptr(), _ptr(work), B, din, hid,
+                    dout, stream)
     if rc != 0:
         raise RuntimeError(f"mlp2_vjp ({route}) launch failed: cudaError {rc}")
     mlp2_vjp_cuda.launches += 1

@@ -240,33 +240,92 @@ def test_quadrature_gradient_on_card_matches_cpu(cuda):
 # than the plain version; bfloat16 outputs keep 8 bits, and a sum in another
 # order can flip one rounding of h, dz or an output (2^-8 ~ 3.9e-3 each)
 MLP_TOL = {torch.float64: 1e-12, torch.float32: 1e-5, torch.bfloat16: 1e-2}
+MLP_OUTPUTS = ("y", "h", "dx", "dW0", "db0", "dW1", "db1")
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32,
-                                   torch.bfloat16], ids=str)
-def test_mlp_kernels_match_plain_versions(cuda, dtype):
-    """K3 and K4 at a ragged shape (B = 37, 5 -> 67 -> 3: no dimension a
-    multiple of a tile) against their plain versions on the card, float32
-    without TF32; K4 returns the same bits twice."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    B, din, hid, dout = 37, 5, 67, 3
+def _mlp_inputs(cuda, dtype, shape, offset=0, fan_in=True):
+    """Seeded K3/K4 inputs (x, W0, b0, W1, b1, g) at (B, din, hid, dout),
+    W0 and W1 at the fan-in scale of mlp_init when `fan_in` (tanh does not
+    saturate at wide layers), each a contiguous view `offset` elements into
+    a buffer of its own."""
+    B, din, hid, dout = shape
     gen = torch.Generator(device=cuda).manual_seed(0)
-    make = lambda *s: torch.randn(*s, generator=gen, device=cuda).to(dtype)
-    x, w0, b0, w1, b1, g = (make(B, din), make(din, hid), make(hid),
-                            make(hid, dout), make(dout), make(B, dout))
-    y, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
-    grads = mlp.mlp2_vjp_cuda(x, w0, w1, h, g)
+
+    def make(*s, scale=1.0):
+        n = 1
+        for d in s:
+            n *= d
+        buf = scale * torch.randn(n + offset, generator=gen, device=cuda)
+        return buf[offset:].to(dtype).view(*s)
+
+    s0, s1 = (din ** -0.5, hid ** -0.5) if fan_in else (1.0, 1.0)
+    return (make(B, din), make(din, hid, scale=s0), make(hid),
+            make(hid, dout, scale=s1), make(dout), make(B, dout))
+
+
+def _check_mlp_kernels(x, w0, b0, w1, b1, g, route=None):
+    """K3 and K4 against their plain versions (MLP_TOL, relative to max|.|
+    of each output: every K4 output comes from one product, so a wrong
+    operand layout shows in its own output), both returning the same bits
+    on a second call; the (K3, K4) route counters' moves."""
+    dtype = x.dtype
+    before = (dict(mlp.mlp2_fwd_cuda.routes), dict(mlp.mlp2_vjp_cuda.routes))
+    y, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1, route=route)
+    y2, h2 = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1, route=route)
+    grads = mlp.mlp2_vjp_cuda(x, w0, w1, h, g, route=route)
+    again = mlp.mlp2_vjp_cuda(x, w0, w1, h, g, route=route)
     torch.cuda.synchronize()
-    y_ref, h_ref = mlp.mlp2_fwd_reference(x, w0, b0, w1, b1)
-    refs = mlp.mlp2_vjp_reference(x, w0, w1, h, g)
-    for name, got, ref in zip(("y", "h", "dx", "dW0", "db0", "dW1", "db1"),
-                              (y, h) + tuple(grads), (y_ref, h_ref) + refs):
+    refs = (mlp.mlp2_fwd_reference(x, w0, b0, w1, b1)
+            + mlp.mlp2_vjp_reference(x, w0, w1, h, g))
+    for name, got, ref in zip(MLP_OUTPUTS, (y, h) + tuple(grads), refs):
         assert got.dtype == dtype and got.shape == ref.shape, name
         err = float((got.double() - ref.double()).abs().max()
                     / ref.double().abs().max())
         assert err <= MLP_TOL[dtype], (name, err)
-    again = mlp.mlp2_vjp_cuda(x, w0, w1, h, g)
+    assert torch.equal(y2, y) and torch.equal(h2, h)
     assert all(torch.equal(a, b) for a, b in zip(again, grads))
+    return [{k: v - b[k] for k, v in now.items() if v != b[k]} for now, b in
+            zip((mlp.mlp2_fwd_cuda.routes, mlp.mlp2_vjp_cuda.routes), before)]
+
+
+def _splits(shape, bwd):
+    """Whether the float32 plan splits the depth of a product of K3 (or
+    K4) at this shape on device 0: it then has a workspace."""
+    return mlp._split_words(0, *shape, bwd) > 0
+
+
+# (dtype, (B, din, hid, dout), offset of every operand in elements)
+MLP_KERNEL_CASES = [
+    (torch.float64, (37, 5, 67, 3), 0),  # no dimension a multiple of a tile
+    (torch.float32, (37, 5, 67, 3), 0),  # (unscaled weights at this shape)
+    (torch.bfloat16, (37, 5, 67, 3), 0),
+    # float32, the simt route's edges: B = 1 at S4's widths (split depths),
+    # the spiral's field, ragged 128 x 64 tiles with depths (hid, B) that
+    # are no multiple of the 16-deep slice and rows (dout) off 16 bytes, and
+    # every operand one float off 16-byte alignment (the 4-byte copies)
+    (torch.float32, (1, 512, 2048, 512), 0),
+    (torch.float32, (1, 2, 50, 2), 0),
+    (torch.float32, (1100, 520, 2050, 510), 0),
+    (torch.float32, (64, 512, 2048, 512), 1),
+    # float64 stays on the 64 x 64 tiles it had
+    (torch.float64, (8, 512, 2048, 512), 0),
+]
+
+
+@pytest.mark.parametrize(
+    "dtype,shape,offset", MLP_KERNEL_CASES,
+    ids=[f"{str(d)[6:]}-{'x'.join(map(str, s))}-off{o}"
+         for d, s, o in MLP_KERNEL_CASES])
+def test_mlp_kernels_match_plain_versions(cuda, dtype, shape, offset):
+    """K3 and K4 on the route mlp2_route picks against their plain versions
+    on the card, float32 without TF32; both return the same bits twice."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    inputs = _mlp_inputs(cuda, dtype, shape, offset,
+                         fan_in=shape != (37, 5, 67, 3))
+    if offset:
+        assert all(t.data_ptr() % 16 for t in inputs)
+    route = mlp.mlp2_route(*shape, dtype, offset == 0)
+    assert _check_mlp_kernels(*inputs) == [{route: 2}, {route: 2}]
 
 
 @pytest.mark.parametrize("route,shape", [
@@ -274,38 +333,60 @@ def test_mlp_kernels_match_plain_versions(cuda, dtype):
     ("wgmma", (1000, 264, 1032, 136)),  # partial tiles in every dimension
     ("wmma", (37, 5, 67, 3)),           # ragged widths: WMMA's own shape
     ("wmma", (1024, 512, 2048, 512)),   # S4 forced onto WMMA
-], ids=["wgmma-S4", "wgmma-ragged", "wmma-ragged", "wmma-forced-S4"])
+    ("simt", (1024, 512, 2048, 512)),   # S4 float32: 128 x 64, split depths
+    ("simt", (8, 512, 2048, 512)),      # S4's widths at B = 8: 64 x 64, split
+], ids=["wgmma-S4", "wgmma-ragged", "wmma-ragged", "wmma-forced-S4",
+        "simt-S4", "simt-S4-widths-B8"])
 def test_mlp_routes_match_plain_versions(cuda, route, shape):
-    """bfloat16 K3 and K4 on each tensor-core route against their plain
-    versions (MLP_TOL, relative to max|.| of each output: every K4 output
-    comes from one product, so a wrong operand layout shows in its own
-    output); K4 returns the same bits twice; the per-route counters move as
-    mlp2_route says, or as the forced route says."""
-    B, din, hid, dout = shape
-    gen = torch.Generator(device=cuda).manual_seed(0)
-    make = lambda *s, scale=1.0: (scale * torch.randn(
-        *s, generator=gen, device=cuda)).to(torch.bfloat16)
-    x, w0, b0 = make(B, din), make(din, hid, scale=din ** -0.5), make(hid)
-    w1, b1, g = make(hid, dout, scale=hid ** -0.5), make(dout), make(B, dout)
-    natural = mlp.mlp2_route(B, din, hid, dout, torch.bfloat16, True)
+    """K3 and K4 on each route (bfloat16 on the tensor-core routes, float32
+    on simt) against their plain versions; both return the same bits twice;
+    the per-route counters move as mlp2_route says, or as the forced route
+    says. The float32 shapes split the depth of products in K3 and in K4."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = torch.float32 if route == "simt" else torch.bfloat16
+    inputs = _mlp_inputs(cuda, dtype, shape)
+    natural = mlp.mlp2_route(*shape, dtype, True)
+    if route == "simt":
+        assert _splits(shape, False) and _splits(shape, True)
     forced = None if route == natural else route
-    before = (dict(mlp.mlp2_fwd_cuda.routes), dict(mlp.mlp2_vjp_cuda.routes))
-    y, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1, route=forced)
-    grads = mlp.mlp2_vjp_cuda(x, w0, w1, h, g, route=forced)
-    again = mlp.mlp2_vjp_cuda(x, w0, w1, h, g, route=forced)
+    assert _check_mlp_kernels(*inputs, route=forced) == [{route: 2},
+                                                          {route: 2}]
+
+
+def test_mlp_f32_split_kernels_in_cuda_graphs(cuda):
+    """K3 and K4 on the float32 route with split products, captured in two
+    CUDA graphs (each call zeroes the arrival counters in its own
+    workspace) and replayed at once on two streams while eager calls run
+    on the current one: every replay and every eager call gives the first
+    eager call's bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = (64, 512, 2048, 512)
+    assert _splits(shape, False) and _splits(shape, True)
+    x, w0, b0, w1, b1, g = _mlp_inputs(cuda, torch.float32, shape)
+
+    def both():
+        y, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
+        return (y, h) + tuple(mlp.mlp2_vjp_cuda(x, w0, w1, h, g))
+
+    want = both()
     torch.cuda.synchronize()
-    refs = (mlp.mlp2_fwd_reference(x, w0, b0, w1, b1)
-            + mlp.mlp2_vjp_reference(x, w0, w1, h, g))
-    for name, got, ref in zip(("y", "h", "dx", "dW0", "db0", "dW1", "db1"),
-                              (y, h) + tuple(grads), refs):
-        assert got.dtype == torch.bfloat16 and got.shape == ref.shape, name
-        err = float((got.double() - ref.double()).abs().max()
-                    / ref.double().abs().max())
-        assert err <= MLP_TOL[torch.bfloat16], (name, err)
-    assert all(torch.equal(a, b) for a, b in zip(again, grads))
-    moved = [{k: v - b[k] for k, v in now.items() if v != b[k]} for now, b in
-             zip((mlp.mlp2_fwd_cuda.routes, mlp.mlp2_vjp_cuda.routes), before)]
-    assert moved == [{route: 1}, {route: 2}]
+    graphs, outs = [], []
+    for _ in range(2):
+        graphs.append(torch.cuda.CUDAGraph())
+        with torch.cuda.graph(graphs[-1]):
+            outs.append(both())
+    streams = [torch.cuda.Stream(cuda) for _ in graphs]
+    for _ in range(3):
+        for graph, stream in zip(graphs, streams):
+            stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(stream):
+                graph.replay()
+        eager = both()
+        for stream in streams:
+            torch.cuda.current_stream().wait_stream(stream)
+        torch.cuda.synchronize()
+        for got in outs + [eager]:
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_spiral_gradient_on_card_matches_cpu(cuda):
