@@ -147,12 +147,21 @@ Phases, each printed before the last line:
      spiral arms, card against CPU and against the solve gradient, with
      their launches; the two Hessians
      symmetric and agreeing; the refusal of second order on the card;
+  5i. [stiff f64]: Robertson's FBDF Gauss gradient and Rosenbrock23's
+     Interpolating one, card against CPU and against ForwardDiff; FBDF
+     under ForwardDiffSensitivity (the replayed history), card against
+     CPU and against FBDF's Gauss gradient; Rosenbrock23 under
+     DirectAdjoint through a saveat tensor, card against CPU in log p and
+     the save times; the nonlinear solve; the kernel field's refusal;
   5j. [dae f64]: each Robertson arm on the card against the port's CPU
-     run (1e-9 where the steps agree, else the stiff gate), the continuous
-     rules and DirectAdjoint against ForwardDiffSensitivity (rtol 2e-3, as
-     tests/test_dae.py), dae_init against its closed form; the spiral
-     under the mass, card against CPU, with its K3/K4 launches; a DAE on
-     the kernel field raising ForwardModeUnsupported with no launch;
+     run (1e-9 where the steps agree, else the stiff gate), the rotated
+     DAE's continuous event under ForwardDiffSensitivity among them, the
+     continuous rules and DirectAdjoint against ForwardDiffSensitivity
+     (rtol 2e-3, as tests/test_dae.py), GaussAdjoint through the event
+     against ForwardDiff (rtol 2e-3), dae_init against its closed form;
+     the spiral under the mass, card against CPU, with its K3/K4
+     launches; a DAE on the kernel field raising ForwardModeUnsupported
+     with no launch;
   5k. [dde]: the delayed S4 field's gradients at full width in float32
      under RK4 and Tsit5 (K3/K4 launches per gradient, the simt route, the
      two against each other), then in float64 at B = 8, card against CPU;
@@ -231,7 +240,8 @@ Phases, each printed before the last line:
      width, the SDE and RODE Fisher–KPP at n = 1,048,576), each against
      its own forward, with the device's idle share; K3/K4 alone at S4's
      float32 shape on the simt route, per launch, and the float32 cuBLAS
-     products of the same work as a yardstick (in the kernels line).
+     products of the same work as a yardstick, at S4's shape and at the
+     spiral's (in the kernels line).
 
 Any failed check raises, so the exit code is nonzero. The line before the
 last is a JSON summary of the kernels; the last line is
@@ -948,6 +958,10 @@ ROB_R23 = dict(rtol=1e-6, atol=1e-10, adj_rtol=1e-5, adj_atol=1e-8,
                max_steps=4096)
 ROB_R23_TS, ROB_R23_T1 = (1e-3, 1e-2), 1e-2
 STIFF_GATE = dict(rtol=2e-4, atol=1e-8)
+# time derivatives through the stiff steppers (phase 5i): DirectAdjoint
+# through a saveat tensor with requires_grad on Rosenbrock23 over the
+# transient, its gradient in log p and in the two save times
+ROB_R23_SV = (1e-3, 5e-3)
 NL_H, NL_FD_TOL = 1e-6, 1e-6  # central differences of Σu*², per entry / max
 
 
@@ -1002,17 +1016,21 @@ def rob_bench(P, device, solver, sensealg, kw, grad=True):
     return g, sol
 
 
-def rob_transient(P, device, sensealg):
+def rob_transient(P, device, sensealg, saveat=ROB_R23_TS, save_grad=False):
     """Rosenbrock23 on Robertson's transient: (d/dlog p of 1e4·Σ y2,
-    solution)."""
+    solution); save_grad: the saves a tensor with requires_grad, and the
+    gradient [d/dlog p, d/dsaveat]."""
     logp = torch.log(torch.tensor(ROB_P, dtype=torch.float64, device=device))
     logp.requires_grad_()
     u0 = torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64, device=device)
+    sv = (torch.tensor(saveat, dtype=torch.float64, device=device,
+                       requires_grad=True) if save_grad else list(saveat))
     sol = P.solve(P.ODEProblem(rob_field, u0, (0.0, ROB_R23_T1),
                                torch.exp(logp)), P.Rosenbrock23(),
-                  saveat=list(ROB_R23_TS), sensealg=sensealg, **ROB_R23)
-    (g,) = torch.autograd.grad(1e4 * torch.sum(sol.ys[:, 1]), logp)
-    return g, sol
+                  saveat=sv, sensealg=sensealg, **ROB_R23)
+    wrt = (logp, sv) if save_grad else (logp,)
+    g = torch.autograd.grad(1e4 * torch.sum(sol.ys[:, 1]), wrt)
+    return torch.cat(g), sol
 
 
 def nl_residual(u, q):
@@ -1084,9 +1102,21 @@ def dae_rot_field(u, p, t):
     return torch.cat([T @ f_d, (u[0] + u[1] + u[2] - 1.0)[None]])
 
 
-def dae_gradient(P, device, sensealg, solver, rotated=False, grad=True):
+def dae_crossing(P):
+    """tests/test_torch_dae.py's continuous event on the rotated DAE: y1
+    falls through 0.99998 near t = 5e-4; the affect keeps the sum."""
+    return P.ContinuousCallback(
+        condition=lambda u, p, t: u[0] - 0.99998,
+        affect=lambda u, p, t: torch.stack([u[0] - 0.001, u[1],
+                                            u[2] + 0.001]),
+        direction=-1)
+
+
+def dae_gradient(P, device, sensealg, solver, rotated=False, grad=True,
+                 event=False):
     """(d/d[log p, u0_d] of 1e4·Σ y2 + Σ y3 (rotated: Σ y1² + 1e4·Σ y2²
-    + Σ y3²), solution) of a Robertson DAE; grad=False: the solution."""
+    + Σ y3²), solution) of a Robertson DAE; grad=False: the solution;
+    event: with `dae_crossing`."""
     p0 = DAE_ROT_P if rotated else DAE_P
     logp = torch.log(torch.tensor(p0, dtype=torch.float64, device=device))
     u0d = torch.tensor([1.0, 0.0], dtype=torch.float64, device=device)
@@ -1103,7 +1133,7 @@ def dae_gradient(P, device, sensealg, solver, rotated=False, grad=True):
                         mass_matrix=mass)
     with torch.set_grad_enabled(grad):
         sol = P.solve(prob, solver, saveat=list(DAE_TS), sensealg=sensealg,
-                      **DAE_KW)
+                      callback=dae_crossing(P) if event else None, **DAE_KW)
     if not grad:
         return sol
     ys = sol.ys
@@ -2874,6 +2904,51 @@ def main() -> int:
     check(not same or e_c <= F64_GRAD_TOL,
           "Robertson Rosenbrock23 card gradient off the CPU run")
     check(gate, "Robertson Rosenbrock23 Interpolating off ForwardDiff")
+    # time derivatives through the stiff steppers: ForwardDiffSensitivity
+    # replays FBDF with its history's tangents, held to FBDF's Gauss
+    # gradient above; DirectAdjoint differentiates Rosenbrock23's steps in
+    # their lengths through a saveat tensor
+    wall_s = time.perf_counter()
+    g_ff, sol_ff = rob_bench(P, dev, P.FBDF(), P.ForwardDiffSensitivity(),
+                             ROB_BENCH)
+    wall_s = time.perf_counter() - wall_s
+    g_ffc, sol_ffc = rob_bench(P, "cpu", P.FBDF(),
+                               P.ForwardDiffSensitivity(), ROB_BENCH)
+    same = sol_ff.stats.n_accepted == sol_ffc.stats.n_accepted
+    e_c = rel_l2(g_ff, g_ffc)
+    gate = bool(torch.allclose(g_ff.cpu(), g_fb.cpu(), **STIFF_GATE))
+    print(f"[stiff f64] Robertson FBDF ForwardDiffSensitivity (bench "
+          f"setting): card wall {wall_s:.3f} s; forward {sol_ff.stats} (CPU "
+          f"{sol_ffc.stats}); p-grad {g_ff.tolist()}; card vs CPU rel L2 "
+          f"{e_c:.3e} (tol {F64_GRAD_TOL:g} where the step counts agree: "
+          f"{same}); against FBDF GaussAdjoint: max rel "
+          f"{max_rel(g_ff, g_fb):.3e} (allclose rtol {STIFF_GATE['rtol']:g} "
+          f"atol {STIFF_GATE['atol']:g}: {gate})")
+    check(sol_ff.retcode == 0 and sol_ffc.retcode == 0,
+          "Robertson FBDF ForwardDiff retcode")
+    check(e_c <= F64_GRAD_TOL if same else bool(torch.allclose(
+        g_ff.cpu(), g_ffc, **STIFF_GATE)),
+        "Robertson FBDF ForwardDiff card gradient off the CPU run")
+    check(gate, "Robertson FBDF ForwardDiff off FBDF GaussAdjoint")
+    wall_s = time.perf_counter()
+    g_rd, sol_rd = rob_transient(P, dev, P.DirectAdjoint(), ROB_R23_SV,
+                                 save_grad=True)
+    wall_s = time.perf_counter() - wall_s
+    g_rdc, sol_rdc = rob_transient(P, "cpu", P.DirectAdjoint(), ROB_R23_SV,
+                                   save_grad=True)
+    same = sol_rd.stats.n_accepted == sol_rdc.stats.n_accepted
+    e_c = rel_l2(g_rd, g_rdc)
+    print(f"[stiff f64] Robertson transient Rosenbrock23 DirectAdjoint "
+          f"through a saveat tensor {ROB_R23_SV}: card wall {wall_s:.3f} s; "
+          f"forward {sol_rd.stats} (CPU {sol_rdc.stats}); grad [log p, "
+          f"saveat] {g_rd.tolist()}; card vs CPU rel L2 {e_c:.3e} (tol "
+          f"{F64_GRAD_TOL:g} where the step counts agree: {same})")
+    check(sol_rd.retcode == 0 and sol_rdc.retcode == 0
+          and bool(torch.isfinite(g_rd).all()),
+          "Robertson Rosenbrock23 DirectAdjoint retcode")
+    check(e_c <= F64_GRAD_TOL if same else bool(torch.allclose(
+        g_rd.cpu(), g_rdc, **STIFF_GATE)),
+        "Robertson Rosenbrock23 DirectAdjoint card gradient off the CPU run")
     # the nonlinear solve: IFT gradient against central differences
     g_nl, sol_nl = nl_solve(P, dev)
     g_nlc, _ = nl_solve(P, "cpu")
@@ -2919,19 +2994,27 @@ def main() -> int:
     # -- 5j. [dae f64]: DAEs on mass matrices (host path, torch.linalg on the
     # card), the card against the port's CPU run ---------------------------
     t = time.perf_counter()
+    # (sensealg, solver, rotated, with dae_crossing)
     dae_arms = {
-        "sensealg=None": (None, P.SDIRK4, False),
-        "DirectAdjoint": (P.DirectAdjoint(), P.SDIRK4, False),
-        "InterpolatingAdjoint": (P.InterpolatingAdjoint(), P.SDIRK4, False),
-        "GaussAdjoint": (P.GaussAdjoint(), P.SDIRK4, False),
-        "QuadratureAdjoint": (P.QuadratureAdjoint(), P.SDIRK4, False),
-        "FBDF GaussAdjoint": (P.GaussAdjoint(), P.FBDF, False),
-        "rotated GaussAdjoint": (P.GaussAdjoint(), P.SDIRK4, True),
+        "sensealg=None": (None, P.SDIRK4, False, False),
+        "DirectAdjoint": (P.DirectAdjoint(), P.SDIRK4, False, False),
+        "InterpolatingAdjoint": (P.InterpolatingAdjoint(), P.SDIRK4, False,
+                                 False),
+        "GaussAdjoint": (P.GaussAdjoint(), P.SDIRK4, False, False),
+        "QuadratureAdjoint": (P.QuadratureAdjoint(), P.SDIRK4, False, False),
+        "FBDF GaussAdjoint": (P.GaussAdjoint(), P.FBDF, False, False),
+        "rotated GaussAdjoint": (P.GaussAdjoint(), P.SDIRK4, True, False),
+        "rotated event ForwardDiffSensitivity": (
+            P.ForwardDiffSensitivity(), P.SDIRK4, True, True),
     }
     dae_grads = {}
-    for arm, (sensealg, solver, rotated) in dae_arms.items():
-        g_cpu, sol_c = dae_gradient(P, "cpu", sensealg, solver(), rotated)
-        g, sol = dae_gradient(P, dev, sensealg, solver(), rotated)
+    for arm, (sensealg, solver, rotated, event) in dae_arms.items():
+        g_cpu, sol_c = dae_gradient(P, "cpu", sensealg, solver(), rotated,
+                                    event=event)
+        wall_s = time.perf_counter()
+        g, sol = dae_gradient(P, dev, sensealg, solver(), rotated,
+                              event=event)
+        wall_s = time.perf_counter() - wall_s
         dae_grads[arm] = g
         rev = sol.adjoint.stats if sol.adjoint is not None else None
         rev_c = sol_c.adjoint.stats if sol_c.adjoint is not None else None
@@ -2940,8 +3023,10 @@ def main() -> int:
         e_c = rel_l2(g, g_cpu)
         print(f"[dae f64] Robertson{' rotated' if rotated else ''} "
               f"{solver.__name__} {arm}: dispatched to "
-              f"{type(sol.sensealg).__name__}; forward {sol.stats} (CPU "
-              f"{sol_c.stats}); reverse {rev} (CPU {rev_c}); grad [log p, "
+              f"{type(sol.sensealg).__name__}; card wall {wall_s:.3f} s; "
+              f"forward {sol.stats} (CPU {sol_c.stats}); events "
+              f"{None if sol.events is None else sol.events.count}; reverse "
+              f"{rev} (CPU {rev_c}); grad [log p, "
               f"u0_d] {g.tolist()}; card vs CPU rel L2 {e_c:.3e} (tol "
               f"{F64_GRAD_TOL:g} where the step counts agree: {same})")
         check(sol.retcode == 0 and sol_c.retcode == 0
@@ -2951,6 +3036,9 @@ def main() -> int:
         check(e_c <= F64_GRAD_TOL if same else bool(torch.allclose(
             g.cpu(), g_cpu, **STIFF_GATE)),
             f"DAE {arm}: card gradient off the CPU's")
+        if event:
+            check(sol.events.count == 1 and sol_c.events.count == 1,
+                  f"DAE {arm}: the event did not fire once")
         if sensealg is None:
             check(type(sol.sensealg) is P.ForwardDiffSensitivity,
                   f"DAE sensealg=None dispatched to {sol.sensealg!r}")
@@ -2966,6 +3054,24 @@ def main() -> int:
               f"rel {max_rel(dae_grads[arm], dae_grads[ref]):.3e} (allclose "
               f"rtol {DAE_RULE_TOL:g}, atol 1e-7: {gate})")
         check(gate, f"DAE {arm} off ForwardDiffSensitivity")
+    # GaussAdjoint through the event on the card, held to ForwardDiff at
+    # the JAX test's rtol (tests/test_dae.py:382)
+    wall_s = time.perf_counter()
+    g, sol = dae_gradient(P, dev, P.GaussAdjoint(), P.SDIRK4(), True,
+                          event=True)
+    wall_s = time.perf_counter() - wall_s
+    ref = dae_grads["rotated event ForwardDiffSensitivity"]
+    gate = bool(torch.allclose(g.cpu(), ref.cpu(), rtol=DAE_RULE_TOL,
+                               atol=0.0))
+    print(f"[dae f64] Robertson rotated SDIRK4 event GaussAdjoint: card "
+          f"wall {wall_s:.3f} s; forward {sol.stats}; events "
+          f"{sol.events.count}; reverse {sol.adjoint.stats}; grad [log p, "
+          f"u0_d] {g.tolist()}; "
+          f"against ForwardDiffSensitivity: max rel {max_rel(g, ref):.3e} "
+          f"(allclose rtol {DAE_RULE_TOL:g}, atol 0: {gate})")
+    check(sol.retcode == 0 and sol.adjoint.stats.retcode == 0
+          and sol.events.count == 1 and gate,
+          "DAE event GaussAdjoint off ForwardDiffSensitivity")
     g_in, sol_in = dae_init_gradient(P, dev)
     g_inc, _ = dae_init_gradient(P, "cpu")
     exact = torch.tensor(dae_init_exact(), dtype=torch.float64)
@@ -3830,6 +3936,24 @@ def main() -> int:
           f"{t32['K4'] / lib32['K4']:.2f}x of it; the larger of two profiler "
           "traces over 5 calls")
     t32["cublas"] = lib32
+    # the same yardstick at the spiral's float32 shape (B = 1, 2→50→2)
+    x, w0, b0, w1, b1, g = mlp_inputs(MLP_SHAPES["spiral"], torch.float32,
+                                      dev)
+    _, h = mlp.mlp2_fwd_cuda(x, w0, b0, w1, b1)
+    dzc = h.clone()
+    yard = {"K3": lambda: (x @ w0, h @ w1),
+            "K4": lambda: (h.T @ g, g @ w1.T, x.T @ dzc, dzc @ w0.T)}
+    lib_sp = {k: max(profiled_ms(fn, calls=100)[0] for _ in range(2))
+              for k, fn in yard.items()}
+    t_sp = mlp_timing[("spiral", torch.float32)]
+    print(f"[time] {card}: spiral f32 yardstick the port never calls, "
+          f"float32 torch.matmul (cuBLAS, allow_tf32 False) of the same "
+          f"products: K3's 2 {lib_sp['K3'] * 1e3:.2f} us, K4's 4 "
+          f"{lib_sp['K4'] * 1e3:.2f} us per call (no epilogues, no column "
+          f"sums); the simt kernels {t_sp['K3'] / lib_sp['K3']:.2f}x and "
+          f"{t_sp['K4'] / lib_sp['K4']:.2f}x of it; the larger of two "
+          "profiler traces over 100 calls")
+    t_sp["cublas"] = lib_sp
     del x, w0, b0, w1, b1, g, h, dzc
 
     elapsed("phase 6c (neural-ODE timings)")
@@ -4015,7 +4139,7 @@ def main() -> int:
         for _ in range(2):  # the second forward is the one kept
             sol, ms_f = event_ms(lambda: dae_gradient(
                 P, dev, None, solver(), grad=False))
-        for arm, (sensealg, arm_solver, rotated) in dae_arms.items():
+        for arm, (sensealg, arm_solver, rotated, _) in dae_arms.items():
             if arm_solver is solver and arm in DAE_TIMED:
                 _, ms = event_ms(lambda: dae_gradient(
                     P, dev, sensealg, solver(), rotated))
@@ -4115,13 +4239,18 @@ def main() -> int:
     s4 = mlp_timing[("S4", torch.bfloat16)]
 
     def s4_f32(kname):
-        """The kernel at S4's float32 shape on the simt route, the shape of
-        the device-bound cells (DDE, neural SDE, NILSAS)."""
-        t32 = mlp_timing[("S4", torch.float32)]
-        return {"s4_f32_simt_ms": t32[kname],
-                "s4_f32_library_ms": t32["cublas"][kname],
-                "s4_f32_bound_ms": t32["bound"][kname][0],
-                "s4_f32_bound_by": t32["bound"][kname][1]}
+        """The kernel on the simt route at S4's float32 shape, the shape of
+        the device-bound cells (DDE, neural SDE, NILSAS), and at the
+        spiral's (B = 1), each with its cuBLAS yardstick and bound."""
+        out = {}
+        for label in ("S4", "spiral"):
+            t32 = mlp_timing[(label, torch.float32)]
+            pre = f"{label.lower()}_f32"
+            out.update({f"{pre}_simt_ms": t32[kname],
+                        f"{pre}_library_ms": t32["cublas"][kname],
+                        f"{pre}_bound_ms": t32["bound"][kname][0],
+                        f"{pre}_bound_by": t32["bound"][kname][1]})
+        return out
     interp_k = {k: sum(got[k] for got in interp_launches.values())
                 for k in ("K1", "K2")}
     interp_node = [sum(got[i] for got in interp_node_launches.values())

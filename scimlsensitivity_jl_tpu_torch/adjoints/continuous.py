@@ -56,7 +56,10 @@ dense-output cotangents) and the event jumps (`_make_event_apply`,
                       torch.func.jvp per seed direction vmapped over a chunk
                       of chunk_size of them (u0's first, then p's), and
                       contracts the tangents of ys and u_final with their
-                      cotangents. The JAX rule gets the same derivative from
+                      cotangents; a multistep stepper (FBDF) replays each
+                      BDF solve at the forward's logged order and history
+                      times, the rows threading the history's tangents.
+                      The JAX rule gets the same derivative from
                       jax.jvp through its while_loop with the step size
                       under stop_gradient.
 
@@ -113,6 +116,7 @@ from ..sensealg import (BacksolveAdjoint, ForwardDiffSensitivity, GaussAdjoint,
                         GaussKronrodAdjoint, InterpolatingAdjoint,
                         QuadratureAdjoint)
 from ..solvers.explicit import ExplicitRK
+from ..solvers.fbdf import HCAP
 from ..solvers.rosenbrock import jacobian
 from ..solvers.integrate import (RETCODE_TERMINATED, Stats, integrate,
                                  kind_torch_dtype, match_tol, next_stop,
@@ -196,20 +200,38 @@ def _flat(tree, like: torch.Tensor) -> torch.Tensor:
 
 
 class _StepLog:
-    """A stepper that records the (t, dt) of the step it last took, and the
-    accepted-step hook that keeps it: ForwardDiffSensitivity's record of
-    the forward's step sequence."""
+    """A stepper that records the step it last took, and the accepted-step
+    hook that keeps it: ForwardDiffSensitivity's record of the forward's
+    step sequence. Each entry is (t, dt, state): state is None for a
+    one-step stepper, and for a multistep one (FBDF) the state the step
+    started from without its device history (`u_hist=None`): the times,
+    counts and order the replay solves at. `resets` holds the indices of
+    the accepted steps after which the history restarted (an event)."""
 
     def __init__(self, stepper):
         self.stepper = stepper
         self.order = stepper.order
         self.n_stages = getattr(stepper, "n_stages", 1)
+        self.stateful = getattr(stepper, "stateful", False)
         self.last = None
         self.steps = []
+        self.resets = set()
 
-    def step(self, fvec, t, dt, u, f0, need_err: bool = True, **offsets):
-        self.last = (t, dt)
-        return self.stepper.step(fvec, t, dt, u, f0, need_err, **offsets)
+    def __getattr__(self, name):
+        # a multistep stepper's protocol (init_state, controller_order,
+        # factor_max) passes through
+        return getattr(self.__dict__["stepper"], name)
+
+    def step(self, fvec, t, dt, u, f0, *args, **offsets):
+        if self.stateful:
+            self.last = (t, dt, args[0]._replace(u_hist=None))
+        else:
+            self.last = (t, dt, None)
+        return self.stepper.step(fvec, t, dt, u, f0, *args, **offsets)
+
+    def reset_state(self, state, t, u, **kw):
+        self.resets.add(len(self.steps) - 1)
+        return self.stepper.reset_state(state, t, u, **kw)
 
     def accepted(self, _rec):
         self.steps.append(self.last)
@@ -242,13 +264,10 @@ class _ContinuousRule:
         self.dense = self.stats = self.t_final = None
         self.events = self.event_log = None
         self.node_times = False
-        # ForwardDiffSensitivity records the forward's steps to replay them;
-        # a multistep stepper's history is not replayed (refused at the
-        # gradient, so its forward solve runs)
+        # ForwardDiffSensitivity records the forward's steps to replay them
+        # (a multistep stepper's with the orders and history times of each)
         fds = isinstance(sensealg, ForwardDiffSensitivity)
-        multistep = getattr(solver, "stateful", False)
-        self.step_log = _StepLog(solver) if fds and not multistep else None
-        self.replay_refused = fds and multistep
+        self.step_log = _StepLog(solver) if fds else None
 
     def _p(self, pflat):
         return self.unravel_p(pflat) if self.has_p else None
@@ -300,13 +319,6 @@ class _ContinuousRule:
         """The reverse pass of the rule: the cotangents of the save rows, of
         u_final and of the dense nodes' states, slopes and (node_times)
         times -> those of u0, p and (want_sv) the save times `sv`."""
-        if self.replay_refused:
-            raise NotImplementedError(
-                f"ForwardDiffSensitivity with the multistep {self.solver!r}: "
-                "the port replays one-step steppers only; use a one-step "
-                "stiff solver (Rosenbrock23, TRBDF2, Kvaerno3, SDIRK4, "
-                "Seulex) or a reverse rule (GaussAdjoint, QuadratureAdjoint) "
-                "with FBDF")
         n, nt = u0vec.numel(), ys_save.shape[0]
         lam_jumps = (d_ys.reshape(nt, n) if d_ys is not None
                      else u0vec.new_zeros(nt, n))
@@ -789,6 +801,7 @@ class _ContinuousRule:
         # an explicit RK step is linear in its stages, so stepping [u; S]
         # is its jvp; any other stepper's jvp is taken through its step
         explicit = isinstance(self.solver, ExplicitRK)
+        log = self.step_log
         seeds = torch.eye(n + npf, dtype=dtype, device=u0vec.device)
         parts = []
         for block in torch.split(seeds, self.sensealg.chunk_size or n + npf):
@@ -801,20 +814,27 @@ class _ContinuousRule:
             carry = save_carry0(saveat, t0, tdir, z, span)
             nodes = [(z, fz, None)] if use_dense else None
             sigma = None  # per-row tangent of the current time, or None
-            for i, (t, dt) in enumerate(self.step_log.steps):
+            # a multistep stepper's history and its tangents
+            hist = _bdf_history(z, n, k, None) if log.stateful else None
+            for i, (t, dt, st) in enumerate(log.steps):
                 t_b = kind(t + dt)
+                delta = None
+                if (sigma is not None and dt == kind(
+                        next_stop(t, self.t1, stops, tdir)[0] - t)):
+                    # a clipped step's length stop - t moves by -σ
+                    delta = -sigma
                 if explicit:
                     z1, f1, _ = self.solver.step(aug, t, dt, z, fz,
                                                  need_err=False)
+                elif st is not None:
+                    z1, f1, hist = _tangent_bdf_step(
+                        self.solver, kern, p, t, dt, z, fz, st, hist,
+                        seeds_p, n, k, sigma, delta)
                 else:
                     z1, f1 = _tangent_step(self.solver, kern, p, t, dt, z,
                                            fz, seeds_p, n, k)
                 z1, f1 = z1.to(dtype), f1.to(dtype)
-                delta = None
-                if sigma is not None:
-                    if dt == kind(next_stop(t, self.t1, stops, tdir)[0] - t):
-                        # a clipped step's length stop - t moves by -σ
-                        delta = -sigma
+                if sigma is not None and st is None:
                     # the step's start moves by σ (its stage times with it)
                     z1, f1 = _shift_step(self.solver, fvec, t, dt, z, fz, z1,
                                          f1, sigma, delta, n, k)
@@ -837,6 +857,10 @@ class _ContinuousRule:
                     t_b = se.t_e
                 elif delta is not None:
                     sigma = None  # landed on the stop: σ + δ = 0
+                if i in log.resets:
+                    # the history restarts at the event, every slot at its
+                    # time and its time tangent
+                    hist = _bdf_history(z1, n, k, sigma)
                 carry = save_hook((t, t_b, z, fz, z1, f1), carry)
                 z, fz = z1, f1
                 if use_dense:
@@ -991,6 +1015,66 @@ def _tangent_step(stepper, kern, p, t, dt, z, fz, seeds_p, n, k):
     dU, dF = torch.func.vmap(row)(S, F, seeds_p) if k else (S, F)
     return (torch.cat([u1, dU.reshape(-1).to(u1.dtype)]),
             torch.cat([f1, dF.reshape(-1).to(f1.dtype)]))
+
+
+def _bdf_history(z, n, k, sigma):
+    """A multistep replay's history restarted at z = [u; S] (the start, or
+    an event): (u_hist, each row's S_hist of shape (k, HCAP, n), each row's
+    slot time tangents (k, HCAP), None where the restart time has none)."""
+    u, S = z[:n], z[n:].reshape(k, n)
+    return (u[None, :].repeat(HCAP, 1), S[:, None, :].repeat(1, HCAP, 1),
+            None if sigma is None else sigma[:, None].repeat(1, HCAP))
+
+
+def _tangent_bdf_step(stepper, kern, p, t, dt, z, fz, st, hist, seeds_p, n,
+                      k, sigma, delta):
+    """z1, f1 and the shifted history of one replayed FBDF step over
+    z = [u; S]: the BDF solve at the forward's logged order and history
+    times `st`, and each row's jvp through it (Jacobian, LU, Newton
+    iterations), with the row's state, slope, history and parameter
+    directions and, where time has tangents, its start's σ, its length's δ
+    and its history slots', as JAX's jvp through its loop carries the
+    history. The order choice is not replayed."""
+    _, unravel_p = ravel_pytree(p)
+    u, f = z[:n], fz[:n]
+    S, F = z[n:].reshape(k, n), fz[n:].reshape(k, n)
+    u_hist, S_hist, hsig = hist
+    timed = sigma is not None or delta is not None or hsig is not None
+    tdt = kind_torch_dtype(type(t))
+    zero_k = torch.zeros(k, dtype=tdt, device=z.device)
+    sig = zero_k if sigma is None else sigma.to(tdt)
+    dlt = zero_k if delta is None else delta.to(tdt)
+    hs = (zero_k[:, None].repeat(1, HCAP) if hsig is None
+          else hsig.to(tdt))
+
+    def run(uu, ff, uh, pp, t_off=None, ddt=None, h_off=None):
+        v, f1, _, _ = stepper.solve(
+            lambda uv, tt: kern.fvec(uv, pp, tt), t, dt, uu, ff,
+            st._replace(u_hist=uh, t_off=h_off), ddt=ddt, t_off=t_off)
+        return v, f1
+
+    def row(s, fr, sh, e, sg, dl, hh):
+        prim = (u, f, u_hist, p)
+        tan = (s, fr, sh, None if p is None else unravel_p(e))
+        if timed:
+            prim = prim + (zero_k[0], zero_k[0], zero_k[:1].repeat(HCAP))
+            tan = tan + (sg, dl, hh)
+        if p is None:
+            return torch.func.jvp(
+                lambda a, b, c, *o: run(a, b, c, None, *o),
+                prim[:3] + prim[4:], tan[:3] + tan[4:])[1]
+        return torch.func.jvp(run, prim, tan)[1]
+
+    v, f1 = run(u, f, u_hist, p)
+    dV, dF = torch.func.vmap(row)(S, F, S_hist, seeds_p, sig, dlt, hs)
+    if timed:  # the new slot's time tangent is x0's: σ + δ
+        hsig = torch.cat([(sig + dlt)[:, None], hs[:, :-1]], dim=1)
+    hist = (torch.cat([v[None, :], u_hist[:-1]]),
+            torch.cat([dV[:, None, :].to(S_hist.dtype), S_hist[:, :-1]],
+                      dim=1),
+            hsig)
+    return (torch.cat([v, dV.reshape(-1).to(v.dtype)]),
+            torch.cat([f1, dF.reshape(-1).to(f1.dtype)]), hist)
 
 
 def _slope_time_tangent(fvec, z, fz, t, sigma, n, k):

@@ -18,13 +18,22 @@ import torch
 from .integrate import kind_torch_dtype
 from .tableaus import BOSH3, DOPRI5, EULER, HEUN, MIDPOINT, TSIT5, ButcherTableau
 
-__all__ = ["ExplicitRK", "stage_time", "Tsit5", "Dopri5", "BS3", "Heun", "Midpoint", "Euler"]
+__all__ = ["ExplicitRK", "scaled", "stage_time", "Tsit5", "Dopri5", "BS3", "Heun", "Midpoint", "Euler"]
 
 
 def _scale(dt, coef):
     """dt * coef in dt's own floating type (a numpy scalar)."""
     kind = type(dt)
     return kind(dt * kind(coef))
+
+
+def scaled(dt, c, ddt=None):
+    """dt·c rounded in dt's own floating type, as a Python float; where the
+    step's length carries a derivative (`ddt`, a zero-valued tensor), the
+    0-d tensor c·ddt + dt·c, which has the same value and the derivative.
+    Every stepper scales its stages with it."""
+    value = float(_scale(dt, c))
+    return value if ddt is None else ddt * float(c) + value
 
 
 def stage_time(t, host, c, ddt=None, t_off=None):
@@ -55,8 +64,8 @@ class ExplicitRK:
     dt, and the integrator casts u1 and f1 back.
     ddt: a zero-valued tensor that carries the derivative of dt (DirectAdjoint
     through a save or event time); each coefficient dt·a becomes
-    dt·a + ddt·a, the same value, so u1 and f1 are unchanged and autograd
-    sees dt as JAX's traced step length. t_off: the zero-valued derivative
+    dt·a + ddt·a (`scaled`), the same value, so u1 and f1 are unchanged and
+    autograd sees dt as JAX's traced step length. t_off: the zero-valued derivative
     of t. Where either is given, the field gets each stage time as a 0-d
     tensor t_off + cᵢ·ddt + (t + cᵢ·dt), so a field that reads t sees the
     derivatives as JAX's traced times carry them; without them the stage
@@ -78,10 +87,6 @@ class ExplicitRK:
         tab = self.tableau
         kind = type(t)
 
-        def coef(c):
-            value = float(_scale(dt, c))
-            return value if ddt is None else ddt * float(c) + value
-
         def at(c):
             return stage_time(t, kind(t + _scale(dt, c)), c, ddt, t_off)
 
@@ -94,7 +99,7 @@ class ExplicitRK:
             for aij, k in zip(row, ks):
                 if aij == 0.0:
                     continue
-                contrib = k * coef(aij)
+                contrib = k * scaled(dt, aij, ddt)
                 du = contrib if du is None else du + contrib
             ui = u if du is None else u + du
             ks.append(fvec(ui, at(tab.c[i + 1])))
@@ -103,7 +108,7 @@ class ExplicitRK:
         for bi, k in zip(tab.b, ks):
             if bi == 0.0:
                 continue
-            u1 = u1 + k * coef(bi)
+            u1 = u1 + k * scaled(dt, bi, ddt)
 
         f1 = ks[-1] if tab.fsal else fvec(u1, at(1.0))
 

@@ -292,7 +292,8 @@ def integrate(
         with `stateful = True` (FBDF) has `init_state(fvec, t0, u0, f0,
         rtol, atol)` and `step(fvec, t, dt, u, f0, state) -> (u1, f1, err,
         state')`; the state advances on accepted steps only, restarts
-        (`reset_state(state, t, u)`) after an event or a jump,
+        (`reset_state(state, t, u, t_off=)`, t_off the restart time's
+        offset or None) after an event or a jump,
         `controller_order(state)` sets the PI exponents, and its
         `factor_max` bounds the growth (JAX integrate.py:161-163,
         :221-223, :255, :282-284, :431-441). The fixed_trip driver
@@ -473,7 +474,9 @@ def integrate(
                 sstate = sstate_new
                 # a jump (an event, a stop transform) restarts the history
                 if se is not None or fired:
-                    sstate = stepper.reset_state(sstate, t_new, u_new)
+                    sstate = stepper.reset_state(
+                        sstate, t_new, u_new,
+                        t_off=None if clock is None else clock.t)
         else:
             t_new, u_new, f_new = t, u, f
             n_rej += 1

@@ -18,9 +18,15 @@ card, where JAX uses XLA's getrf: pivots and roundoff may differ).
     err = W⁻¹ (h/6 · (k1 − 2k2 + k3))
 
 The scalar coefficients (h·d, h/2, h/6) are rounded in the time dtype on
-the host, as JAX rounds its traced step length against them. The module
-also holds what the port's other implicit steppers share: `jacobian`,
-`lu_solve` and `refuse_offsets`.
+the host, as JAX rounds its traced step length against them. Where the
+step's start or length carries a derivative (`t_off`, `ddt`: zero-valued
+tensors, as `ExplicitRK.step` takes them), each coefficient is the tensor
+`explicit.scaled` makes, J is taken at the start time t_off + t, T by a
+jvp at that tensor time (so T's own derivative in t flows, as JAX's jvp of
+a jvp gives it), and each stage time goes through `explicit.stage_time`:
+the values are unchanged and autograd or forward mode sees t and h as JAX's
+traced times. The module also holds what the port's other implicit
+steppers share: `jacobian` and `lu_solve`.
 """
 
 from __future__ import annotations
@@ -30,9 +36,10 @@ import math
 import torch
 
 from ..ops.vjp import jacfwd
+from .explicit import scaled, stage_time
 from .integrate import kind_torch_dtype
 
-__all__ = ["Rosenbrock23", "jacobian", "lu_solve", "refuse_offsets"]
+__all__ = ["Rosenbrock23", "jacobian", "lu_solve"]
 
 
 def jacobian(fvec, u, t):
@@ -49,25 +56,6 @@ def lu_solve(lu, b):
     return torch.linalg.lu_solve(lu[0], lu[1], b[:, None])[:, 0]
 
 
-def refuse_offsets(name, offsets):
-    """The implicit and extrapolation steppers take host times only: a
-    step whose start or length carries a derivative (DirectAdjoint through
-    a saveat tensor or an event, ForwardDiffSensitivity through an event)
-    needs an explicit-RK stepper in the port."""
-    if any(v is not None for v in offsets.values()):
-        raise NotImplementedError(
-            f"{name}: a step whose time or length carries a derivative "
-            "(DirectAdjoint through a saveat tensor with requires_grad or "
-            "through events, ForwardDiffSensitivity through events) needs "
-            "an explicit Runge-Kutta stepper in the port (ROADMAP §3)")
-
-
-def _scale(dt, c):
-    """dt·c in dt's own floating type, as a Python float."""
-    kind = type(dt)
-    return float(kind(dt * kind(c)))
-
-
 class Rosenbrock23:
     order = 2  # propagating order (2nd, with a 3rd-order error estimate)
     fsal = True
@@ -82,29 +70,35 @@ class Rosenbrock23:
     def __repr__(self):
         return "Rosenbrock23()"
 
-    def step(self, fvec, t, dt, u, f0, need_err: bool = True, **offsets):
-        refuse_offsets(self.name, offsets)
+    def step(self, fvec, t, dt, u, f0, need_err: bool = True, ddt=None,
+             t_off=None):
         kind = type(t)
         n = u.shape[0]
-        J = jacobian(fvec, u, t)
-        tt = torch.tensor(t, dtype=kind_torch_dtype(kind), device=u.device)
+        t_a = stage_time(t, t, 0.0, None, t_off)
+        J = jacobian(fvec, u, t_a)
+        tt = (torch.tensor(t, dtype=kind_torch_dtype(kind), device=u.device)
+              if t_off is None else t_a)
         _, T = torch.func.jvp(lambda s: fvec(u, s), (tt,),
                               (torch.ones_like(tt),))
-        hd = _scale(dt, self.d)
+        hd = scaled(dt, self.d, ddt)
         W = torch.eye(n, dtype=u.dtype, device=u.device) - hd * J
         lu = torch.linalg.lu_factor(W)
 
         hdT = hd * T
         k1 = lu_solve(lu, f0 + hdT)
-        F1 = fvec(u + _scale(dt, 0.5) * k1, kind(t + kind(_scale(dt, 0.5))))
+        F1 = fvec(u + scaled(dt, 0.5, ddt) * k1,
+                  stage_time(t, kind(t + kind(scaled(dt, 0.5))), 0.5, ddt,
+                             t_off))
         k2 = k1 + lu_solve(lu, F1 - k1)
-        u1 = u + float(dt) * k2
-        F2 = fvec(u1, kind(t + dt))
+        u1 = u + scaled(dt, 1.0, ddt) * k2
+        F2 = fvec(u1, stage_time(t, kind(t + dt), 1.0, ddt, t_off))
         if not need_err:
             return u1, F2, None
         k3 = lu_solve(lu, F2 - self.e32 * (k2 - F1) - 2.0 * (k1 - f0) + hdT)
         # Shampine's estimate filtered through W⁻¹: without it the raw
         # h³ difference picks up the stiff residual
         h6 = float(kind(dt / kind(6.0)))
+        if ddt is not None:
+            h6 = ddt / 6.0 + h6
         err = lu_solve(lu, h6 * (k1 - 2.0 * k2 + k3))
         return u1, F2, err

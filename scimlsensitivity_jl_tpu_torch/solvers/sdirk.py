@@ -15,7 +15,13 @@ chosen on the device; a stage whose final residual exceeds
 1e-6·(1 + ‖k‖), or that is not finite, makes the step's error +inf, so
 the controller rejects it. The embedded error is filtered through W⁻¹
 (Hosea-Shampine), with a mass matrix's algebraic rows excluded before
-and after the filter. Nothing in a step reads the device.
+and after the filter. Nothing in a step reads the device. Where the
+step's start or length carries a derivative (`t_off`, `ddt`, as
+`ExplicitRK.step` takes them), h·γ, every h·aᵢⱼ, h·bᵢ and the error's
+h·eᵢ are `explicit.scaled` tensors, J is taken at t_off + t and each stage
+time goes through `explicit.stage_time`: the values are unchanged, and
+autograd runs through every Newton iteration, as JAX differentiates its
+fixed-count loop.
 
 ESDIRK: first stage explicit (k₁ = f₀, FSAL), diagonal γ elsewhere;
 stiffly accurate (b = last row), so f1 = k_last. SDIRK4 is all implicit.
@@ -28,7 +34,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .rosenbrock import _scale, jacobian, lu_solve, refuse_offsets
+from .explicit import scaled, stage_time
+from .rosenbrock import jacobian, lu_solve
 
 __all__ = ["ESDIRKTableau", "ESDIRK", "TRBDF2", "Kvaerno3", "SDIRK4",
            "TRBDF2_TAB", "KVAERNO3_TAB", "SDIRK4_TAB"]
@@ -144,16 +151,16 @@ class ESDIRK:
     def __repr__(self):
         return f"{self.name}()"
 
-    def step(self, fvec, t, dt, u, f0, need_err: bool = True, **offsets):
-        refuse_offsets(self.name, offsets)
+    def step(self, fvec, t, dt, u, f0, need_err: bool = True, ddt=None,
+             t_off=None):
         tab = self.tableau
         kind = type(t)
         n = u.shape[0]
         M = self.mass_matrix
-        J = jacobian(fvec, u, t)
+        J = jacobian(fvec, u, stage_time(t, t, 0.0, None, t_off))
         eyeM = (torch.eye(n, dtype=u.dtype, device=u.device) if M is None
                 else torch.as_tensor(M, dtype=u.dtype, device=u.device))
-        hg = _scale(dt, tab.gamma)
+        hg = scaled(dt, tab.gamma, ddt)
         lu = torch.linalg.lu_factor(eyeM - hg * J)
 
         ks = [f0] if tab.first_explicit else []
@@ -163,10 +170,11 @@ class ESDIRK:
                               device=u.device)
         norm = torch.linalg.vector_norm
         for i, row in enumerate(tab.a):
-            ti = kind(t + kind(_scale(dt, tab.c[i + c_off])))
+            ci = tab.c[i + c_off]
+            ti = stage_time(t, kind(t + kind(scaled(dt, ci))), ci, ddt, t_off)
             base = u
             for aij, k in zip(row[:-1], ks):
-                base = base + _scale(dt, aij) * k
+                base = base + scaled(dt, aij, ddt) * k
 
             def resid(k, base=base, ti=ti):
                 Mk = k if M is None else eyeM @ k
@@ -188,14 +196,14 @@ class ESDIRK:
         # stiffly accurate: u1 = u + h·Σ b k
         u1 = u
         for bi, k in zip(tab.a[-1], ks):
-            u1 = u1 + _scale(dt, bi) * k
+            u1 = u1 + scaled(dt, bi, ddt) * k
         f1 = ks[-1]  # b == last row and c_last == 1: k_last = f(t+dt, u1)
         if not need_err:
             return u1, f1, None
 
         err = torch.zeros_like(u)
         for ei, k in zip(tab.b_err, ks):
-            err = err + _scale(dt, ei) * k
+            err = err + scaled(dt, ei, ddt) * k
         alg = None if M is None else algebraic_rows(eyeM)
         if alg is not None:
             # an algebraic row's raw estimate is O(1/h) noise: out before

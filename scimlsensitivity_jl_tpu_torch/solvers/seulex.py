@@ -15,14 +15,19 @@ One `torch.linalg.lu_factor` per level; J from the field's `.jac` hook or
 `torch.func.jacfwd`. With a singular diagonal M (index-1 semi-explicit
 DAE), the slope returned is W_fine⁻¹ f, the consistent algebraic slope,
 and algebraic rows leave the error estimate. A non-finite u1 makes the
-error +inf. Hairer, Wanner, Solving ODEs II, §IV.9.
+error +inf. Where the step's start or length carries a derivative
+(`t_off`, `ddt`, as `ExplicitRK.step` takes them), each substep length
+h_j carries ddt/n_j, J is taken at t_off + t and each substep time goes
+through `explicit.stage_time`; the values are unchanged. Hairer, Wanner,
+Solving ODEs II, §IV.9.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .rosenbrock import jacobian, lu_solve, refuse_offsets
+from .explicit import stage_time
+from .rosenbrock import jacobian, lu_solve
 from .sdirk import algebraic_rows
 
 __all__ = ["Seulex", "Rodas4Like"]
@@ -48,25 +53,27 @@ class Seulex:
     def __repr__(self):
         return self.name
 
-    def step(self, fvec, t, dt, u, f0, need_err: bool = True, **offsets):
-        refuse_offsets(self.name, offsets)
+    def step(self, fvec, t, dt, u, f0, need_err: bool = True, ddt=None,
+             t_off=None):
         kind = type(t)
         K = self.levels
         n = u.shape[0]
         M = self.mass_matrix
-        J = jacobian(fvec, u, t)
+        J = jacobian(fvec, u, stage_time(t, t, 0.0, None, t_off))
         eyeM = (torch.eye(n, dtype=u.dtype, device=u.device) if M is None
                 else torch.as_tensor(M, dtype=u.dtype, device=u.device))
 
         lus, T = [], []
         for nsub in self.seq:
             h = kind(dt / kind(nsub))
-            lu = torch.linalg.lu_factor(eyeM - float(h) * J)
+            hj = float(h) if ddt is None else ddt / float(nsub) + float(h)
+            lu = torch.linalg.lu_factor(eyeM - hj * J)
             lus.append(lu)
             z = u
             for m in range(nsub):
-                z = z + lu_solve(lu, float(h) * fvec(
-                    z, kind(t + kind(kind(m) * h))))
+                tm = stage_time(t, kind(t + kind(kind(m) * h)), m / nsub,
+                                ddt, t_off)
+                z = z + lu_solve(lu, hj * fvec(z, tm))
             T.append(z)
 
         # Aitken-Neville with the linear ratios n_j / n_{j-l}
@@ -77,11 +84,12 @@ class Seulex:
         u1 = T[K - 1]
         err = T[K - 1] - T[K - 2]
 
+        t_b = stage_time(t, kind(t + dt), 1.0, ddt, t_off)
         if M is None:
-            f1 = fvec(u1, kind(t + dt))
+            f1 = fvec(u1, t_b)
         else:
             # W⁻¹f at the finest level: the consistent algebraic slope
-            f1 = lu_solve(lus[-1], fvec(u1, kind(t + dt)))
+            f1 = lu_solve(lus[-1], fvec(u1, t_b))
             err = torch.where(algebraic_rows(eyeM), torch.zeros_like(err),
                               err)
         bad = ~torch.isfinite(u1).all()

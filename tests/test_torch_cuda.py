@@ -796,9 +796,9 @@ def test_stiff_robertson_on_card_matches_cpu(cuda, solver):
     steps. cuSOLVER's LU rounds otherwise than LAPACK's, and on
     Rosenbrock23's reverse that moved its steps (at adj_rtol 1e-5: 362
     accepted against 368, gradients 8.8e-5 apart); there both are held to
-    one oracle instead, ForwardDiffSensitivity on the CPU (through
-    Rosenbrock23: FBDF's history is not replayed), at tests/test_stiff.py's
-    bound (rtol 2e-4, atol 1e-8). FBDF's reverse moved its steps too."""
+    one oracle instead, ForwardDiffSensitivity on the CPU through
+    Rosenbrock23, at tests/test_stiff.py's bound (rtol 2e-4, atol 1e-8).
+    FBDF's reverse moved its steps too."""
     def rob(u, p, t):
         return torch.stack([-p[0] * u[0] + p[1] * u[1] * u[2],
                             p[0] * u[0] - p[1] * u[1] * u[2]
@@ -887,6 +887,62 @@ def test_dae_robertson_on_card_matches_cpu(cuda, rule):
         assert float(norm(g_card - g_cpu) / norm(g_cpu)) <= 1e-9
     else:
         assert torch.allclose(g_card, g_cpu, rtol=2e-4, atol=1e-8)
+
+
+def _rob(u, p, t):
+    return torch.stack([-p[0] * u[0] + p[1] * u[1] * u[2],
+                        p[0] * u[0] - p[1] * u[1] * u[2] - p[2] * u[1] ** 2,
+                        p[2] * u[1] ** 2])
+
+
+def _card_matches_cpu(s_card, g_card, s_cpu, g_cpu):
+    """Both succeed; where the card took the CPU's steps the gradients agree
+    to 1e-9 relative L2, else (cuSOLVER's LU moved a step) to the stiff
+    bound of tests/test_stiff.py."""
+    assert s_card.retcode == 0 and s_cpu.retcode == 0
+    assert torch.isfinite(g_card).all()
+    if s_card.stats.n_accepted == s_cpu.stats.n_accepted:
+        norm = torch.linalg.vector_norm
+        assert float(norm(g_card - g_cpu) / norm(g_cpu)) <= 1e-9
+    else:
+        assert torch.allclose(g_card, g_cpu, rtol=2e-4, atol=1e-8)
+
+
+def test_fbdf_forwarddiff_on_card_matches_cpu(cuda):
+    """ForwardDiffSensitivity on FBDF (the tangents replayed through each
+    logged BDF solve, with the history's tangents): Robertson on (0, 0.1)
+    at rtol 1e-4, the gradient of Σ y1² in p, on the card and on the CPU."""
+    out = []
+    for device in (cuda, "cpu"):
+        p = torch.tensor([0.04, 1e4, 3e7], dtype=torch.float64,
+                         device=device).requires_grad_()
+        sol = P.solve(P.ODEProblem(_rob, torch.tensor(
+            [1.0, 0.0, 0.0], dtype=torch.float64, device=device), (0.0, 0.1),
+            p), P.FBDF(), saveat=[0.01, 0.1], rtol=1e-4, atol=1e-8,
+            sensealg=P.ForwardDiffSensitivity())
+        (g,) = torch.autograd.grad(torch.sum(sol.ys[:, 0] ** 2), p)
+        out += [sol, g.cpu()]
+    _card_matches_cpu(*out)
+
+
+def test_esdirk_direct_adjoint_saveat_on_card_matches_cpu(cuda):
+    """DirectAdjoint through a saveat tensor with requires_grad on TRBDF2
+    (each step clipped to a save time differentiated in its length):
+    Robertson's transient (0, 1e-3) at rtol 1e-5, the gradient of 1e4·Σ y2
+    in log p and in the save times, on the card and on the CPU."""
+    out = []
+    for device in (cuda, "cpu"):
+        logp = torch.log(torch.tensor([0.04, 1e4, 3e7], dtype=torch.float64,
+                                      device=device)).requires_grad_()
+        sv = torch.tensor([1e-4, 5e-4], dtype=torch.float64, device=device,
+                          requires_grad=True)
+        sol = P.solve(P.ODEProblem(_rob, torch.tensor(
+            [1.0, 0.0, 0.0], dtype=torch.float64, device=device),
+            (0.0, 1e-3), torch.exp(logp)), P.TRBDF2(), saveat=sv, rtol=1e-5,
+            atol=1e-10, max_steps=256, sensealg=P.DirectAdjoint())
+        g = torch.autograd.grad(1e4 * torch.sum(sol.ys[:, 1]), (logp, sv))
+        out += [sol, torch.cat(g).cpu()]
+    _card_matches_cpu(*out)
 
 
 @pytest.mark.parametrize("adaptive", [False, True])
