@@ -216,6 +216,24 @@ Phases, each printed before the last line:
      Adam steps at batch 32 (the loss falls; the third traced by
      utils.profile.trace for its idle share), the float64 gradient at
      batch 4 against the CPU; entry() on the card;
+  5q. [shard]: the flagship PDE with its state split over two ranks that
+     share the card over gloo (`--shard` processes; the card host has one
+     GPU, and NCCL refuses two ranks on one device), u0 a DTensor with
+     placement Shard(0): float32 at n = 1,048,576 and float64 at n =
+     262,144, under sensealg=None (BacksolveAdjoint), DirectAdjoint and
+     InterpolatingAdjoint, each rank's K1/K2 on its n/2 cells with one
+     ghost cell per side from the other; u0 a Gaussian centred off the
+     shards' cut (x = 0.4), so that the cut's two sides differ. The
+     gradients against phase 4's gradient function run unsharded on the
+     same problem in this process (float64 within 1e-10, float32 at phase
+     5's float32 gates), and the float64 gate's reading with the exchange
+     cut (each half solved alone with edge copies) printed and required
+     to fail that gate; each
+     rank's K1/K2 launches equal to the unsharded run's and each launch
+     over n/2 cells; each arm's wall (CUDA events) beside the unsharded
+     one, K1/K2 per launch at n/2 from a profiler trace, and the share of
+     a gradient's wall spent inside the collectives (gloo stages CUDA
+     tensors through host memory);
   6. timings: CUDA events (median of interleaved rounds) and a
      torch.profiler trace for kernel time and the device's idle share; per
      kernel device time against its bound and its plain version (K1, K2
@@ -233,9 +251,11 @@ Phases, each printed before the last line:
      own forward, with the device's idle share; phase 5g's PDE arms at
      n = 1,048,576 in float32, each direct call against the dense forward it reads, with
      the device's idle share, and its gradient from the warm-up round
-     against the card's float64 one, with its K1/K2 launches; phase 5j's Robertson gradients against their
-     forwards, the spiral under the mass and the delayed S4 field (RK4 and
-     Tsit5) each against its own forward, with the device's idle share;
+     against the card's float64 one, with its K1/K2 launches; the spiral
+     under the mass and the delayed S4 field (RK4 and Tsit5) each against
+     its own forward, with the device's idle share (5i's and 5j's
+     Robertson gradients are checked there and not timed, to keep the
+     command under ~950 s with phase 5q);
      phase 5l's and 5m's forwards and gradients (the neural SDE at full
      width, the SDE and RODE Fisher–KPP at n = 1,048,576), each against
      its own forward, with the device's idle share; K3/K4 alone at S4's
@@ -257,6 +277,7 @@ import math
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -407,6 +428,16 @@ def rd1d_case(n, u_off, lam_off, dtype, device):
 def flagship_inputs(n, dtype, device):
     x = torch.arange(n, dtype=dtype, device=device) / n
     u0 = torch.exp(-((x - 0.5) ** 2) * 100.0)
+    return u0, torch.tensor(P_FLAGSHIP, dtype=dtype, device=device)
+
+
+def shard_inputs(n, dtype, device):
+    """flagship_inputs with the Gaussian centred at x = 0.4, off the cut
+    between two shards at x = 0.5, where its slope is then ~-7.4: a rank
+    that took its own edge cell as the ghost at the cut, or swapped its
+    two ghosts, would move the gradient far past phase 5q's gates."""
+    x = torch.arange(n, dtype=dtype, device=device) / n
+    u0 = torch.exp(-((x - 0.4) ** 2) * 100.0)
     return u0, torch.tensor(P_FLAGSHIP, dtype=dtype, device=device)
 
 
@@ -1072,10 +1103,6 @@ DAE_INIT = dict(T=0.2, y0=1.3, p=0.8, rtol=1e-8, atol=1e-10, dt0=1e-3,
                 adj_rtol=1e-8, adj_atol=1e-10)
 DAE_INIT_TOL = 1e-5   # against the closed form, as tests/test_dae.py
 SPIRAL_MASS = ((1.0, 0.2), (-0.1, 1.0))
-# the Robertson DAE gradients timed in phase 6j, one run each (~2-10 s a
-# run; sensealg=None, Interpolating and Quadrature are checked in 5j but
-# not timed, for time)
-DAE_TIMED = ("DirectAdjoint", "GaussAdjoint", "FBDF GaussAdjoint")
 
 # the delay equations (phase 5k): u'(t) = mlp2(u(t - τ)) with S4's field
 # (B = 1024, 512→2048→512, float32: the simt route), history u0, on [0, 1]
@@ -1673,6 +1700,336 @@ class Background:
         shutil.rmtree(self.workdir, ignore_errors=True)
 
 
+# the sharded flagship (phase 5q): two ranks on the one card, over gloo,
+# which takes all_gather on CUDA tensors (it stages them through host
+# memory) but not send / recv; (dtype, n) and the arms
+SHARD_WORLD = 2
+SHARD_CASES = ((torch.float32, 1048576), (torch.float64, 262144))
+SHARD_ARMS = ("None", "DirectAdjoint", "InterpolatingAdjoint")
+SHARD_F64_TOL = 1e-10  # sharded vs unsharded card f64, relative L2
+SHARD_TIMEOUT = 420.0
+
+
+# K1/K2 with a shard's ghost cells (phase 3): (n, u's offset, λ's offset)
+# at each [shard] case's n/2, a ragged n, a tail alone, and off 16 bytes
+RD1D_GHOST_CASES = [(524288, 0, 0), (131072, 0, 0), (262147, 0, 0),
+                    (5, 0, 0), (131072, 1, 1), (131072, 0, 1)]
+
+
+def check_ghosted_kernels(rd1d, dev):
+    """K1/K2 given a shard's ghost cells against the plain versions with
+    the same ghosts; returns the largest K1 and K2 errors in float32 at the
+    [shard] float32 case's n/2."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        for n, u_off, lam_off in RD1D_GHOST_CASES:
+            u, lam = rd1d_case(n, u_off, lam_off, dtype, dev)
+            p = torch.tensor(P_FLAGSHIP, device=dev, dtype=dtype)
+            gen = torch.Generator(device=dev).manual_seed(SEED + n)
+            ghosts = torch.rand(4, generator=gen, device=dev, dtype=dtype)
+            inv_dx2 = float(n) * float(n)
+            f = rd1d.rd1d_fwd_cuda(u, p, inv_dx2, ghosts[:2].contiguous())
+            du, dp = rd1d.rd1d_vjp_cuda(u, p, inv_dx2, lam, ghosts)
+            f0 = rd1d.rd1d_fwd_cuda(u, p, inv_dx2)
+            torch.cuda.synchronize()
+            f_ref = rd1d.rd1d_reference(u, p, inv_dx2, ghosts[:2])
+            du_ref, _ = rd1d.rd1d_vjp_reference(u, p, inv_dx2, lam, ghosts)
+            _, dp_ref = rd1d.rd1d_vjp_reference(u.double(), p.double(),
+                                                inv_dx2, lam.double(),
+                                                ghosts.double())
+            e_f = float((f - f_ref).abs().max() / f_ref.abs().max())
+            e_du = float((du - du_ref).abs().max() / du_ref.abs().max())
+            diff = (dp.double() - dp_ref).abs()
+            e_dp = torch.where(dp_ref != 0, diff / dp_ref.abs(), diff).tolist()
+            # the ghosts move only the two end cells (for n > 2)
+            inner = (n <= 2 or torch.equal(f[1:-1], f0[1:-1]))
+            print(f"[kernels] {str(dtype)[6:]} n={n} (u at +{u_off}, λ at "
+                  f"+{lam_off}) with a shard's ghosts: K1 max|f-f_ref|/max|f|"
+                  f"={e_f:.3e}, K2 max|ū-ū_ref|/max|ū|={e_du:.3e} (tol "
+                  f"{K_TOL[dtype]:g}), D̄ rel {e_dp[0]:.3e}, k̄ rel "
+                  f"{e_dp[1]:.3e} (tol {KP_TOL[dtype]:g}); interior cells "
+                  f"the edge-copy launch's bits: {inner}")
+            check(e_f <= K_TOL[dtype] and e_du <= K_TOL[dtype]
+                  and max(e_dp) <= KP_TOL[dtype] and inner,
+                  f"K1/K2 with ghosts disagree at n={n}")
+            if dtype == torch.float32 and n == 524288:
+                out = {"K1": float((f - f_ref).abs().max()),
+                       "K2": float((du - du_ref).abs().max())}
+    return out
+
+
+def shard_sensealg(P, arm):
+    return None if arm == "None" else getattr(P, arm)()
+
+
+def u0_dtensor(u0, mesh, rank, world):
+    """u0 split over the mesh as a DTensor with placement Shard(0): this
+    rank's rows as the local shard, no scatter (gloo has none for CUDA
+    tensors)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    return DTensor.from_local(u0.chunk(world)[rank].contiguous(), mesh,
+                              [Shard(0)], run_check=False, shape=u0.shape,
+                              stride=u0.stride())
+
+
+def shard_gradient(P, field, n, u0, p, arm, shard_of=None):
+    """flagship_gradient with u0 whole, or split over the mesh when
+    `shard_of` = (mesh, rank, world)."""
+    if shard_of is not None:
+        u0 = u0_dtensor(u0, *shard_of)
+    return flagship_gradient(P, field, n, u0, p, shard_sensealg(P, arm))
+
+
+def shard_counts(rd1d, reset=False):
+    """(K1 launches, K2 launches, K1 cells, K2 cells) since the last reset."""
+    k1, k2 = rd1d.rd1d_fwd_cuda, rd1d.rd1d_vjp_cuda
+    got = (k1.launches, k2.launches, k1.cells, k2.cells)
+    if reset:
+        k1.launches = k2.launches = k1.cells = k2.cells = 0
+    return got
+
+
+def cut_gradient(P, rd1d, n, u0, p, arm):
+    """shard_gradient's result if the halo exchange were cut, each rank
+    taking its own edge cell as the ghost at the cut: each of the
+    SHARD_WORLD pieces of u0 solved alone with edge copies at both ends
+    (the loss is a sum over cells, so u0's gradient is the pieces' side
+    by side and p's their sum)."""
+    parts = [shard_gradient(P, rd1d.make_rd1d_field(len(piece), 1.0 / n),
+                            len(piece), piece, p, arm)
+             for piece in u0.chunk(SHARD_WORLD)]
+    return (torch.cat([gu.detach() for gu, _, _ in parts]),
+            sum(gp.detach() for _, gp, _ in parts))
+
+
+def _shard_spec(cases, arms) -> str:
+    return json.dumps({"cases": [[str(d)[6:], n] for d, n in cases],
+                       "arms": list(arms)})
+
+
+def _shard_unspec(spec: str):
+    got = json.loads(spec)
+    return ([(getattr(torch, d), n) for d, n in got["cases"]],
+            tuple(got["arms"]))
+
+
+def run_shard_rank(rank: int, world: int, port: int, path: str,
+                   spec: str) -> int:
+    """`chip_smoke.py --shard RANK WORLD PORT PATH SPEC`: one rank of phase
+    5q on the card, for the (dtype, n) cases and arms of SPEC (JSON); its
+    gradients' rows, launch counts and times saved to PATH (torch.save),
+    read back by the run that started it."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import scimlsensitivity_jl_tpu_torch as P
+    from scimlsensitivity_jl_tpu_torch.ops import rd1d
+    from scimlsensitivity_jl_tpu_torch.parallel import sharded
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+    cases, arms = _shard_unspec(spec)
+    results = {}
+    try:
+        mesh = init_device_mesh("cuda", (world,))
+        for dtype, n in cases:
+            field = rd1d.make_rd1d_field(n, 1.0 / n)
+            u0, p = shard_inputs(n, dtype, dev)
+            for i, arm in enumerate(arms):
+                def run():
+                    return shard_gradient(P, field, n, u0, p, arm,
+                                          (mesh, rank, world))
+
+                shard = sharded.ShardContext.of(u0_dtensor(u0, mesh, rank,
+                                                           world))
+                if i == 0:  # warm: the library's load, K2's workspace
+                    run()
+                shard_counts(rd1d, reset=True)
+                comm0, ex0 = shard.comm_seconds, shard.exchanges
+                (gu, gp, sol), ms = event_ms(run)
+                adj = sol.adjoint.stats if sol.adjoint is not None else None
+                results[(str(dtype), n, arm)] = {
+                    "gu": gu.to_local().detach().cpu(),
+                    "gp": gp.detach().cpu(), "ms": ms,
+                    "counts": shard_counts(rd1d),
+                    "comm_s": shard.comm_seconds - comm0,
+                    "exchanges": shard.exchanges - ex0,
+                    "sensealg": type(sol.sensealg).__name__,
+                    "stats": tuple(sol.stats), "adj": adj and tuple(adj)}
+        # K1/K2 per launch at n/2 from a device trace of the first case's
+        # sensealg=None gradient (rank 0 traces, rank 1 runs alongside)
+        dtype, n = cases[0]
+        field = rd1d.make_rd1d_field(n, 1.0 / n)
+        u0, p = shard_inputs(n, dtype, dev)
+
+        def traced():
+            return shard_gradient(P, field, n, u0, p, "None",
+                                  (mesh, rank, world))
+
+        if rank == 0:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                traced()
+                torch.cuda.synchronize()
+            per = {}
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA and e.count:
+                    for name, key in (("K1", "rd1d_fwd_kernel"),
+                                      ("K2", "rd1d_bwd_kernel")):
+                        if key in e.key:
+                            per[name] = (e.self_device_time_total / e.count,
+                                         e.count)
+            results["trace"] = per
+        else:
+            traced()
+            torch.cuda.synchronize()
+    finally:
+        torch.save(results, path)
+        dist.destroy_process_group()
+    return 0
+
+
+def shard_phase(P, rd1d, dev, card, cases=SHARD_CASES,
+                arms=SHARD_ARMS) -> dict:
+    """Phase 5q [shard]: the flagship with its state split over
+    SHARD_WORLD ranks that share the card over gloo (`--shard`
+    processes), against phase 4's gradient function run unsharded in
+    this process, for each (dtype, n) of `cases` under each of `arms`;
+    returns each rank's K1/K2 launches."""
+    shard_ref = {}
+    for dtype, n in cases:
+        field = rd1d.make_rd1d_field(n, 1.0 / n)
+        u0, p = shard_inputs(n, dtype, dev)
+        for i, arm in enumerate(arms):
+            run = (lambda field=field, n=n, u0=u0, p=p, arm=arm:
+                   shard_gradient(P, field, n, u0, p, arm))
+            if i == 0:  # warm, as the ranks do
+                run()
+            shard_counts(rd1d, reset=True)
+            (gu, gp, sol), ms = event_ms(run)
+            shard_ref[(str(dtype), n, arm)] = {
+                "gu": gu.detach().cpu(), "gp": gp.detach().cpu(), "ms": ms,
+                "counts": shard_counts(rd1d),
+                "sensealg": type(sol.sensealg).__name__}
+            if dtype == torch.float64:
+                # the gate's reading with the exchange cut: it must see it
+                cu, cp = cut_gradient(P, rd1d, n, u0, p, arm)
+                shard_ref[(str(dtype), n, arm)]["cut"] = (
+                    rel_l2(cu.cpu(), gu.detach().cpu()),
+                    [abs(float(cp[i] - gp[i])) / abs(float(gp[i]))
+                     for i in range(2)])
+    shard_dir = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    paths = [os.path.join(shard_dir, f"rank{r}.pt")
+             for r in range(SHARD_WORLD)]
+    logs = [open(os.path.join(shard_dir, f"rank{r}.log"), "w+")
+            for r in range(SHARD_WORLD)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--shard", str(r),
+         str(SHARD_WORLD), str(port), paths[r], _shard_spec(cases, arms)],
+        stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(SHARD_WORLD)]
+    deadline = time.perf_counter() + SHARD_TIMEOUT
+    rcs = []
+    try:
+        for proc in procs:
+            try:
+                rcs.append(proc.wait(max(deadline - time.perf_counter(),
+                                         1.0)))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    for r, log in enumerate(logs):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        check(rcs[r] == 0, f"[shard] rank {r} failed or ran late (exit "
+              f"{rcs[r]}):\n{text[-4000:]}")
+    ranks = [torch.load(path, weights_only=False) for path in paths]
+    shutil.rmtree(shard_dir, ignore_errors=True)
+    shard_launches = {f"[shard] rank {r}": {"K1": 0, "K2": 0}
+                      for r in range(SHARD_WORLD)}
+    for dtype, n in cases:
+        for arm in arms:
+            key = (str(dtype), n, arm)
+            ref, got = shard_ref[key], [rk[key] for rk in ranks]
+            gu = torch.cat([g["gu"] for g in got])
+            e_u = rel_l2(gu, ref["gu"])
+            e_p = [abs(float(got[0]["gp"][i] - ref["gp"][i]))
+                   / abs(float(ref["gp"][i])) for i in range(2)]
+            same_p = all(torch.equal(g["gp"], got[0]["gp"]) for g in got)
+            label = f"{str(dtype)[6:]} n={n} {arm}"
+            if dtype == torch.float64:
+                gate = (f"tol {SHARD_F64_TOL:g} on u0-grad, dD and dk")
+                ok = e_u <= SHARD_F64_TOL and max(e_p) <= SHARD_F64_TOL
+            else:
+                gate = (f"tol {F32_U0_TOL:g} on u0-grad, {F32_DK_TOL:g} on "
+                        "dk; dD not gated, as in phase 5")
+                ok = e_u <= F32_U0_TOL and e_p[1] <= F32_DK_TOL
+            print(f"[shard] {label}: sharded vs unsharded card gradient: "
+                  f"u0-grad rel L2 {e_u:.3e}, dD rel {e_p[0]:.3e}, dk rel "
+                  f"{e_p[1]:.3e} ({gate}); p-grad the same on every rank: "
+                  f"{same_p}; sensealg {got[0]['sensealg']} (unsharded "
+                  f"{ref['sensealg']})")
+            check(ok and same_p, f"[shard] {label} off the unsharded run")
+            if "cut" in ref:
+                c_u, c_p = ref["cut"]
+                print(f"[shard] {label}: the same gate with the halo "
+                      f"exchange cut (each half solved alone, edge copies "
+                      f"at the cut): u0-grad rel L2 {c_u:.3e}, dD rel "
+                      f"{c_p[0]:.3e}, dk rel {c_p[1]:.3e}")
+                check(max(c_u, *c_p) > SHARD_F64_TOL,
+                      f"[shard] {label}: the gate cannot see a cut exchange")
+            check(got[0]["sensealg"] == ref["sensealg"],
+                  f"[shard] {label} dispatched elsewhere")
+            k1, k2 = ref["counts"][:2]
+            for r, g in enumerate(got):
+                l1, l2, c1, c2 = g["counts"]
+                half = n // SHARD_WORLD
+                print(f"[shard] {label} rank {r}: K1 {l1}, K2 {l2} launches "
+                      f"(unsharded {k1}, {k2}), over {c1 / max(l1, 1):.0f} "
+                      f"and {c2 / max(l2, 1):.0f} cells each (n/2 = {half}); "
+                      f"{g['exchanges']} halo exchanges, "
+                      f"{g['comm_s'] * 1e6 / max(g['exchanges'], 1):.0f} us "
+                      "of collectives each (the adaptive reverses' norm "
+                      "gathers included); wall "
+                      f"{g['ms']:.3f} ms (unsharded {ref['ms']:.3f} ms, "
+                      f"CUDA events, the two ranks sharing the card), "
+                      f"{100 * g['comm_s'] * 1e3 / g['ms']:.1f}% of it "
+                      "inside the collectives (gloo's host staging "
+                      "included)")
+                check((l1, l2) == (k1, k2) and c1 == l1 * half
+                      and c2 == l2 * half,
+                      f"[shard] {label} rank {r}: launches {g['counts']} "
+                      f"against the unsharded {ref['counts']}")
+                shard_launches[f"[shard] rank {r}"]["K1"] += l1
+                shard_launches[f"[shard] rank {r}"]["K2"] += l2
+    trace = ranks[0]["trace"]
+    check(set(trace) == {"K1", "K2"}, f"[shard] trace held {trace}")
+    dtype, n = cases[0]
+    elt = torch.tensor([], dtype=dtype).element_size()
+    for name, (us, count) in trace.items():
+        cells = (2 if name == "K1" else 3) * elt  # bytes per cell
+        bound = cells * (n // SHARD_WORLD) / HBM_BYTES_PER_S * 1e6
+        print(f"[time] {card}: [shard] {str(dtype)[6:]} n={n} "
+              f"sensealg=None, rank 0: "
+              f"{name} {us:.2f} us per launch at n/2 = {n // SHARD_WORLD} "
+              f"cells over {count} launches (bound {bound:.2f} us at "
+              f"{cells} B/cell; the other rank's launches share the card); "
+              "profiler trace")
+    return shard_launches
+
+
 def main() -> int:
     t_start = time.perf_counter()
 
@@ -1768,6 +2125,7 @@ def main() -> int:
                 max_abs["K1"] = float((f - f_ref).abs().max())
                 # K2's D̄, k̄ are O(1e13) and O(1) and reported relative above
                 max_abs["K2"] = float((du - du_ref).abs().max())
+    ghost_abs = check_ghosted_kernels(rd1d, dev)
     # one kernel per K1 and per K2 call and no memset (K2's workspace is
     # made by the first call on a stream, outside the trace)
     k12_counts = {}  # n -> {"K1": (kernels, memsets), "K2": ...}, aligned
@@ -3647,6 +4005,13 @@ def main() -> int:
     print(f"[digits] phase 5p: {time.perf_counter() - t:.1f} s")
     elapsed("phase 5p [digits]")
 
+    # -- 5q. [shard]: the flagship with its state split over two ranks on
+    # the card (gloo), against phase 4's gradient function run unsharded
+    t = time.perf_counter()
+    shard_launches = shard_phase(P, rd1d, dev, card)
+    print(f"[shard] phase 5q: {time.perf_counter() - t:.1f} s")
+    elapsed("phase 5q [shard]")
+
     # -- 6. timings: the megakernel path first ---------------------------------
     u0, p = flagship_inputs(MEGA_N, torch.float32, dev)
     arms = {
@@ -4102,8 +4467,9 @@ def main() -> int:
     # baseline, CUDA events (median of EV_TIMING_ROUNDS interleaved rounds
     # after a warm-up round) and one profiled run for the device's idle
     # share: the spiral f32 with unrolled Gauss against its while driver
-    # (the gradients not traced, as in 6f), Robertson (FBDF, GaussAdjoint)
-    # against its forward, the nonlinear solve against its forward
+    # (the gradients not traced, as in 6f), the nonlinear solve against its
+    # forward. Robertson's FBDF GaussAdjoint gradient is checked in 5i and
+    # not timed, to keep the command under ~950 s with phase 5q
     setup32 = spiral_setup(P, torch.float32, dev, data64)
     arms = {"S2u forward": lambda: spiral_forward(P, setup32, UNROLL_SPIRAL),
             "S2u GaussAdjoint while gradient": lambda: spiral_gradient(
@@ -4114,39 +4480,17 @@ def main() -> int:
     ev_time("spiral f32", arms, spiral_checks,
             traced=lambda name: "forward" in name)
     del setup32
-    # Robertson: one timed run of each (a gradient takes ~10 s; its rounds
-    # took ~60 s of the command)
-    for _ in range(2):  # the second forward is the one kept
-        _, ms_f = event_ms(lambda: rob_bench(P, dev, P.FBDF(), None,
-                                             ROB_BENCH, grad=False))
-    (_, sol), ms_g = event_ms(lambda: rob_bench(P, dev, P.FBDF(),
-                                                P.GaussAdjoint(), ROB_BENCH))
-    print(f"[time] {card}: Robertson f64 (bench setting) forward: "
-          f"{ms_f:.3f} ms; FBDF GaussAdjoint gradient: {ms_g:.3f} ms "
-          f"({ms_g / ms_f:.2f}x its forward; CUDA events around one run "
-          f"each, reverse {sol.adjoint.stats})")
     arms = {"forward": lambda: nl_solve(P, dev, grad=False),
             "IFT gradient": lambda: nl_solve(P, dev)}
     ev_time("solve_nonlinear f64 (8 unknowns)", arms)
     elapsed("phase 6h [unroll] and [stiff] timings")
 
     # -- 6j. [dae] and [dde] timings: each gradient against its own forward;
-    # the Robertson DAE arms DAE_TIMED one run each, after 5j's; the
-    # spiral under the invertible mass and the delayed S4 field at full
+    # the spiral under the invertible mass and the delayed S4 field at full
     # width, CUDA events (median of EV_TIMING_ROUNDS interleaved rounds
-    # after a warm-up round) and one profiled run for the idle share
-    for solver in (P.SDIRK4, P.FBDF):
-        for _ in range(2):  # the second forward is the one kept
-            sol, ms_f = event_ms(lambda: dae_gradient(
-                P, dev, None, solver(), grad=False))
-        for arm, (sensealg, arm_solver, rotated, _) in dae_arms.items():
-            if arm_solver is solver and arm in DAE_TIMED:
-                _, ms = event_ms(lambda: dae_gradient(
-                    P, dev, sensealg, solver(), rotated))
-                print(f"[time] {card}: Robertson DAE f64 {solver.__name__} "
-                      f"{arm} gradient: {ms:.3f} ms ({ms / ms_f:.2f}x its "
-                      f"forward of {ms_f:.3f} ms, {sol.stats}; CUDA events "
-                      "around one run, after phase 5j's)")
+    # after a warm-up round) and one profiled run for the idle share. The
+    # Robertson DAE gradients are checked in 5j and not timed, to keep the
+    # command under ~950 s with phase 5q
     setup32 = spiral_setup(P, torch.float32, dev, data64)
     kw32 = spiral_mass_kw(P, dict(SPIRAL_ADAPTIVE, sensealg=P.GaussAdjoint()))
     arms = {"S2m forward": lambda: spiral_mass_gradient(P, setup32, kw32,
@@ -4275,8 +4619,11 @@ def main() -> int:
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:58",
          "launches": (launches["K1"] + pde_c_launches["K1"]
                       + interp_k["K1"] + dose_k["K1"] + direct_k["K1"]
-                      + unroll_k["K1"] + fk_k["K1"]),
+                      + unroll_k["K1"] + fk_k["K1"]
+                      + sum(got["K1"] for got in shard_launches.values())),
          "paths": {"PDE (a)+(b)": launches["K1"],
+                   **{rank: got["K1"]
+                      for rank, got in shard_launches.items()},
                    "PDE (c) QuadratureAdjoint": pde_c_launches["K1"],
                    **{f"PDE {arm}": got["K1"]
                       for arm, got in interp_launches.items()},
@@ -4288,6 +4635,7 @@ def main() -> int:
                       for arm, got in unroll_launches.items() if "K1" in got},
                    **{arm: got["K1"] for arm, got in fk_launches.items()}},
          "max_abs_err": max_abs["K1"],
+         "shard_max_abs_err": ghost_abs["K1"],
          "ms": timing[n]["K1"], "plain_ms": timing[n]["K1_plain"],
          "cold_ms": timing[n]["K1_cold"],
          "kernels_per_call": k12_counts[n]["K1"][0],
@@ -4297,8 +4645,11 @@ def main() -> int:
          "replaces": "scimlsensitivity_jl_tpu/ops/pallas_pde.py:66",
          "launches": (launches["K2"] + pde_c_launches["K2"]
                       + interp_k["K2"] + dose_k["K2"] + direct_k["K2"]
-                      + unroll_k["K2"] + fk_k["K2"]),
+                      + unroll_k["K2"] + fk_k["K2"]
+                      + sum(got["K2"] for got in shard_launches.values())),
          "paths": {"PDE (a)+(b)": launches["K2"],
+                   **{rank: got["K2"]
+                      for rank, got in shard_launches.items()},
                    "PDE (c) QuadratureAdjoint": pde_c_launches["K2"],
                    **{f"PDE {arm}": got["K2"]
                       for arm, got in interp_launches.items()},
@@ -4310,6 +4661,7 @@ def main() -> int:
                       for arm, got in unroll_launches.items() if "K2" in got},
                    **{arm: got["K2"] for arm, got in fk_launches.items()}},
          "max_abs_err": max_abs["K2"],
+         "shard_max_abs_err": ghost_abs["K2"],
          "ms": timing[n]["K2"], "plain_ms": timing[n]["K2_plain"],
          "cold_ms": timing[n]["K2_cold"],
          "kernels_per_call": k12_counts[n]["K2"][0],
@@ -4379,4 +4731,7 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--background"]:
         sys.exit(run_background(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--shard"]:
+        sys.exit(run_shard_rank(int(sys.argv[2]), int(sys.argv[3]),
+                                int(sys.argv[4]), sys.argv[5], sys.argv[6]))
     sys.exit(main())

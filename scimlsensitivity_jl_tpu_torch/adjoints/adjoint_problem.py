@@ -56,6 +56,7 @@ import torch
 from ..callbacks import PresetTimeCallback
 from ..ops.interp import dense_eval
 from ..ops.vjp import make_vjp_kernels
+from ..parallel import sharded
 from ..problems import ODEProblem
 from ..sensealg import (BacksolveAdjoint, InterpolatingAdjoint,
                         QuadratureAdjoint)
@@ -126,6 +127,7 @@ def ODEAdjointProblem(
     carries the block mass [Mᵀ 0; 0 I], its λ jumps are projected through
     the constraint (`_dae_project_jumps`) and dG/du0 = Mᵀλ(t0).
     """
+    sharded.refuse_sharded(sol.prob, "ODEAdjointProblem")
     refuse_other_problems(sol, "ODEAdjointProblem")
     sensealg = sensealg if sensealg is not None else InterpolatingAdjoint()
     if not isinstance(sensealg, (InterpolatingAdjoint, BacksolveAdjoint,

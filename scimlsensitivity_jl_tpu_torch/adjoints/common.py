@@ -23,8 +23,8 @@ import numpy as np
 import torch
 
 from ..ops.interp import DenseOutput
-from ..solvers.integrate import (Stats, error_norm, integrate, match_tol,
-                                 time_dtype)
+from ..solvers.integrate import (LOCAL_NORMS, Stats, error_norm, integrate,
+                                 match_tol, time_dtype, weight_count)
 from ..utils.pytree import ravel_pytree
 
 __all__ = [
@@ -119,6 +119,7 @@ def forward_saveat_solve(
     event_set=None,
     saveat_offsets=None,
     always_accept: bool = False,
+    norms=LOCAL_NORMS,
 ) -> ForwardResult:
     """Forward solve capturing the saveat states exactly; `fixed_trip` and
     `event_set` as in `integrate`. `extra_hook(step_record)` runs on every
@@ -127,7 +128,7 @@ def forward_saveat_solve(
     carrying the save times' derivatives (DirectAdjoint), passed to
     `integrate` as its stop offsets. Save times past a terminal stop hold
     the terminal state. always_accept: `integrate`'s previsible controller
-    (the adaptive SDE path)."""
+    (the adaptive SDE path); norms: its error norms' reductions."""
     kind = time_dtype(u0vec.dtype)
     t0, t1 = kind(t0), kind(t1)
     saveat = np.asarray(saveat, dtype=kind)
@@ -160,6 +161,7 @@ def forward_saveat_solve(
         store_dense=store_dense, dtmax=dtmax, fixed_dt=fixed_dt,
         fixed_trip=fixed_trip, event_set=event_set,
         stop_offsets=stop_offsets, always_accept=always_accept,
+        norms=norms,
     )
     ys_save = saved_rows(res.hook_carry, res.u_final)
     return ForwardResult(ys_save=ys_save, dense=res.dense,
@@ -193,6 +195,7 @@ def reverse_joined_solve(
     event_apply: Optional[Callable] = None,
     event_unroll: int = 3,
     fixed_trip: bool = False,
+    norms=LOCAL_NORMS,
 ) -> Tuple[torch.Tensor, Any, Stats, Optional[DenseOutput]]:
     """ONE adaptive reverse solve over [t_hi -> t_lo], adding the loss
     cotangents `lam_jumps[k]` into z[:n_lam] exactly when the integrator lands
@@ -228,6 +231,8 @@ def reverse_joined_solve(
 
     fixed_trip: the masked scan's budget of max_steps + m + 4 attempts
     (`integrate(fixed_trip=True)`), JAX's unrolled reverse (`unroll_scan`).
+
+    norms: `integrate`'s error norms' reductions.
 
     Returns (z at t_lo after all jumps, the hook's carry, reverse Stats,
     the dense output or None). The JAX function returns the retcode where
@@ -296,7 +301,7 @@ def reverse_joined_solve(
         tstops=all_stops,
         hook=wrapped_hook, hook_carry=(hook_carry, k0, ke0),
         stop_transform=stop_transform, store_dense=collect_dense,
-        err_weights=err_weights, fixed_trip=fixed_trip,
+        err_weights=err_weights, fixed_trip=fixed_trip, norms=norms,
     )
     return res.u_final, res.hook_carry[0], res.stats, res.dense
 
@@ -316,6 +321,7 @@ def reverse_pinned_solve(
     hook_carry: Any = None,
     err_weights: Optional[torch.Tensor] = None,
     jump_unroll: int = 3,
+    norms=LOCAL_NORMS,
 ) -> Tuple[torch.Tensor, Any, Stats]:
     """Reverse solve PINNED to the forward's accepted grid: one `stepper`
     step per stored forward interval, walking the dense buffer backwards by
@@ -337,7 +343,7 @@ def reverse_pinned_solve(
     `guard`, in units of the tolerance) the retcode is 2 (DtMin), which
     poisons the gradient (a NaN error compares false, as in JAX).
     hook(rec, carry): once per interval, rec = (ta, tb, z_a, f_a, z_b, f_b,
-    i), ta > tb walking backwards.
+    i), ta > tb walking backwards. norms: the error norm's reductions.
 
     Returns (z at t0 after all jumps, the hook's carry, Stats with one
     accepted step per interval stepped)."""
@@ -347,9 +353,9 @@ def reverse_pinned_solve(
     ts, n_steps = dense.ts, dense.n_steps
     t_hi = ts[n_steps]
     span = kind(t_hi - ts[0])
-    weight_count = None
+    n_weighted = None
     if err_weights is not None:
-        weight_count = max(int((err_weights > 0).sum().item()), 1)
+        n_weighted = weight_count(err_weights, norms)
 
     # every jump row at or above t_hi fires now
     z = z_init.clone()
@@ -374,7 +380,7 @@ def reverse_pinned_solve(
             n_fevals += stepper.n_stages
             if err is not None:
                 e = error_norm(err, z, z1, rtol, atol, err_weights,
-                               weight_count)
+                               n_weighted, norms)
                 worst = e if worst is None else torch.maximum(worst, e)
             if hook is not None:
                 hook_carry = hook((ta, tb, z, f, z1, f1, i), hook_carry)

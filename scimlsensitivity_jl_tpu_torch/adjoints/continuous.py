@@ -118,9 +118,9 @@ from ..sensealg import (BacksolveAdjoint, ForwardDiffSensitivity, GaussAdjoint,
 from ..solvers.explicit import ExplicitRK
 from ..solvers.fbdf import HCAP
 from ..solvers.rosenbrock import jacobian
-from ..solvers.integrate import (RETCODE_TERMINATED, Stats, integrate,
-                                 kind_torch_dtype, match_tol, next_stop,
-                                 time_dtype)
+from ..solvers.integrate import (LOCAL_NORMS, RETCODE_TERMINATED, Norms,
+                                 Stats, integrate, kind_torch_dtype,
+                                 match_tol, next_stop, time_dtype)
 from ..utils.pytree import ravel_pytree
 from .common import (augmented_fvec, forward_saveat_solve,
                      match_cotangents, reverse_joined_solve,
@@ -162,6 +162,9 @@ class SolveOptions:
     # unroll=True: the forward and the reverse take the masked scan's
     # budget (`integrate(fixed_trip=True)`), with the while driver's steps
     unroll: bool = False
+    # the error norms' reductions of every solve in the rule: over every
+    # rank's shard for a sharded state (`parallel.sharded.ShardNorms`)
+    norms: Norms = LOCAL_NORMS
 
 
 @dataclass
@@ -303,7 +306,7 @@ class _ContinuousRule:
             store_dense=self.store_dense, dtmax=opts.dtmax,
             fixed_dt=opts.fixed_dt,
             extra_hook=None if log is None else log.accepted,
-            event_set=event_set, fixed_trip=opts.unroll,
+            event_set=event_set, fixed_trip=opts.unroll, norms=opts.norms,
         )
         # ForwardDiffSensitivity differentiates the node times, which a
         # continuous event moves (JAX's jvp through its dense ts); the
@@ -318,7 +321,8 @@ class _ContinuousRule:
                  d_dys, d_dfs, want_sv, d_dts=None):
         """The reverse pass of the rule: the cotangents of the save rows, of
         u_final and of the dense nodes' states, slopes and (node_times)
-        times -> those of u0, p and (want_sv) the save times `sv`."""
+        times -> those of u0, p and (want_sv) the save times `sv`. On a
+        sharded state, each rank's λ rows and its partial sums of p's."""
         n, nt = u0vec.numel(), ys_save.shape[0]
         lam_jumps = (d_ys.reshape(nt, n) if d_ys is not None
                      else u0vec.new_zeros(nt, n))
@@ -359,7 +363,8 @@ class _ContinuousRule:
             atol=opts.adj_atol if opts.adj_atol is not None else opts.atol,
             max_steps=(opts.adj_max_steps if opts.adj_max_steps is not None
                        else opts.max_steps),
-            t_span=(self.t0, self.t_final), fixed_trip=opts.unroll)
+            t_span=(self.t0, self.t_final), fixed_trip=opts.unroll,
+            norms=opts.norms)
         args = (u0vec, pflat, p, kern, times, jumps, adj, event_set)
         if isinstance(self.sensealg, BacksolveAdjoint):
             lam0, q, rstats, worst = self._backward_backsolve(
@@ -463,6 +468,13 @@ class _ContinuousRule:
         return event_kwargs(self.events, event_set, _make_event_apply(
             kern, p, event_set, self.events, n, npf, **where))
 
+    @staticmethod
+    def _joined(adj, n, npf):
+        """reverse_joined_solve's arguments for a joined state [λ; q; …],
+        whose q rows [n, n + npf) hold p's per-rank partial sums on a
+        sharded state."""
+        return dict(adj, norms=adj["norms"].with_partial_rows(n, n + npf))
+
     def _backward_backsolve(self, u0vec, pflat, p, kern, times, jumps, adj,
                             event_set, snaps, u_final):
         """(λ(t0), q(t0), reverse Stats, worst retcode) of BacksolveAdjoint."""
@@ -475,8 +487,8 @@ class _ContinuousRule:
             return torch.cat([-ubar, -_flat(pbar, ubar), fval])
 
         def rel_drift(u_rec, u_true):
-            return (torch.linalg.vector_norm(u_rec - u_true)
-                    / (1.0 + torch.linalg.vector_norm(u_true)))
+            norm = adj["norms"].vector_norm
+            return norm(u_rec - u_true) / (1.0 + norm(u_true))
 
         z0 = torch.cat([u0vec.new_zeros(n + npf), u_final])
         snap_values = snap_start = on_snap = None
@@ -494,7 +506,7 @@ class _ContinuousRule:
         z, _, rstats, _ = reverse_joined_solve(
             self.bwd_stepper, aug_rhs, times, jumps, z0, n,
             snap_values=snap_values, snap_start=snap_start, on_snap=on_snap,
-            err_weights=wts, **adj,
+            err_weights=wts, **self._joined(adj, n, npf),
             **self._event_kwargs(kern, p, event_set, n, npf, q_slice=n,
                                  u_snap_start=n + npf))
         worst = rstats.retcode
@@ -545,6 +557,7 @@ class _ContinuousRule:
         aug_rhs = _joined_rhs(kern, p, n, lambda t: dense_eval(dense, t))
         z0 = u0vec.new_zeros(n + npf)
         wts = _err_weights(u0vec, n, npf)
+        adj = self._joined(adj, n, npf)
         if self.mass is not None:
             # the adjoint DAE Mᵀλ' = −Jᵀλ, q' = −f_pᵀλ with the augmented
             # mass blockdiag(Mᵀ, I) (JAX :1125-1175); stiffly accurate
@@ -565,7 +578,8 @@ class _ContinuousRule:
                 self.bwd_stepper,
                 lambda i: _joined_rhs(kern, p, n, _interval_y(dense, i)),
                 dense, times, jumps, z0, n, rtol=adj["rtol"],
-                atol=adj["atol"], err_weights=wts, jump_unroll=jump_unroll)
+                atol=adj["atol"], err_weights=wts, jump_unroll=jump_unroll,
+                norms=adj["norms"])
             self.record.reverse = "pinned"
             if (rstats.retcode != 0 and self.sensealg.pinned_reverse is None
                     and self.sensealg.pinned_fallback):
@@ -599,6 +613,7 @@ class _ContinuousRule:
         seg_max_steps = (opts.max_steps if opts.fixed_dt is not None
                          else max(opts.max_steps // 8, 64))
         wts = _err_weights(u0vec, n, npf)
+        joined = self._joined(adj, n, npf)
         tf = self.t_final
         tdir = kind(1.0) if self.t1 >= self.t0 else kind(-1.0)
         span = self.t1 - self.t0
@@ -636,7 +651,8 @@ class _ContinuousRule:
             local = integrate(self.solver, fvec, t_lo, t_hi, ckpt[i - 1],
                               rtol=opts.rtol, atol=opts.atol,
                               max_steps=seg_max_steps, store_dense=True,
-                              fixed_dt=opts.fixed_dt, event_set=event_set)
+                              fixed_dt=opts.fixed_dt, event_set=event_set,
+                              norms=opts.norms)
             aug_rhs = _joined_rhs(
                 kern, p, n, lambda t, d=local.dense: dense_eval(d, t))
             stop_kw = {}
@@ -649,7 +665,8 @@ class _ContinuousRule:
             rev = integrate(self.bwd_stepper, aug_rhs, t_hi, t_lo, z,
                             rtol=adj["rtol"], atol=adj["atol"],
                             max_steps=adj["max_steps"], store_dense=False,
-                            err_weights=wts, **stop_kw)
+                            err_weights=wts, norms=joined["norms"],
+                            **stop_kw)
             if event_set is not None:
                 ke = rev.hook_carry
             # the local re-solve of the interval that ends at a terminal
@@ -700,7 +717,8 @@ class _ContinuousRule:
                 self.bwd_stepper,
                 lambda i: _lam_rhs(kern, p, _interval_y(dense, i)), dense,
                 times, jumps, lam0, n, rtol=adj["rtol"], atol=adj["atol"],
-                hook=hook, hook_carry=q0, jump_unroll=jump_unroll)
+                hook=hook, hook_carry=q0, jump_unroll=jump_unroll,
+                norms=adj["norms"])
             self.record.reverse = "pinned"
         else:
             lam, q, rstats, lam_dense = reverse_joined_solve(

@@ -142,7 +142,7 @@ def make_direct_solve_fn(f, solver, sensealg, opts: SolveOptions, t0, t1,
             stepper, lambda uv, t: kern.fvec(uv, p, t), u0vec, t0, t1, saveat,
             rtol=opts.rtol, atol=opts.atol, dt0=opts.dt0, max_steps=max_steps,
             tstops=opts.tstops, store_dense=opts.dense, fixed_trip=True,
-            event_set=event_set, saveat_offsets=sv_off)
+            event_set=event_set, saveat_offsets=sv_off, norms=opts.norms)
         ys_save, u_final, dense = fwd.ys_save, fwd.u_final, fwd.dense
         if fwd.stats.retcode not in (0, RETCODE_TERMINATED):
             # additive and tied to u_final, as direct.py:172-176: a NaN

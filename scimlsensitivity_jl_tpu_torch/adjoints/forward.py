@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.vjp import make_vjp_kernels
+from ..parallel import sharded
 from ..problems import ODEProblem
 from ..solvers.integrate import time_dtype
 from ..utils.pytree import ravel_pytree
@@ -117,6 +118,8 @@ def ODEForwardSensitivityProblem(f, u0, tspan, p, sensealg=None) -> ODEProblem:
     """The augmented problem over [u; S] with p-directions only (the
     reference's src/forward_sensitivity.jl:420-597). Solve it with `solve`
     and unpack with `extract_local_sensitivities`."""
+    if sharded.is_sharded(u0):
+        raise sharded.refuse("ODEForwardSensitivityProblem")
     u0vec, unravel_u = ravel_pytree(u0)
     pflat, unravel_p = ravel_pytree(p)
     n, npf = u0vec.numel(), pflat.numel()

@@ -55,6 +55,7 @@ import torch
 
 from ..ops.interp import dense_eval
 from ..ops.vjp import make_vjp_kernels
+from ..parallel import sharded
 from ..problems import ODEProblem
 from ..sensealg import (BacksolveAdjoint, GaussAdjoint, GaussKronrodAdjoint,
                         InterpolatingAdjoint, QuadratureAdjoint)
@@ -300,6 +301,7 @@ def adjoint_sensitivities(
     """
     from ..problems import RODEProblem, SDEProblem
 
+    sharded.refuse_sharded(sol.prob, "adjoint_sensitivities")
     if isinstance(sol.prob, (SDEProblem, RODEProblem)):
         if (g is not None or dgdu_continuous is not None
                 or dgdp_continuous is not None):

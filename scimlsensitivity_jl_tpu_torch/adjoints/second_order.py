@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from ..problems import remake
+from ..parallel import sharded
 from ..sensealg import (DirectAdjoint, ForwardDiffOverAdjoint, GaussAdjoint,
                         GaussKronrodAdjoint, QuadratureAdjoint)
 from ..solve import solve
@@ -55,6 +56,7 @@ def _unwrap_fdoa(sensealg):
 
 def _gradient(loss, prob, solver, sensealg, solve_kwargs):
     """(x, dL/dp at x with its graph): x the flat parameters, a fresh leaf."""
+    sharded.refuse_sharded(prob, "second-order sensitivities")
     sensealg = _unwrap_fdoa(sensealg) or DirectAdjoint()
     if isinstance(sensealg, (GaussKronrodAdjoint, QuadratureAdjoint)):
         raise NotImplementedError(

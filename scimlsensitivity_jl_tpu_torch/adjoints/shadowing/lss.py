@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ...ops.vjp import make_vjp_kernels, probe_forward_mode
+from ...parallel import sharded
 from ...sensealg import (AdjointLSS, Cos2Windowing, CosWindowing, ForwardLSS,
                          TimeDilation)
 from ...utils.pytree import ravel_pytree, tree_leaves
@@ -246,6 +247,7 @@ class ForwardLSSProblem:
     def __init__(self, sol, sensealg: ForwardLSS, t=None, dgdu_discrete=None,
                  dgdp_discrete=None, dgdu_continuous=None,
                  dgdp_continuous=None, g=None):
+        sharded.refuse_sharded(sol.prob, "ForwardLSSProblem")
         self.data = _build_lss(
             sol, sensealg, _lift_continuous(dgdu_discrete, dgdu_continuous),
             _lift_continuous(dgdp_discrete, dgdp_continuous), g)
@@ -259,6 +261,7 @@ class AdjointLSSProblem:
     def __init__(self, sol, sensealg: AdjointLSS, t=None, dgdu_discrete=None,
                  dgdp_discrete=None, dgdu_continuous=None,
                  dgdp_continuous=None, g=None):
+        sharded.refuse_sharded(sol.prob, "AdjointLSSProblem")
         if not isinstance(sensealg.LSSregularizer, TimeDilation):
             raise NotImplementedError(
                 "AdjointLSS supports the TimeDilation regularizer "

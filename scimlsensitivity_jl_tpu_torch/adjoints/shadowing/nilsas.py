@@ -44,6 +44,7 @@ import torch
 
 from ...ops.brownian import NumpyKey
 from ...ops.interp import dense_eval
+from ...parallel import sharded
 from ...ops.vjp import (ForwardModeUnsupported, make_vjp_kernels,
                         probe_forward_mode)
 from ...sensealg import NILSAS
@@ -67,6 +68,7 @@ class NILSASProblem:
     dgdp_continuous: Optional[Callable] = None
 
     def __post_init__(self):
+        sharded.refuse_sharded(self.prob, "NILSASProblem")
         if self.g is None:
             self.g = getattr(self.sensealg, "g", None)
         if self.g is None and self.dgdu_continuous is None:

@@ -40,6 +40,7 @@ import torch
 
 from ...ops.brownian import NumpyKey
 from ...ops.vjp import make_vjp_kernels, probe_forward_mode
+from ...parallel import sharded
 from ...sensealg import NILSS
 from ...solvers.integrate import Stats, time_dtype
 from ...utils.pytree import ravel_pytree, tree_to
@@ -59,6 +60,7 @@ class NILSSProblem:
     dgdu_continuous: Optional[Callable] = None
 
     def __post_init__(self):
+        sharded.refuse_sharded(self.prob, "NILSSProblem")
         if self.g is None:
             self.g = getattr(self.sensealg, "g", None)
         if self.g is None:

@@ -60,6 +60,16 @@
 // counter after a __threadfence() took 0.3-0.6 us longer per call:
 // PERF.md.)
 //
+// A sharded state. On a state split over the ranks of a process group each
+// rank launches K1/K2 on its own shard, and the cells beside the shard's
+// ends are its neighbours' edge cells, not the edge copy. The wrapper passes
+// them in a small device buffer, `gh`: [left, right] of u for K1, then of
+// lam for K2. Only the loads at the shard's two ends change: the clamped
+// index of `ghosts` and `lap_at` becomes a read of gh there. A null gh keeps
+// the edge copy and today's bits. The shard is not copied into a haloed
+// buffer: K1 and K2 stream 8 and 12 bytes per float32 cell, and a copy
+// would add a pass over the shard.
+//
 // D and k are read from the device vector p, once per thread, so no launch
 // waits on a host read. Every launcher uses the caller's stream, never
 // synchronises, allocates nothing, and returns cudaGetLastError() (or
@@ -78,12 +88,27 @@ constexpr int kThreads = 256;
 constexpr int kVecs = 2;
 constexpr int kWarps = kThreads / 32;  // K2's block sum: a power of 2, <= 16
 
-// The scalar stencil with the edge-copy ghost (head and tail cells).
+// The cell left of x's cell 0 and right of its cell n - 1: the edge copy,
+// or a shard's ghosts g = [left, right] when g is not null.
+template <typename T>
+__device__ __forceinline__ T left_of_start(const T* __restrict__ x,
+                                           const T* __restrict__ g) {
+  return g ? g[0] : x[0];
+}
+
+template <typename T>
+__device__ __forceinline__ T right_of_end(const T* __restrict__ x,
+                                          const T* __restrict__ g,
+                                          int64_t n) {
+  return g ? g[1] : x[n - 1];
+}
+
+// The scalar stencil (head and tail cells).
 template <typename T>
 __device__ __forceinline__ T lap_at(const T* __restrict__ x, int64_t i,
-                                    int64_t n) {
-  const T xl = x[i > 0 ? i - 1 : 0];
-  const T xr = x[i + 1 < n ? i + 1 : n - 1];
+                                    int64_t n, const T* __restrict__ g) {
+  const T xl = i > 0 ? x[i - 1] : left_of_start(x, g);
+  const T xr = i + 1 < n ? x[i + 1] : right_of_end(x, g, n);
   return (xl - T(2) * x[i]) + xr;
 }
 
@@ -130,17 +155,20 @@ struct Layout {
 };
 
 // x's left and right ghosts for the vector vi starting at cell i0: from the
-// neighbouring lanes, or loaded by the lanes at a warp's or the body's ends.
+// neighbouring lanes, or loaded by the lanes at a warp's or the body's ends
+// (at x's own ends, the edge copy or the shard's ghosts g).
 template <typename T, int V>
 __device__ __forceinline__ void ghosts(const T* __restrict__ x_glob,
                                        const T (&x)[V], int lane, int64_t vi,
                                        int64_t nv, int64_t i0, int64_t n,
-                                       bool active, T& left, T& right) {
+                                       bool active, const T* __restrict__ g,
+                                       T& left, T& right) {
   left = __shfl_up_sync(kFull, x[V - 1], 1);
   right = __shfl_down_sync(kFull, x[0], 1);
-  if (active && lane == 0) left = x_glob[i0 > 0 ? i0 - 1 : 0];
+  if (active && lane == 0)
+    left = i0 > 0 ? x_glob[i0 - 1] : left_of_start(x_glob, g);
   if (active && (lane == 31 || vi + 1 == nv))
-    right = x_glob[i0 + V < n ? i0 + V : n - 1];
+    right = i0 + V < n ? x_glob[i0 + V] : right_of_end(x_glob, g, n);
 }
 
 template <typename T, int V>
@@ -157,7 +185,8 @@ __device__ __forceinline__ void lap_vec(const T (&x)[V], T left, T right,
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
     rd1d_fwd_kernel(const T* __restrict__ u, const T* __restrict__ p,
-                    T inv_dx2, T* __restrict__ f, int64_t n) {
+                    T inv_dx2, T* __restrict__ f, int64_t n,
+                    const T* __restrict__ gh) {
   const T Dc = p[0] * inv_dx2;
   const T k = p[1];
   const Layout<T, V> g(u, n);
@@ -180,7 +209,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int j = 0; j < kVecs; ++j) {
     const int64_t vi = (warp * kVecs + j) * 32 + lane;
-    ghosts<T, V>(u, x[j], lane, vi, g.nv, g.h + vi * V, n, vi < g.nv,
+    ghosts<T, V>(u, x[j], lane, vi, g.nv, g.h + vi * V, n, vi < g.nv, gh,
                  left[j], right[j]);
   }
 #pragma unroll
@@ -200,7 +229,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int64_t i = threadIdx.x == 0 ? 0 : tail;
          i < (threadIdx.x == 0 ? g.h : n); ++i) {
       const T ui = u[i];
-      f[i] = Dc * lap_at(u, i, n) + k * ui * (T(1) - ui);
+      f[i] = Dc * lap_at(u, i, n, gh) + k * ui * (T(1) - ui);
     }
   }
 }
@@ -272,8 +301,12 @@ __global__ void __launch_bounds__(kThreads)
     rd1d_bwd_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ lam, T inv_dx2, T* __restrict__ du,
                     unsigned long long* __restrict__ slots,
-                    T* __restrict__ dp, int64_t n) {
+                    T* __restrict__ dp, int64_t n,
+                    const T* __restrict__ gh) {
   __shared__ double sh[2 * kWarps];
+  // the shard's ghosts of u and of lam, or null for the edge copy
+  const T* gu = gh;
+  const T* gl = gh ? gh + 2 : nullptr;
   const T Dc = p[0] * inv_dx2;
   const T k = p[1];
   const Layout<T, V> g(u, n);
@@ -298,8 +331,10 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < kVecs; ++j) {
     const int64_t vi = (warp * kVecs + j) * 32 + lane;
     const int64_t i0 = g.h + vi * V;
-    ghosts<T, V>(u, x[j], lane, vi, g.nv, i0, n, vi < g.nv, xl[j], xr[j]);
-    ghosts<T, V>(lam, l[j], lane, vi, g.nv, i0, n, vi < g.nv, ll[j], lr[j]);
+    ghosts<T, V>(u, x[j], lane, vi, g.nv, i0, n, vi < g.nv, gu, xl[j],
+                 xr[j]);
+    ghosts<T, V>(lam, l[j], lane, vi, g.nv, i0, n, vi < g.nv, gl, ll[j],
+                 lr[j]);
   }
   T sD = T(0), sk = T(0);
   T out[kVecs][V];  // stored after the block's partial, below
@@ -326,8 +361,8 @@ __global__ void __launch_bounds__(kThreads)
          i < (threadIdx.x == 0 ? g.h : n); ++i) {
       const T ui = u[i];
       const T li = lam[i];
-      du[i] = Dc * lap_at(lam, i, n) + k * (T(1) - T(2) * ui) * li;
-      sD += li * lap_at(u, i, n);
+      du[i] = Dc * lap_at(lam, i, n, gl) + k * (T(1) - T(2) * ui) * li;
+      sD += li * lap_at(u, i, n, gu);
       sk += li * ui * (T(1) - ui);
     }
   }
@@ -398,7 +433,7 @@ bool same_mod16(const void* a, const void* b) {
 
 template <typename T>
 int launch_fwd(const void* u, const void* p, double inv_dx2, void* f,
-               int64_t n, void* stream) {
+               int64_t n, const void* ghosts, void* stream) {
   if (n <= 0) return 0;
   constexpr int V = 16 / sizeof(T);
   if (!same_mod16(u, f)) return static_cast<int>(cudaErrorMisalignedAddress);
@@ -407,14 +442,15 @@ int launch_fwd(const void* u, const void* p, double inv_dx2, void* f,
   const T* pp = static_cast<const T*>(p);
   rd1d_fwd_kernel<T, V>
       <<<static_cast<unsigned>(blocks_for(n, V)), kThreads, 0, s>>>(
-          uu, pp, static_cast<T>(inv_dx2), static_cast<T*>(f), n);
+          uu, pp, static_cast<T>(inv_dx2), static_cast<T*>(f), n,
+          static_cast<const T*>(ghosts));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_bwd(const void* u, const void* p, const void* lam, double inv_dx2,
                void* du, void* slots, void* dp, int64_t n, int vec,
-               void* stream) {
+               const void* ghosts, void* stream) {
   if (n <= 0) return 0;
   constexpr int V = 16 / sizeof(T);
   if (!same_mod16(u, du) || (vec && !same_mod16(u, lam)))
@@ -426,14 +462,15 @@ int launch_bwd(const void* u, const void* p, const void* lam, double inv_dx2,
   T* dd = static_cast<T*>(du);
   unsigned long long* sl = static_cast<unsigned long long*>(slots);
   T* dpp = static_cast<T*>(dp);
+  const T* gh = static_cast<const T*>(ghosts);
   if (vec) {
     rd1d_bwd_kernel<T, V>
         <<<static_cast<unsigned>(blocks_for(n, V)), kThreads, 0, s>>>(
-            uu, pp, ll, static_cast<T>(inv_dx2), dd, sl, dpp, n);
+            uu, pp, ll, static_cast<T>(inv_dx2), dd, sl, dpp, n, gh);
   } else {
     rd1d_bwd_kernel<T, 1>
         <<<static_cast<unsigned>(blocks_for(n, 1)), kThreads, 0, s>>>(
-            uu, pp, ll, static_cast<T>(inv_dx2), dd, sl, dpp, n);
+            uu, pp, ll, static_cast<T>(inv_dx2), dd, sl, dpp, n, gh);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -452,28 +489,30 @@ int64_t rd1d_bwd_blocks(int64_t n, int elt_bytes, int vec) {
   return blocks_for(n, vec ? 16 / elt_bytes : 1);
 }
 
+// ghosts: null (the edge copy) or a shard's ghost cells on the device,
+// [left, right] of u (K1), then of lam (K2).
 int rd1d_fwd_f32(const void* u, const void* p, double inv_dx2, void* f,
-                 int64_t n, void* stream) {
-  return launch_fwd<float>(u, p, inv_dx2, f, n, stream);
+                 int64_t n, const void* ghosts, void* stream) {
+  return launch_fwd<float>(u, p, inv_dx2, f, n, ghosts, stream);
 }
 
 int rd1d_fwd_f64(const void* u, const void* p, double inv_dx2, void* f,
-                 int64_t n, void* stream) {
-  return launch_fwd<double>(u, p, inv_dx2, f, n, stream);
+                 int64_t n, const void* ghosts, void* stream) {
+  return launch_fwd<double>(u, p, inv_dx2, f, n, ghosts, stream);
 }
 
 int rd1d_bwd_f32(const void* u, const void* p, const void* lam,
                  double inv_dx2, void* du, void* slots, void* dp, int64_t n,
-                 int vec, void* stream) {
+                 int vec, const void* ghosts, void* stream) {
   return launch_bwd<float>(u, p, lam, inv_dx2, du, slots, dp, n, vec,
-                           stream);
+                           ghosts, stream);
 }
 
 int rd1d_bwd_f64(const void* u, const void* p, const void* lam,
                  double inv_dx2, void* du, void* slots, void* dp, int64_t n,
-                 int vec, void* stream) {
+                 int vec, const void* ghosts, void* stream) {
   return launch_bwd<double>(u, p, lam, inv_dx2, du, slots, dp, n, vec,
-                            stream);
+                            ghosts, stream);
 }
 
 }  // extern "C"

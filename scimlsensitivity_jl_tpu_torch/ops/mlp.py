@@ -42,6 +42,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..parallel import sharded
 from .cuda_build import load_library
 from .vjp import (refuse_complex_state, refuse_double_backward,
                   refuse_forward_mode, register_kernel_function)
@@ -350,8 +351,11 @@ def fused_mlp2(params: Dict[str, torch.Tensor], x: torch.Tensor):
     params: {'W0','b0','W1','b1'} (the `mlp_init` layout); x: (din,) or
     (B, din). Differentiable with respect to x and params through K4.
     Parameters of another dtype than x are cast to x's (the JAX kernel
-    promotes them inside its products; the values are the same).
+    promotes them inside its products; the values are the same). A sharded
+    x or parameter (a DTensor) is refused before any launch.
     """
+    if any(sharded.is_sharded(t) for t in (x, *params.values())):
+        raise sharded.refuse("fused_mlp2 (K3/K4)")
     single = x.dim() == 1
     x2 = (x[None] if single else x).contiguous()
     w = [params[k].to(x.dtype).contiguous() for k in ("W0", "b0", "W1", "b1")]

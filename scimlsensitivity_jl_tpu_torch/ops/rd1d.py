@@ -19,6 +19,13 @@ L(u)_{n−1} = u_{n−2} − u_{n−1}. L is symmetric, so the pullback is
 
     ū = D·inv_dx2·L(λ) + k(1 − 2u)λ,   D̄ = inv_dx2·Σ λ·L(u),   k̄ = Σ λ·u(1 − u).
 
+On a state split over the ranks of a process group (a DTensor,
+`parallel/sharded.py`) the field runs on each rank's shard: K1 and K2 take
+the shard's two ghost cells, its neighbours' edge cells (the edge copy at
+the global ends), from a small device tensor (`ghosts`, [left, right] of u,
+then of λ for K2): one halo exchange per evaluation and one of u's and λ's
+edge cells per pullback. D̄ and k̄ are then the rank's partial sums.
+
 Each kernel sits behind a `torch.library` operator, `rd1d_fwd` (K1) and
 `rd1d_vjp` (K2). A CPU tensor goes to the plain version (`rd1d_reference`,
 `rd1d_vjp_reference`); a CUDA tensor launches the kernel of
@@ -48,10 +55,11 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
+from ..parallel import sharded
 from .cuda_build import load_library
 from .vjp import (refuse_complex_state, refuse_double_backward,
                   refuse_forward_mode, register_kernel_function)
@@ -68,23 +76,30 @@ __all__ = ["rd1d_reference", "rd1d_vjp_reference", "rd1d_fwd", "rd1d_vjp",
 # -- plain versions ----------------------------------------------------------
 
 
-def _lap(u: torch.Tensor) -> torch.Tensor:
-    ul = torch.cat([u[:1], u[:-1]])
-    ur = torch.cat([u[1:], u[-1:]])
+def _lap(u: torch.Tensor, ghosts=None) -> torch.Tensor:
+    """L(u) with the edge-copy ghosts, or with ghosts = [left, right]."""
+    left, right = (u[:1], u[-1:]) if ghosts is None else (ghosts[:1],
+                                                          ghosts[1:2])
+    ul = torch.cat([left, u[:-1]])
+    ur = torch.cat([u[1:], right])
     return ul - 2.0 * u + ur
 
 
-def rd1d_reference(u: torch.Tensor, p: torch.Tensor, inv_dx2: float):
-    """Plain-torch field (the JAX counterpart takes D and k separately)."""
+def rd1d_reference(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
+                   ghosts=None):
+    """Plain-torch field (the JAX counterpart takes D and k separately);
+    ghosts: None (the edge copy) or a shard's [left, right] ghost cells."""
     D, k = p[0], p[1]
-    return D * inv_dx2 * _lap(u) + k * u * (1.0 - u)
+    return D * inv_dx2 * _lap(u, ghosts) + k * u * (1.0 - u)
 
 
-def rd1d_vjp_reference(u, p, inv_dx2: float, lam):
-    """Plain-torch pullback: (ū, [D̄, k̄]) for the cotangent λ."""
+def rd1d_vjp_reference(u, p, inv_dx2: float, lam, ghosts=None):
+    """Plain-torch pullback: (ū, [D̄, k̄]) for the cotangent λ; ghosts:
+    None or a shard's [u left, u right, λ left, λ right]."""
     D, k = p[0], p[1]
-    du = D * inv_dx2 * _lap(lam) + k * (1.0 - 2.0 * u) * lam
-    dD = inv_dx2 * torch.sum(lam * _lap(u))
+    gu, gl = (None, None) if ghosts is None else (ghosts[:2], ghosts[2:])
+    du = D * inv_dx2 * _lap(lam, gl) + k * (1.0 - 2.0 * u) * lam
+    dD = inv_dx2 * torch.sum(lam * _lap(u, gu))
     dk = torch.sum(lam * u * (1.0 - u))
     return du, torch.stack([dD, dk])
 
@@ -100,12 +115,14 @@ def load_rd1d_library() -> ctypes.CDLL:
                               ctypes.c_double)
         for name in ("rd1d_fwd_f32", "rd1d_fwd_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [ptr, ptr, f64, ptr, i64, ptr]
+            # u, p, inv_dx2, f, n, ghosts (or null), stream
+            fn.argtypes = [ptr, ptr, f64, ptr, i64, ptr, ptr]
             fn.restype = ctypes.c_int
         for name in ("rd1d_bwd_f32", "rd1d_bwd_f64"):
             fn = getattr(lib, name)
-            # u, p, lam, inv_dx2, du, slots, dp, n, vec, stream
-            fn.argtypes = [ptr, ptr, ptr, f64, ptr, ptr, ptr, i64, i32, ptr]
+            # u, p, lam, inv_dx2, du, slots, dp, n, vec, ghosts, stream
+            fn.argtypes = [ptr, ptr, ptr, f64, ptr, ptr, ptr, i64, i32, ptr,
+                           ptr]
             fn.restype = ctypes.c_int
         lib.rd1d_bwd_blocks.argtypes = [i64, i32, i32]
         lib.rd1d_bwd_blocks.restype = i64
@@ -116,6 +133,20 @@ def load_rd1d_library() -> ctypes.CDLL:
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _check_ghosts(u, ghosts, count: int):
+    """The device pointer of a shard's ghost cells (count values on u's
+    device and type), or None for the edge copy."""
+    if ghosts is None:
+        return None
+    if (ghosts.device != u.device or ghosts.dtype != u.dtype
+            or tuple(ghosts.shape) != (count,)
+            or not ghosts.is_contiguous()):
+        raise ValueError(f"ghosts: {count} contiguous values on {u.device}/"
+                         f"{u.dtype}, got {tuple(ghosts.shape)} on "
+                         f"{ghosts.device}/{ghosts.dtype}")
+    return ghosts.data_ptr()
 
 
 def _check_cuda_args(u, p, *same_as_u):
@@ -148,22 +179,28 @@ def _like(u: torch.Tensor) -> torch.Tensor:
     return torch.empty(u.numel() + off, dtype=u.dtype, device=u.device)[off:]
 
 
-def rd1d_fwd_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float):
-    """K1 on the current stream: f = field(u; p), one launch."""
+def rd1d_fwd_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
+                  ghosts=None):
+    """K1 on the current stream: f = field(u; p), one launch; ghosts: None
+    (the edge copy) or a shard's [left, right] ghost cells on the device.
+    Counts its launches in `.launches` and the cells they covered in
+    `.cells`."""
     _check_cuda_args(u, p)
+    gptr = _check_ghosts(u, ghosts, 2)
     launch = getattr(load_rd1d_library(), f"rd1d_fwd_{_SUFFIX[u.dtype]}")
     f = _like(u)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(u.data_ptr(), p.data_ptr(), float(inv_dx2), f.data_ptr(),
-                    u.numel(), stream)
+                    u.numel(), gptr, stream)
     if rc != 0:
         raise RuntimeError(f"rd1d_fwd launch failed: cudaError {rc}")
     rd1d_fwd_cuda.launches += 1
+    rd1d_fwd_cuda.cells += u.numel()
     return f
 
 
-rd1d_fwd_cuda.launches = 0
+rd1d_fwd_cuda.launches = rd1d_fwd_cuda.cells = 0
 
 # (device index, stream, dtype, blocks) -> K2's slots: a 64-bit word per
 # block and sum for the block's float64 (D̄, k̄) partial, empty before and
@@ -177,12 +214,16 @@ def _k2_blocks(n: int, elt: int, vec: bool) -> int:
 
 
 def rd1d_vjp_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
-                  lam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                  lam: torch.Tensor,
+                  ghosts=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """K2 on the current stream: (ū, [D̄, k̄]) in one launch; the grid's
     last block sums the blocks' partials in block order (the same bits every
     call). On 16-byte vectors when lam's address matches u's modulo 16, else
-    on single cells."""
+    on single cells. ghosts: None (the edge copy) or a shard's [u left,
+    u right, λ left, λ right] on the device. Counts `.launches` and
+    `.cells` as K1 does."""
     _check_cuda_args(u, p, lam)
+    gptr = _check_ghosts(u, ghosts, 4)
     launch = getattr(load_rd1d_library(), f"rd1d_bwd_{_SUFFIX[u.dtype]}")
     vec = (u.data_ptr() - lam.data_ptr()) % 16 == 0
     blocks = _k2_blocks(u.numel(), u.element_size(), vec)
@@ -205,14 +246,15 @@ def rd1d_vjp_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
                 dtype=torch.int64, device=u.device)
         rc = launch(u.data_ptr(), p.data_ptr(), lam.data_ptr(),
                     float(inv_dx2), du.data_ptr(), slots.data_ptr(),
-                    dp.data_ptr(), u.numel(), int(vec), stream)
+                    dp.data_ptr(), u.numel(), int(vec), gptr, stream)
     if rc != 0:
         raise RuntimeError(f"rd1d_vjp launch failed: cudaError {rc}")
     rd1d_vjp_cuda.launches += 1
+    rd1d_vjp_cuda.cells += u.numel()
     return du, dp
 
 
-rd1d_vjp_cuda.launches = 0
+rd1d_vjp_cuda.launches = rd1d_vjp_cuda.cells = 0
 
 
 # -- operators: CPU -> plain version, CUDA -> kernel ----------------------------
@@ -220,17 +262,19 @@ rd1d_vjp_cuda.launches = 0
 
 @torch.library.custom_op("scimlsens_torch::rd1d_fwd", mutates_args=(),
                          device_types="cpu")
-def rd1d_fwd(u: torch.Tensor, p: torch.Tensor, inv_dx2: float) -> torch.Tensor:
-    """K1 operator: the field value."""
-    return rd1d_reference(u, p, inv_dx2)
+def rd1d_fwd(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
+             ghosts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1 operator: the field value (ghosts: a shard's, or None)."""
+    return rd1d_reference(u, p, inv_dx2, ghosts)
 
 
 @torch.library.custom_op("scimlsens_torch::rd1d_vjp", mutates_args=(),
                          device_types="cpu")
 def rd1d_vjp(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
-             lam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K2 operator: (ū, [D̄, k̄])."""
-    return rd1d_vjp_reference(u, p, inv_dx2, lam)
+             lam: torch.Tensor, ghosts: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2 operator: (ū, [D̄, k̄]) (ghosts: a shard's, or None)."""
+    return rd1d_vjp_reference(u, p, inv_dx2, lam, ghosts)
 
 
 rd1d_fwd.register_kernel("cuda")(rd1d_fwd_cuda)
@@ -283,12 +327,63 @@ def fused_rd1d(u: torch.Tensor, p: torch.Tensor, inv_dx2: float):
     return FusedRD1D.apply(u, p, inv_dx2)
 
 
+class ShardedRD1D(torch.autograd.Function):
+    """The field on one rank's shard of a sharded state: K1 with the
+    shard's ghost cells from one halo exchange, the pullback K2 with u's
+    and λ's from one more, D̄ and k̄ the rank's partial sums. In the
+    `setup_context` form."""
+
+    @staticmethod
+    def forward(u, p, inv_dx2, shard):
+        if u.is_complex():
+            raise refuse_complex_state("FusedRD1D (K1/K2)", u.dtype)
+        ghosts = shard.halo(u)
+        return rd1d_fwd(u, p, float(inv_dx2), ghosts)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        u, p, inv_dx2, shard = inputs
+        ctx.save_for_backward(u, p)
+        ctx.inv_dx2, ctx.shard = float(inv_dx2), shard
+
+    @staticmethod
+    def backward(ctx, lam):
+        u, p = ctx.saved_tensors
+        lam = lam.contiguous()
+        # one exchange of u's and λ's edge cells
+        ghosts = ctx.shard.halo(u, lam)
+        du, dp = rd1d_vjp(u, p, ctx.inv_dx2, lam, ghosts)
+        return du, dp, None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise refuse_forward_mode("FusedRD1D (K1/K2)")
+
+
+register_kernel_function(ShardedRD1D, "FusedRD1D (K1/K2)")
+
+
+def sharded_rd1d(u, p, inv_dx2: float):
+    """The field on a sharded state u (a DTensor, `parallel/sharded.py`):
+    K1 on this rank's shard with one ghost cell per side from its
+    neighbours, the value a DTensor split like u. p: a replicated DTensor
+    or a plain tensor, whose gradient is summed over the ranks."""
+    shard = sharded.ShardContext.of(u)
+    f = ShardedRD1D.apply(sharded.to_local(u, shard),
+                          sharded.replicated_local(p, shard), inv_dx2, shard)
+    return sharded.from_local(f, shard)
+
+
 def make_rd1d_field(n: int, dx: float):
     """ODE field f(u, p, t) on a length-n grid with p = [D, k]; every
-    evaluation is one K1 launch and every pullback one K2 launch."""
+    evaluation is one K1 launch and every pullback one K2 launch. On a
+    sharded state (a DTensor u) each rank launches them on its shard,
+    exchanging one ghost cell per side (`sharded_rd1d`)."""
     inv_dx2 = 1.0 / (dx * dx)
 
     def field(u, p, t):
+        if sharded.is_sharded(u):
+            return sharded_rd1d(u, p, inv_dx2)
         return fused_rd1d(u, p, inv_dx2)
 
     return field
@@ -598,11 +693,15 @@ def make_rd1d_rk4_block(n: int, S: int, chunk: int = 4096,
     1024 and S = 16, two blocks per SM in float32. Both contracts of
     `_chunk_geometry` are checked here, as in JAX; a window that a kernel
     does not take raises at launch.
-    On the CPU the block runs the plain versions over the whole grid."""
+    On the CPU the block runs the plain versions over the whole grid. A
+    sharded u (a DTensor) is refused before any launch: its haloed windows
+    do not reach across shards yet (ROADMAP §1)."""
     C, _, _, _ = _chunk_geometry(n, S, chunk)
     Cb, _, _, _ = _chunk_geometry(n, S, bwd_chunk)
 
     def block(u, p, inv_dx2, h):
+        if sharded.is_sharded(u):
+            raise sharded.refuse("the RK4 block (K5/K6, make_rd1d_rk4_block)")
         if tuple(u.shape) != (n,):
             raise ValueError(f"block of n={n} got u of shape {tuple(u.shape)}")
         return RD1DRK4Block.apply(u, p, inv_dx2, h, S, C, Cb)

@@ -38,6 +38,7 @@ from ..solution import ODESolution
 from ..solve import solve
 from ..solvers.integrate import Stats
 from ..utils.pytree import tree_to
+from . import sharded
 
 __all__ = ["EnsembleProblem", "solve_ensemble", "make_mesh",
            "ensemble_summary", "map_segments"]
@@ -135,6 +136,7 @@ def solve_ensemble(
     (default `make_mesh(axis=axis)`), the outputs on mesh[0]."""
     if backend not in ("vmap", "shard_map"):
         raise ValueError(f"unknown ensemble backend {backend!r}")
+    sharded.refuse_sharded(ens.prob, "solve_ensemble")
 
     def run_one(i, device):
         prob_i = ens.instantiate(i)

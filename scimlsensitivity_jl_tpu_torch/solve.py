@@ -22,6 +22,10 @@ and SteadyStateProblem to `adjoints/steadystate.solve_nonlinear`
 `adjoints/sde.solve_rode` (solve.py:172-176; callbacks refused). The
 shadowing sensealgs (ForwardLSS, AdjointLSS, NILSS, NILSAS) take the
 shadowing rule (solve.py:620-631, `_make_shadowing_solve_fn` :681-804).
+A u0 split over the ranks of a process group (a DTensor with placement
+Shard(0), `parallel/sharded.py`) takes `_solve_sharded`: the counterpart of
+`jax.jit(..., in_shardings=(None, shard))` over a solve, which the JAX
+package leaves to XLA's partitioner (its tests/test_parallel.py:72, :204).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from .callbacks import (any_modifies_p, as_callback_set,
                         check_callback_closures, lift_p_into_state,
                         lower_time_callbacks)
 from .ops.vjp import probe_forward_mode
+from .parallel import sharded
 from .problems import (DDEProblem, NonlinearProblem, ODEProblem,
                        RODEProblem, SDEProblem, SteadyStateProblem, remake)
 from .sensealg import (NILSAS, NILSS, AbstractSensealg, AdjointLSS,
@@ -48,8 +53,8 @@ from .sensealg import (NILSAS, NILSS, AbstractSensealg, AdjointLSS,
                        default_sensealg)
 from .solution import ODESolution
 from .solvers.explicit import Tsit5
-from .solvers.integrate import time_dtype
-from .utils.pytree import ravel_pytree, tree_size
+from .solvers.integrate import LOCAL_NORMS, time_dtype
+from .utils.pytree import ravel_pytree, tree_leaves, tree_size
 
 __all__ = ["solve"]
 
@@ -124,6 +129,20 @@ def solve(
     random initial tangents or terminal adjoints (default
     NumpyKey(sensealg.rng_seed)).
     """
+    # a strong-order ~1 SDE scheme at rtol 1e-7 would starve max_steps
+    if rtol is None:
+        rtol = 1e-3 if isinstance(prob, SDEProblem) else 1e-7
+    if atol is None:
+        atol = 1e-6 if isinstance(prob, SDEProblem) else 1e-9
+    if sharded.is_sharded(getattr(prob, "u0", None)):
+        return _solve_sharded(
+            prob, solver, saveat=saveat, rtol=rtol, atol=atol, dt0=dt0, dt=dt,
+            max_steps=max_steps, tstops=tstops, sensealg=sensealg,
+            dense=dense, adj_rtol=adj_rtol, adj_atol=adj_atol,
+            adj_max_steps=adj_max_steps, bwd_solver=bwd_solver,
+            callback=callback, adaptive=adaptive, unroll=unroll,
+            verbose=verbose, dtmax=dtmax, save_idxs=save_idxs,
+            dae_init=dae_init)
     if isinstance(prob, (NonlinearProblem, SteadyStateProblem)):
         from .adjoints.steadystate import solve_nonlinear
 
@@ -135,11 +154,6 @@ def solve(
                     f"{sensealg!r}")
             kw["sensealg"] = sensealg
         return solve_nonlinear(prob, **kw)
-    # a strong-order ~1 SDE scheme at rtol 1e-7 would starve max_steps
-    if rtol is None:
-        rtol = 1e-3 if isinstance(prob, SDEProblem) else 1e-7
-    if atol is None:
-        atol = 1e-6 if isinstance(prob, SDEProblem) else 1e-9
     if isinstance(prob, SDEProblem):
         return _solve_sde_branch(prob, solver, saveat=saveat, dt=dt,
                                  sensealg=sensealg, max_steps=max_steps,
@@ -279,6 +293,76 @@ def _mass_matrix_branch(prob, solver, sensealg, dt0, dt, dae_init, u0vec,
     return remake(prob, mass_matrix=None), solver, sensealg
 
 
+# the rules a sharded state runs under (with their default options)
+_SHARDED_RULES = (BacksolveAdjoint, InterpolatingAdjoint, GaussAdjoint,
+                  DirectAdjoint)
+
+
+def _check_sharded(prob, solver, *, bwd_solver, sensealg, saveat, dense,
+                   callback, unroll, save_idxs, dae_init, adaptive, **_):
+    """Refuse, before anything launches, what a sharded state does not run
+    yet (ROADMAP §1): every problem type but a plain ODEProblem, steppers
+    other than explicit Runge-Kutta, sensealgs and options outside
+    `_SHARDED_RULES` with their defaults (sensealg=None where it resolves
+    to one of them, or to the fixed grid's discrete path), callbacks, dense
+    output and the other differentiable outputs."""
+    from .solvers.explicit import ExplicitRK
+
+    if not isinstance(prob, ODEProblem):
+        raise sharded.refuse(f"{type(prob).__name__}")
+    if prob.mass_matrix is not None or dae_init not in (None, "none"):
+        raise sharded.refuse("a mass matrix (DAE)")
+    for name, step in (("solver", solver), ("bwd_solver", bwd_solver)):
+        if step is not None and not isinstance(step, ExplicitRK):
+            raise sharded.refuse(f"{name}={step!r} (stiff, extrapolation "
+                                 "and multistep steppers)")
+    if sensealg is None and adaptive:
+        sensealg = default_sensealg(prob.u0.shape[0], tree_size(prob.p),
+                                    prob.p is not None)
+    if sensealg is not None:
+        if not isinstance(sensealg, _SHARDED_RULES):
+            raise sharded.refuse(f"sensealg={sensealg!r}")
+        if type(sensealg)() != sensealg:
+            raise sharded.refuse(f"{sensealg!r} (options other than the "
+                                 "defaults)")
+    for what, given in (("callbacks and events", callback is not None),
+                        ("dense output (dense=True, sol(t))", dense),
+                        ("unroll=True", unroll),
+                        ("save_idxs", save_idxs is not None),
+                        ("a saveat tensor that requires grad",
+                         isinstance(saveat, torch.Tensor)
+                         and saveat.requires_grad),
+                        ("prob.jac, prob.vjp and prob.paramjac",
+                         any(h is not None for h in
+                             (prob.jac, prob.vjp, prob.paramjac)))):
+        if given:
+            raise sharded.refuse(what)
+    if prob.u0.is_complex():
+        raise sharded.refuse("a complex state")
+    if any(sharded.is_sharded(x) for x in tree_leaves(prob.p)):
+        raise sharded.refuse("a DTensor p (p is replicated: pass plain "
+                             "tensors)")
+
+
+def _solve_sharded(prob, solver, **kw):
+    """`solve` of a state split over the ranks (`parallel/sharded.py`):
+    each rank solves its shard, the field sees the whole DTensor, and the
+    outputs are DTensors split like u0 (ys along its state axis). u0's
+    gradient comes back split like u0, p's whole on every rank."""
+    _check_sharded(prob, solver, **kw)
+    shard = sharded.ShardContext.of(prob.u0)
+    local = remake(prob, f=shard.local_field(prob.f),
+                   u0=sharded.to_local(prob.u0, shard),
+                   p=sharded.sum_over_ranks(prob.p, shard))
+    sol = _solve_ode(local, solver, **kw, n_global=shard.n,
+                     norms=sharded.ShardNorms(shard))
+    return dataclasses.replace(
+        sol, ys=sharded.from_local(sol.ys, shard, dim=1), prob=prob,
+        dense=None, unravel_u=None,
+        u_final=(None if sol.u_final is None
+                 else sharded.from_local(sol.u_final, shard)))
+
+
 def _check_unrolled_continuous(solver, bwd_solver, sensealg, max_steps,
                                adj_max_steps):
     """JAX's four refusals of unroll=True under a continuous rule
@@ -324,12 +408,16 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
                tstops, sensealg, dense, adj_rtol, adj_atol, adj_max_steps,
                bwd_solver, adaptive=True, unroll=False, verbose=False,
                dtmax=None, callback=None, max_events=32, save_idxs=None,
-               dae_init=None, key=None):
+               dae_init=None, key=None, n_global=None, norms=LOCAL_NORMS):
+    """n_global: a sharded state's whole length (prob.u0 is this rank's
+    shard), which the default sensealg reads, as JAX reads the global
+    shape; norms: the error norms' reductions of every solve it runs (over
+    every rank's shard for a sharded state)."""
     solver = solver or Tsit5()
     t0, t1 = prob.tspan
     u0vec, unravel_u = ravel_pytree(prob.u0)
     kind = time_dtype(u0vec.dtype)
-    n = u0vec.shape[0]
+    n = u0vec.shape[0] if n_global is None else n_global
     np_ = tree_size(prob.p) if prob.p is not None else 0
 
     sv_t = None  # the caller's saveat tensor, when it wants a gradient
@@ -423,7 +511,7 @@ def _solve_ode(prob, solver, *, saveat, rtol, atol, dt0, dt, max_steps,
         dense=dense, adj_rtol=adj_rtol, adj_atol=adj_atol,
         adj_max_steps=adj_max_steps, dtmax=dtmax, verbose=verbose,
         fixed_dt=(dt if fixed_grid_continuous else None),
-        callback=cbs, max_events=max_events,
+        callback=cbs, max_events=max_events, norms=norms,
     )
 
     # deliberate divergence on either fixed-grid path: JAX's discrete march

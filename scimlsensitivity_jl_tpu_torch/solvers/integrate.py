@@ -35,8 +35,11 @@ __all__ = [
     "IntegrateResult",
     "Stats",
     "integrate",
+    "Norms",
+    "LOCAL_NORMS",
     "hairer_norm",
     "error_norm",
+    "weight_count",
     "match_tol",
     "next_stop",
     "initial_step_size",
@@ -146,12 +149,42 @@ def kind_torch_dtype(kind) -> torch.dtype:
     return _KIND_TORCH[kind]
 
 
-def hairer_norm(x: torch.Tensor) -> torch.Tensor:
+class Norms:
+    """The reductions that the step controller takes over a state vector:
+    here over the vector itself. A solve of a state split over the ranks
+    of a process group passes `parallel.sharded.ShardNorms`, which reduces
+    over every rank's shard; `integrate`, the reverse solves and the
+    continuous rules take them as `norms=` (`SolveOptions.norms`)."""
+
+    def mean_sq(self, x: torch.Tensor) -> torch.Tensor:
+        """mean(|x|²) over the whole vector (a device scalar)."""
+        return torch.mean(x.abs() ** 2)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Σ x over the whole vector (a device scalar)."""
+        return torch.sum(x)
+
+    def vector_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """‖x‖₂ over the whole vector."""
+        return torch.linalg.vector_norm(x)
+
+    def with_partial_rows(self, start: int, stop: int) -> "Norms":
+        """These norms over vectors whose rows [start, stop) are per-rank
+        partial sums (a joined reverse state's q rows); a whole vector has
+        none."""
+        return self
+
+
+LOCAL_NORMS = Norms()
+
+
+def hairer_norm(x: torch.Tensor, norms: Norms = LOCAL_NORMS) -> torch.Tensor:
     """RMS norm of the Hairer-Wanner error controller (a device scalar)."""
-    return torch.sqrt(torch.mean(x.abs() ** 2))
+    return torch.sqrt(norms.mean_sq(x))
 
 
-def initial_step_size(fvec, t0, u0, f0, order, rtol, atol, tdir):
+def initial_step_size(fvec, t0, u0, f0, order, rtol, atol, tdir,
+                      norms: Norms = LOCAL_NORMS):
     """Hairer-Norsett-Wanner automatic initial dt (Solving ODEs I, II.4).
     Scalars are host values of the time dtype; reads three norms. A
     state below float32 is promoted to the time dtype, as JAX promotes it
@@ -161,7 +194,8 @@ def initial_step_size(fvec, t0, u0, f0, order, rtol, atol, tdir):
     u0, f0 = u0.to(wide), f0.to(wide)
     sc = u0.abs() * float(rtol) + float(atol)
     d0, d1 = (kind(v) for v in torch.stack(
-        [hairer_norm(u0 / sc), hairer_norm(f0 / sc)]).tolist())
+        [hairer_norm(u0 / sc, norms),
+         hairer_norm(f0 / sc, norms)]).tolist())
     small = kind(1e-6)
     if d0 < kind(1e-5) or d1 < kind(1e-5):
         h0 = small
@@ -169,7 +203,7 @@ def initial_step_size(fvec, t0, u0, f0, order, rtol, atol, tdir):
         h0 = kind(kind(kind(0.01) * d0) / d1)
     step = kind(tdir * h0)
     f1 = fvec(u0 + f0 * float(step), kind(t0 + step))
-    d2 = kind(kind(hairer_norm((f1 - f0) / sc).item()) / h0)
+    d2 = kind(kind(hairer_norm((f1 - f0) / sc, norms).item()) / h0)
     dmax = max(d1, d2)
     if dmax <= kind(1e-15):
         h1 = max(small, kind(h0 * kind(1e-3)))
@@ -201,7 +235,7 @@ def next_stop(t, t1, tstops, tdir):
 
 
 def error_norm(err, u, u1, rtol, atol, err_weights=None,
-               weight_count=None) -> torch.Tensor:
+               weight_count=None, norms: Norms = LOCAL_NORMS) -> torch.Tensor:
     """The RMS of the error scaled by atol + rtol·max(|u|, |u1|), over the
     weighted components only when `err_weights` is given (weight-0 rows,
     pure quadrature accumulators, must not dilute the mean); a device
@@ -209,9 +243,15 @@ def error_norm(err, u, u1, rtol, atol, err_weights=None,
     sc = (torch.maximum(u.abs(), u1.abs()).to(err.dtype) * float(rtol)
           + float(atol))
     if err_weights is None:
-        return hairer_norm(err / sc)
+        return hairer_norm(err / sc, norms)
     scaled = (err_weights * (err / sc)).abs() ** 2
-    return torch.sqrt(torch.sum(scaled) / weight_count)
+    return torch.sqrt(norms.sum(scaled) / weight_count)
+
+
+def weight_count(err_weights: torch.Tensor,
+                 norms: Norms = LOCAL_NORMS) -> int:
+    """The number of components with a nonzero error weight, at least 1."""
+    return max(int(norms.sum(err_weights > 0).item()), 1)
 
 
 def match_tol(kind, span, *ts):
@@ -280,6 +320,7 @@ def integrate(
     event_set=None,
     stop_offsets=None,
     always_accept: bool = False,
+    norms: Norms = LOCAL_NORMS,
 ) -> IntegrateResult:
     """Integrate du/dt = fvec(u, t) from t0 to t1 (t1 < t0 allowed).
 
@@ -323,6 +364,8 @@ def integrate(
     always_accept: the previsible controller of JAX's adaptive SDE paths
         (integrate.py:531-535): every step with a finite error is taken,
         and the error only sizes the next one.
+    norms: the error norms' reductions (`Norms`; over every rank's shard
+        for a sharded state).
     """
     stateful = getattr(stepper, "stateful", False)
     if stateful and fixed_trip:
@@ -338,15 +381,16 @@ def integrate(
     rtol, atol = kind(rtol), kind(atol)
     if tstops is not None:
         tstops = np.asarray(tstops, dtype=kind)
-    weight_count = None
+    n_weighted = None
     if err_weights is not None:
-        weight_count = max(int((err_weights > 0).sum().item()), 1)
+        n_weighted = weight_count(err_weights, norms)
 
     f0 = fvec(u0, t0).to(dtype)
     if fixed_dt is not None:
         dt = kind(tdir * abs(kind(fixed_dt)))
     elif dt0 is None:
-        dt = initial_step_size(fvec, t0, u0, f0, order, rtol, atol, tdir)
+        dt = initial_step_size(fvec, t0, u0, f0, order, rtol, atol, tdir,
+                               norms)
     else:
         dt = kind(tdir * abs(kind(dt0)))
 
@@ -402,7 +446,7 @@ def integrate(
 
         if fixed_dt is None:
             err_norm = kind(error_norm(err, u, u1, rtol, atol, err_weights,
-                                       weight_count).item())
+                                       n_weighted, norms).item())
             bad = not np.isfinite(err_norm)
             if bad:
                 err_norm = kind(2.0)

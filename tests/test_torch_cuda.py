@@ -1181,3 +1181,55 @@ def test_ensemble_on_kernel_field_equals_single_solves(cuda):
                                            leaves)
     for a, b, c in zip(got["vmap"], got["shard_map"], g_single):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("n,u_off,lam_off", RD1D_CASES,
+                         ids=[f"n{n}-u{a}-lam{b}" for n, a, b in RD1D_CASES])
+@pytest.mark.parametrize("dtype,tol,dp_tol", [(torch.float64, 1e-12, 1e-10),
+                                              (torch.float32, 1e-5, 1e-5)])
+def test_kernels_with_shard_ghosts_match_plain_versions(cuda, dtype, tol,
+                                                        dp_tol, n, u_off,
+                                                        lam_off):
+    """K1 and K2 reading a shard's ghost cells from a device buffer
+    ([left, right] of u, then of λ) against the plain versions given the
+    same ghosts; only the two end cells move off the edge-copy launch's
+    bits."""
+    u, lam = _rd1d_case(cuda, dtype, n, u_off, lam_off, seed=3)
+    p = torch.tensor([1e-7, 1.5], device=cuda, dtype=dtype)
+    ghosts = torch.rand(4, device=cuda, dtype=dtype,
+                        generator=torch.Generator(device=cuda).manual_seed(4))
+    inv_dx2 = float(n) ** 2
+    f = rd1d.rd1d_fwd_cuda(u, p, inv_dx2, ghosts[:2].contiguous())
+    f_edge = rd1d.rd1d_fwd_cuda(u, p, inv_dx2)
+    du, dp = rd1d.rd1d_vjp_cuda(u, p, inv_dx2, lam, ghosts)
+    f_ref = rd1d.rd1d_reference(u, p, inv_dx2, ghosts[:2])
+    du_ref, _ = rd1d.rd1d_vjp_reference(u, p, inv_dx2, lam, ghosts)
+    _, dp_ref = rd1d.rd1d_vjp_reference(u.double(), p.double(), inv_dx2,
+                                        lam.double(), ghosts.double())
+    assert torch.allclose(f, f_ref, rtol=0, atol=tol * f_ref.abs().max())
+    assert torch.allclose(du, du_ref, rtol=0, atol=tol * du_ref.abs().max())
+    diff = (dp.double() - dp_ref).abs()
+    assert bool((diff <= dp_tol * dp_ref.abs().clamp_min(1e-300)).all()
+                | (dp_ref == 0).all())
+    if n > 2:
+        assert torch.equal(f[1:-1], f_edge[1:-1])
+
+
+def test_sharded_flagship_gradient_on_two_ranks(cuda):
+    """The flagship PDE (float64, n = 262,144, 64 steps, sensealg=None,
+    which dispatches to BacksolveAdjoint) with its state split over two
+    gloo ranks that share the card (chip_smoke.py's phase 5q arm, run
+    here alone): the gradients equal the unsharded card run's within
+    1e-10, each rank launching K1/K2 as often as the unsharded run on n/2
+    cells."""
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke as C
+
+    out = C.shard_phase(P, rd1d, cuda, torch.cuda.get_device_name(0),
+                        cases=((torch.float64, 262144),), arms=("None",))
+    assert out["[shard] rank 0"] == out["[shard] rank 1"]
+    assert out["[shard] rank 0"]["K1"] > 0 and out["[shard] rank 0"]["K2"] > 0
