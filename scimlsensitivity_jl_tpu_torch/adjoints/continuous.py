@@ -710,7 +710,7 @@ class _ContinuousRule:
         if self.has_p and not quadrature:
             hook, q0, finish = make_gauss_quad_hook(
                 kern, p, dense, self.sensealg, self.t0, self.t1, qdtype,
-                pinned=pinned)
+                pinned=pinned, norms=adj["norms"])
         lam0 = u0vec.new_zeros(n)
         if pinned:
             lam, q, rstats = reverse_pinned_solve(
@@ -727,7 +727,8 @@ class _ContinuousRule:
                 **self._event_kwargs(kern, p, event_set, n, npf,
                                      q_in_hc=True))
         if quadrature:
-            q = adaptive_gk_dp(kern, p, dense, lam_dense, self.sensealg, q)
+            q = adaptive_gk_dp(kern, p, dense, lam_dense, self.sensealg, q,
+                               norms=adj["norms"])
         elif finish is not None:
             q = finish(q)
         return lam, q, rstats, rstats.retcode
@@ -1481,7 +1482,8 @@ def _interval_y(dense, i: int):
 
 
 def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
-                         pinned: bool = False, extra_p=None, lam_fix=None):
+                         pinned: bool = False, extra_p=None, lam_fix=None,
+                         norms: Norms = LOCAL_NORMS):
     """Per-accepted-step hook of a λ-only reverse solve that accumulates
     dL/dp = ∫ λᵀ∂f/∂p dt in its carry (JAX `make_gauss_quad_hook`). λ at a
     node comes from the step's own Hermite interpolant, u from the
@@ -1491,7 +1493,10 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
     bfloat16 sum would lose the mantissa). extra_p(yvec, t) -> (npf,): a
     continuous cost's ∂g/∂p, added to the integrand (the direct API).
     lam_fix(yvec, t, λ) -> λ: a DAE's algebraic λ rows re-solved at each
-    node (`_dae_lam_fix`).
+    node (`_dae_lam_fix`). norms: the reductions that the error estimates
+    take; on a sharded state the integrand is this rank's partial sum, and
+    `Norms.partial_norm` sums it over the ranks before the norm, so that
+    every rank refines the same steps.
 
     GaussAdjoint: n_nodes Gauss–Legendre nodes per step; the carry is q.
     GaussKronrodAdjoint: a GK(7,15) pair per step, and a step whose
@@ -1536,7 +1541,7 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
                                 for xj in xk])
             # q += ∫ (−λᵀ∂f/∂p) dt in the forward orientation
             est = (w_est @ vals) * float(-width)
-            err = torch.linalg.vector_norm(w_err @ vals) * float(abs(width))
+            err = norms.partial_norm(w_err @ vals) * float(abs(width))
             return est, err
 
         def refine(node, pa, pb, depth):
@@ -1544,7 +1549,7 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
             if depth <= 0:
                 return est, err
             err_v, est_norm = torch.stack(
-                [err, torch.linalg.vector_norm(est)]).tolist()
+                [err, norms.partial_norm(est)]).tolist()
             tol = max(kind(kind(abstol * abs(kind(pb - pa))) / span),
                       kind(reltol * kind(est_norm)))
             if not kind(err_v) > tol:
@@ -1563,7 +1568,7 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
         def finish(carry):
             qflat, errsum = carry
             err_v, q_norm = torch.stack(
-                [errsum, torch.linalg.vector_norm(qflat)]).tolist()
+                [errsum, norms.partial_norm(qflat)]).tolist()
             tol = max(abstol, kind(reltol * kind(q_norm)))
             if kind(err_v) > tol:
                 print("GaussKronrodAdjoint: accumulated quadrature error "
@@ -1593,7 +1598,7 @@ def make_gauss_quad_hook(kern, p, dense, sensealg, t0, t1, qdtype,
 
 
 def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init,
-                   extra_p=None, lam_fix=None):
+                   extra_p=None, lam_fix=None, norms: Norms = LOCAL_NORMS):
     """QuadratureAdjoint's dL/dp after the λ-only reverse: h-adaptive
     Gauss–Kronrod over λ's recorded dense output (JAX `adaptive_gk_dp`).
     The base partition is one GK(7,15) panel per recorded reverse step, the
@@ -1606,7 +1611,8 @@ def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init,
     panel once more. q_init: the running sum to add to (its dtype is the
     sum's). extra_p(yvec, t) -> (npf,): a continuous cost's ∂g/∂p, added
     to the integrand. lam_fix: a DAE's algebraic λ rows re-solved at each
-    node (`_dae_lam_fix`)."""
+    node (`_dae_lam_fix`). norms: as for `make_gauss_quad_hook` (q and the
+    panels' estimates are per-rank partial sums on a sharded state)."""
     if p is None:
         return q_init
     qdtype = q_init.dtype
@@ -1631,7 +1637,7 @@ def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init,
                             for xj in xk])
         # the forward-orientation integral over the panel
         est = (w_est @ vals) * float(-width)
-        err = torch.linalg.vector_norm(w_err @ vals) * float(abs(width))
+        err = norms.partial_norm(w_err @ vals) * float(abs(width))
         return est, err
 
     grid = lam_dense.ts
@@ -1650,7 +1656,7 @@ def adaptive_gk_dp(kern, p, dense, lam_dense, sensealg, q_init,
     depth = [0] * len(errs)
     for _ in range(budget):
         tol = max(sensealg.abstol,
-                  sensealg.reltol * torch.linalg.vector_norm(q).item())
+                  sensealg.reltol * norms.partial_norm(q).item())
         refinable = [e if d < depth_cap else -1.0 for e, d in zip(errs, depth)]
         i = int(np.argmax(refinable))
         if not (sum(errs) > tol and refinable[i] > 0.0):

@@ -14,6 +14,19 @@
 // they stay in the halo, and the block writes only its C interior cells, at
 // window offset i*C - start.
 //
+// A shard of a state split over ranks. u is then one rank's n cells, and a
+// device buffer `ghosts` holds the H cells beyond each of its ends, the
+// neighbours' edge cells: [left H | right H] of u (then of lam, for K6),
+// left ghost j < 0 at ghosts[H + j], right ghost j >= n at ghosts[H + j - n].
+// gl and gr are the ghost cells a side has (H at an inner shard end, 0 at a
+// global end, where the edge copy applies as before), and the clamp becomes
+// clamp(i*C - H, -gl, n + gr - W): it stops at the global ends only, so a
+// tile at an inner shard end reads its window across the cut from the
+// buffer. The caller makes W = min(C + 2H, gl + n + gr), H = 4(S+1) for
+// every tile count. A null buffer with gl = gr = 0 reads u alone, the
+// unsharded kernel's bits: the launch then takes the kernels' kGhosted =
+// false instances, whose loads are the plain u[j] of a whole grid.
+//
 // Register tile. Thread t of a block owns the R consecutive window cells
 // [t*R, t*R + R) and keeps every stage value of its cells in registers; the
 // block has ceil(W / R) threads rounded up to whole warps, and the cells past
@@ -290,21 +303,36 @@ __device__ __forceinline__ bool misses_last(int W) {
 }
 
 __device__ __forceinline__ int64_t window_start(int64_t i, int64_t n, int C,
-                                                int H, int W) {
+                                                int H, int W, int gl, int gr) {
   int64_t start = i * C - H;
-  if (start > n - W) start = n - W;
-  if (start < 0) start = 0;
+  if (start > n + gr - W) start = n + gr - W;
+  if (start < -gl) start = -gl;
   return start;
 }
 
-template <typename T, int R, int kMaxThreads, int kBlocks>
+// Cell j of a shard's u (or lam), j in [-gl, n + gr): its own cells from x,
+// the others from the ghost buffer g (see the header); x[j] alone where the
+// launch has no ghost buffer (kGhosted false).
+template <bool kGhosted, typename T>
+__device__ __forceinline__ T cell(const T* __restrict__ x,
+                                  const T* __restrict__ g, int64_t j,
+                                  int64_t n, int H) {
+  if (kGhosted) {
+    if (j < 0) return g[H + j];
+    if (j >= n) return g[H + (j - n)];
+  }
+  return x[j];
+}
+
+template <typename T, int R, int kMaxThreads, int kBlocks, bool kGhosted>
 __global__ void __launch_bounds__(kMaxThreads, kBlocks)
 rd1d_rk4_fwd_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     T inv_dx2, T h, T hh, T h6, T* __restrict__ out,
-                    int64_t n, int S, int C, int H, int W) {
+                    int64_t n, int S, int C, int H, int W,
+                    const T* __restrict__ ghosts, int gl, int gr) {
   __shared__ T edge_buf[2 * kParity];
   const int64_t i = blockIdx.x;
-  const int64_t start = window_start(i, n, C, H, W);
+  const int64_t start = window_start(i, n, C, H, W, gl, gr);
   const int off = static_cast<int>(i * C - start);
   const T Dc = p[0] * inv_dx2;
   const T k = p[1];
@@ -313,7 +341,9 @@ rd1d_rk4_fwd_kernel(const T* __restrict__ u, const T* __restrict__ p,
   const Exchange<T> e = exchange_of(edge_buf);
   T x[R];
 #pragma unroll
-  for (int r = 0; r < R; ++r) x[r] = u[start + min(base + r, W - 1)];
+  for (int r = 0; r < R; ++r) {
+    x[r] = cell<kGhosted>(u, ghosts, start + min(base + r, W - 1), n, H);
+  }
   const bool plain = misses_last<R>(W);
   for (int s = 0; s < S; ++s) rk4_step(e, x, plain, hi, Dc, k, h, hh, h6);
 #pragma unroll
@@ -340,12 +370,13 @@ __device__ __forceinline__ T block_sum(T v, T* red) {
   return total;
 }
 
-template <typename T>
+template <typename T, bool kGhosted>
 __global__ void __launch_bounds__(BwdTile<T>::kMaxThreads)
 rd1d_rk4_bwd_kernel(const T* __restrict__ u, const T* __restrict__ p,
                     const T* __restrict__ lam, T inv_dx2, T h, T hh, T h6,
                     T h26, T* __restrict__ du, T* __restrict__ partials,
-                    int64_t n, int S, int C, int H, int W) {
+                    int64_t n, int S, int C, int H, int W,
+                    const T* __restrict__ ghosts, int gl, int gr) {
   constexpr int R = BwdTile<T>::R;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T edge_buf[2 * kParity];
@@ -353,11 +384,13 @@ rd1d_rk4_bwd_kernel(const T* __restrict__ u, const T* __restrict__ p,
   static_assert(sizeof(edge_buf) + sizeof(red) <= kBwdStaticSmem,
                 "static shared memory above its reserve");
   const int64_t i = blockIdx.x;
-  const int64_t start = window_start(i, n, C, H, W);
+  const int64_t start = window_start(i, n, C, H, W, gl, gr);
   const int off = static_cast<int>(i * C - start);
   const T Dc = p[0] * inv_dx2;
   const T k = p[1];
   const int nt = blockDim.x;
+  // lam's ghosts follow u's in the buffer
+  const T* lam_ghosts = ghosts == nullptr ? nullptr : ghosts + 2 * H;
   const int base = threadIdx.x * R;
   const int hi = W - 1 - base;
   const int lo = off - base;    // the thread's interior cells: lo <= r < hc
@@ -371,8 +404,8 @@ rd1d_rk4_bwd_kernel(const T* __restrict__ u, const T* __restrict__ p,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int j = base + r;
-    U[r] = u[start + min(j, W - 1)];
-    lm[r] = j < W ? lam[start + j] : T(0);
+    U[r] = cell<kGhosted>(u, ghosts, start + min(j, W - 1), n, H);
+    lm[r] = j < W ? cell<kGhosted>(lam, lam_ghosts, start + j, n, H) : T(0);
   }
   for (int s = 0; s < S; ++s) {
 #pragma unroll
@@ -540,7 +573,7 @@ int64_t num_tiles(int64_t n, int C) { return (n + C - 1) / C; }
 template <typename T>
 int launch_fwd(const void* u, const void* p, double inv_dx2, double h,
                void* out, int64_t n, int S, int C, int H, int W,
-               void* stream) {
+               const void* ghosts, int gl, int gr, void* stream) {
   if (n <= 0) return 0;
   const Tile t = fwd_tile<T>(W);
   if (t.threads > t.max_threads) {
@@ -548,22 +581,32 @@ int launch_fwd(const void* u, const void* p, double inv_dx2, double h,
   }
   const Coeffs c = coeffs(h);
   using F = FwdTiles<T>;
-  auto kernel = t.R == 8 ? rd1d_rk4_fwd_kernel<T, 8, F::kMax8, F::kBlocks8>
-                         : rd1d_rk4_fwd_kernel<T, 16, F::kMax16, 1>;
+  auto kernel =
+      ghosts == nullptr
+          ? (t.R == 8 ? rd1d_rk4_fwd_kernel<T, 8, F::kMax8, F::kBlocks8, false>
+                      : rd1d_rk4_fwd_kernel<T, 16, F::kMax16, 1, false>)
+          : (t.R == 8 ? rd1d_rk4_fwd_kernel<T, 8, F::kMax8, F::kBlocks8, true>
+                      : rd1d_rk4_fwd_kernel<T, 16, F::kMax16, 1, true>);
   kernel<<<static_cast<unsigned>(num_tiles(n, C)), t.threads, 0,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(u), static_cast<const T*>(p),
       static_cast<T>(inv_dx2), static_cast<T>(c.h), static_cast<T>(c.hh),
-      static_cast<T>(c.h6), static_cast<T*>(out), n, S, C, H, W);
+      static_cast<T>(c.h6), static_cast<T*>(out), n, S, C, H, W,
+      static_cast<const T*>(ghosts), gl, gr);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_bwd(const void* u, const void* p, const void* lam, double inv_dx2,
                double h, void* du, void* partials, void* dp, int64_t n, int S,
-               int C, int H, int W, void* stream) {
+               int C, int H, int W, const void* ghosts, int gl, int gr,
+               void* stream) {
   if (n <= 0) return 0;
-  static bool opted_in[kMaxDevices] = {};  // per instantiation and device
+  // per instantiation, device and kernel (with a ghost buffer or without)
+  static bool opted_in[2][kMaxDevices] = {};
+  const bool ghosted = ghosts != nullptr;
+  auto kernel = ghosted ? rd1d_rk4_bwd_kernel<T, true>
+                        : rd1d_rk4_bwd_kernel<T, false>;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -572,23 +615,23 @@ int launch_bwd(const void* u, const void* p, const void* lam, double inv_dx2,
   if (t.threads > t.max_threads || t.smem > limit) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(rd1d_rk4_bwd_kernel<T>,
+  if (!opted_in[ghosted][dev]) {
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(limit));
     if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in[dev] = true;
+    opted_in[ghosted][dev] = true;
   }
   const Coeffs c = coeffs(h);
   const int64_t tiles = num_tiles(n, C);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  rd1d_rk4_bwd_kernel<T><<<static_cast<unsigned>(tiles), t.threads,
-                           static_cast<size_t>(t.smem), s>>>(
+  kernel<<<static_cast<unsigned>(tiles), t.threads,
+           static_cast<size_t>(t.smem), s>>>(
       static_cast<const T*>(u), static_cast<const T*>(p),
       static_cast<const T*>(lam), static_cast<T>(inv_dx2),
       static_cast<T>(c.h), static_cast<T>(c.hh), static_cast<T>(c.h6),
       static_cast<T>(c.h26), static_cast<T*>(du), static_cast<T*>(partials),
-      n, S, C, H, W);
+      n, S, C, H, W, static_cast<const T*>(ghosts), gl, gr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   rd1d_rk4_bwd_reduce_kernel<T><<<1, kReduceThreads, 0, s>>>(
@@ -625,30 +668,32 @@ int64_t rd1d_rk4_smem_limit(int dev) { return smem_limit(dev); }
 
 int rd1d_rk4_fwd_f32(const void* u, const void* p, double inv_dx2, double h,
                      void* out, int64_t n, int S, int C, int H, int W,
-                     void* stream) {
-  return launch_fwd<float>(u, p, inv_dx2, h, out, n, S, C, H, W, stream);
+                     const void* ghosts, int gl, int gr, void* stream) {
+  return launch_fwd<float>(u, p, inv_dx2, h, out, n, S, C, H, W, ghosts, gl,
+                         gr, stream);
 }
 
 int rd1d_rk4_fwd_f64(const void* u, const void* p, double inv_dx2, double h,
                      void* out, int64_t n, int S, int C, int H, int W,
-                     void* stream) {
-  return launch_fwd<double>(u, p, inv_dx2, h, out, n, S, C, H, W, stream);
+                     const void* ghosts, int gl, int gr, void* stream) {
+  return launch_fwd<double>(u, p, inv_dx2, h, out, n, S, C, H, W, ghosts, gl,
+                         gr, stream);
 }
 
 int rd1d_rk4_bwd_f32(const void* u, const void* p, const void* lam,
                      double inv_dx2, double h, void* du, void* partials,
                      void* dp, int64_t n, int S, int C, int H, int W,
-                     void* stream) {
+                     const void* ghosts, int gl, int gr, void* stream) {
   return launch_bwd<float>(u, p, lam, inv_dx2, h, du, partials, dp, n, S, C,
-                           H, W, stream);
+                           H, W, ghosts, gl, gr, stream);
 }
 
 int rd1d_rk4_bwd_f64(const void* u, const void* p, const void* lam,
                      double inv_dx2, double h, void* du, void* partials,
                      void* dp, int64_t n, int S, int C, int H, int W,
-                     void* stream) {
+                     const void* ghosts, int gl, int gr, void* stream) {
   return launch_bwd<double>(u, p, lam, inv_dx2, h, du, partials, dp, n, S, C,
-                            H, W, stream);
+                            H, W, ghosts, gl, gr, stream);
 }
 
 }  // extern "C"

@@ -29,6 +29,12 @@ H100 and what the design does about it is noted in `csrc/mlp2.cu`. The pullback 
 backward that raises `ops.vjp.DoubleBackwardUnsupported`, and `FusedMLP2`
 refuses a complex input before launch.
 
+On a batch split by rows over the ranks of a process group (a 2-D
+DTensor x with placement Shard(0), `parallel/sharded.py`) `fused_mlp2`
+runs `FusedMLP2` on each rank's rows: the weights are replicated, their
+cotangents the rank's partial sums, and no product goes through DTensor's
+matmul rules.
+
 The JAX `fused_mlp2` sends shapes above ~12 MB of TPU VMEM back to the
 plain XLA version; that gate is a TPU workaround and is not ported: every
 shape goes through the kernels (ROADMAP §3).
@@ -351,13 +357,48 @@ def fused_mlp2(params: Dict[str, torch.Tensor], x: torch.Tensor):
     params: {'W0','b0','W1','b1'} (the `mlp_init` layout); x: (din,) or
     (B, din). Differentiable with respect to x and params through K4.
     Parameters of another dtype than x are cast to x's (the JAX kernel
-    promotes them inside its products; the values are the same). A sharded
-    x or parameter (a DTensor) is refused before any launch.
+    promotes them inside its products; the values are the same).
+
+    A batch split by rows (x a (B, din) DTensor with placement Shard(0))
+    runs K3, and K4 in the pullback, on this rank's rows; the parameters
+    are replicated DTensors or plain tensors, whose gradients are the
+    ranks' partial sums summed (`sharded.replicated_local`), and the value
+    is a DTensor split like x. Another placement of x, or a parameter split
+    over the ranks, is refused before any launch.
     """
-    if any(sharded.is_sharded(t) for t in (x, *params.values())):
-        raise sharded.refuse("fused_mlp2 (K3/K4)")
+    if sharded.is_sharded(x):
+        return _sharded_mlp2(params, x)
+    if any(sharded.is_sharded(t) for t in params.values()):
+        raise sharded.refuse("fused_mlp2 (K3/K4) with DTensor weights and a "
+                             "whole x")
     single = x.dim() == 1
     x2 = (x[None] if single else x).contiguous()
     w = [params[k].to(x.dtype).contiguous() for k in ("W0", "b0", "W1", "b1")]
     y, _h = FusedMLP2.apply(x2, *w)
     return y[0] if single else y
+
+
+def _sharded_mlp2(params: Dict[str, torch.Tensor], x):
+    """fused_mlp2 on a batch split by rows: FusedMLP2 on this rank's rows,
+    the result wrapped back as Shard(0)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    whole = sharded.unwrapped(x)
+    if x.dim() != 2 or tuple(whole.placements) != (Shard(0),):
+        raise sharded.refuse(
+            f"fused_mlp2 (K3/K4) on a {x.dim()}-D x placed "
+            f"{tuple(whole.placements)} (a batch is split by rows, a 2-D "
+            "state with placement Shard(0); a state split along dim 1 is "
+            "not)")
+    for key, w in params.items():
+        if sharded.is_sharded(w) and tuple(
+                sharded.unwrapped(w).placements) != (Replicate(),):
+            raise sharded.refuse(f"fused_mlp2 (K3/K4) with the weight {key} "
+                                 "split over the ranks (a DTensor weight is "
+                                 "replicated)")
+    shard = sharded.ShardContext.of(x)
+    rows = sharded.to_local(x, shard).contiguous()
+    w = [sharded.replicated_local(params[k], shard).to(rows.dtype)
+         .contiguous() for k in ("W0", "b0", "W1", "b1")]
+    y, _h = FusedMLP2.apply(rows, *w)
+    return sharded.from_local(y, shard)

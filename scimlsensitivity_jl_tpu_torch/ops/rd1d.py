@@ -48,7 +48,12 @@ in a fixed order.
 The RK4 block's operators `rd1d_rk4_fwd` (K5) and `rd1d_rk4_vjp` (K6)
 follow the same rule: a CPU tensor runs the plain version over the whole
 grid (`rd1d_rk4_scan_reference`, `rd1d_rk4_block_vjp_reference`), a CUDA
-tensor launches the kernel over haloed windows or raises.
+tensor launches the kernel over haloed windows or raises. On a sharded
+state the block runs on each rank's shard (`ShardedRD1DRK4Block`): one
+exchange per block call gives the shard H = 4(S+1) ghost cells per side
+(u's; u's and λ's in the pullback), K5 and K6 read the part of a window
+that lies across a cut from that buffer, and the plain versions run over
+the shard widened by its ghosts.
 """
 
 from __future__ import annotations
@@ -69,8 +74,8 @@ __all__ = ["rd1d_reference", "rd1d_vjp_reference", "rd1d_fwd", "rd1d_vjp",
            "make_rd1d_field", "load_rd1d_library",
            "rd1d_rk4_scan_reference", "rd1d_rk4_block_vjp_reference",
            "rd1d_rk4_fwd", "rd1d_rk4_vjp", "rd1d_rk4_fwd_cuda",
-           "rd1d_rk4_vjp_cuda", "RD1DRK4Block", "make_rd1d_rk4_block",
-           "load_rd1d_rk4_library", "rd1d_rk4_tile"]
+           "rd1d_rk4_vjp_cuda", "RD1DRK4Block", "ShardedRD1DRK4Block",
+           "make_rd1d_rk4_block", "load_rd1d_rk4_library", "rd1d_rk4_tile"]
 
 
 # -- plain versions ----------------------------------------------------------
@@ -411,11 +416,14 @@ def rd1d_rk4_scan_reference(u, p, inv_dx2: float, h: float, n_steps: int):
 
 
 def rd1d_rk4_block_vjp_reference(u, p, inv_dx2: float, h: float, S: int,
-                                 lam) -> Tuple[torch.Tensor, torch.Tensor]:
+                                 lam, own=None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6's plain version: (ū, [D̄, k̄]) of S RK4 steps from u for the
     cotangent λ, by the hand-derived reverse sweep of the TPU kernel
-    (pallas_pde.py:253-345) over the whole grid, without windows. Per
-    reverse step, with Jᵀ(x)v = D·inv_dx2·L(v) + k(1−2x)·v:
+    (pallas_pde.py:253-345) over the whole grid, without windows; own =
+    (a, b) sums D̄ and k̄ over cells [a, b) only (a shard's own cells
+    between its ghosts). Per reverse step, with
+    Jᵀ(x)v = D·inv_dx2·L(v) + k(1−2x)·v:
 
         w4 = (h/6)λ ;            s4 = J(u4)ᵀ w4
         w3 = (2h/6)λ + h·s4 ;    s3 = J(u3)ᵀ w3
@@ -457,7 +465,44 @@ def rd1d_rk4_block_vjp_reference(u, p, inv_dx2: float, h: float, S: int,
         acc_k = acc_k + (w1 * x * (1.0 - x) + w2 * x2 * (1.0 - x2)
                          + w3 * x3 * (1.0 - x3) + w4 * x4 * (1.0 - x4))
         lam = lam + s1 + s2 + s3 + s4
+    if own is not None:
+        acc_d, acc_k = acc_d[own[0]:own[1]], acc_k[own[0]:own[1]]
     return lam, torch.stack([inv_dx2 * torch.sum(acc_d), torch.sum(acc_k)])
+
+
+def _widened(x, ghosts, H: int, left: bool, right: bool):
+    """[left ghosts | x | right ghosts] of a shard: the H cells beyond each
+    inner end from `ghosts` ([left H | right H]), none at a global end."""
+    parts = ([ghosts[:H]] if left else []) + [x] + (
+        [ghosts[H:2 * H]] if right else [])
+    return torch.cat(parts)
+
+
+def rd1d_rk4_scan_shard_reference(u, p, inv_dx2: float, h: float, S: int,
+                                  ghosts, left: bool, right: bool):
+    """K5's plain version on a shard: the scan over the shard widened by
+    its ghosts, its own cells kept. The edge copy at a widened end reaches
+    4 cells per step, S·4 < H, so the own cells are the whole grid's."""
+    H = 4 * (S + 1)
+    y = rd1d_rk4_scan_reference(_widened(u, ghosts, H, left, right), p,
+                                inv_dx2, h, S)
+    a = H if left else 0
+    return y[a:a + u.numel()]
+
+
+def rd1d_rk4_block_vjp_shard_reference(u, p, inv_dx2: float, h: float,
+                                       S: int, lam, ghosts, left: bool,
+                                       right: bool):
+    """K6's plain version on a shard: the reverse sweep over the shard
+    widened by u's and λ's ghosts ([u left | u right | λ left | λ right],
+    H each), ū of its own cells and the partial D̄, k̄ summed over them."""
+    H = 4 * (S + 1)
+    a = H if left else 0
+    du, dp = rd1d_rk4_block_vjp_reference(
+        _widened(u, ghosts[:2 * H], H, left, right), p, inv_dx2, h, S,
+        _widened(lam, ghosts[2 * H:], H, left, right),
+        own=(a, a + u.numel()))
+    return du[a:a + u.numel()], dp
 
 
 def _chunk_geometry(n: int, S: int, chunk: int):
@@ -484,6 +529,34 @@ def _chunk_geometry(n: int, S: int, chunk: int):
     return C, H, W, G
 
 
+def _shard_geometry(n: int, S: int, chunk: int, left: bool, right: bool):
+    """(C, H, W, G, gl, gr) of one rank's shard of n cells: `_chunk_geometry`'s
+    contracts on the local length, with H = 4(S+1) whatever the tile count
+    (a one-tile shard with a neighbour still needs its halo), gl / gr = H
+    ghost cells on a side with a neighbour and 0 at a global end, and
+    W = min(C + 2H, gl + n + gr), so that every window lies inside the
+    widened shard."""
+    H = 4 * (S + 1)
+    if n < H:
+        raise sharded.ShardedStateError(
+            f"the RK4 block (K5/K6) on a sharded state needs every shard to "
+            f"hold at least 4*(S+1) = {H} cells, the ghost width its "
+            f"neighbours read; a shard holds {n}: use fewer ranks, more "
+            "cells or a lower S")
+    C = min(chunk, n)
+    if n % C:
+        raise sharded.ShardedStateError(
+            f"the RK4 block (K5/K6) needs each shard's length divisible by "
+            f"the chunk; a shard of {n} cells, chunk={C}")
+    G = n // C
+    if G > 1 and C < H:
+        raise sharded.ShardedStateError(
+            f"rd1d megakernel chunk ({C}) must be >= the halo width "
+            f"4*(S+1) = {H}; lower S or raise chunk")
+    gl, gr = (H if left else 0), (H if right else 0)
+    return C, H, min(C + 2 * H, gl + n + gr), G, gl, gr
+
+
 # -- the RK4 block: CUDA wrappers ---------------------------------------------
 
 
@@ -494,7 +567,8 @@ def load_rd1d_rk4_library() -> ctypes.CDLL:
     if not getattr(lib, "_rd1d_rk4_typed", False):
         ptr, i64, i32, f64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                               ctypes.c_double)
-        geometry = [i64, i32, i32, i32, i32, ptr]  # n, S, C, H, W, stream
+        # n, S, C, H, W, ghosts (or null), gl, gr, stream
+        geometry = [i64, i32, i32, i32, i32, ptr, i32, i32, ptr]
         for name in ("rd1d_rk4_fwd_f32", "rd1d_rk4_fwd_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [ptr, ptr, f64, f64, ptr] + geometry
@@ -534,16 +608,21 @@ def rd1d_rk4_tile(which: str, W: int, S: int, dtype: torch.dtype):
 _RK4_CHECKED = {}
 
 
-def _rk4_launch_args(u, S: int, chunk: int, which: str):
+def _rk4_launch_args(u, S: int, chunk: int, which: str, sides=None):
     """The geometry and a check that the window fits the kernel's register
     tile and, for K6, the card's shared memory, for K5 (`which="fwd"`) or K6
-    (`"bwd"`)."""
+    (`"bwd"`); sides: None for a whole grid, or a shard's (left, right),
+    whether it has a neighbour there."""
     n = u.numel()
-    key = (which, n, S, chunk, u.dtype, u.device.index)
+    key = (which, n, S, chunk, u.dtype, u.device.index, sides)
     hit = _RK4_CHECKED.get(key)
     if hit is not None:
         return hit
-    C, H, W, G = _chunk_geometry(n, S, chunk)
+    if sides is None:
+        C, H, W, G = _chunk_geometry(n, S, chunk)
+        gl = gr = 0
+    else:
+        C, H, W, G, gl, gr = _shard_geometry(n, S, chunk, *sides)
     R, threads, need, max_threads = rd1d_rk4_tile(which, W, S, u.dtype)
     knob = "chunk" if which == "fwd" else "bwd_chunk"
     limit = load_rd1d_rk4_library().rd1d_rk4_smem_limit(u.device.index)
@@ -558,40 +637,65 @@ def _rk4_launch_args(u, S: int, chunk: int, which: str):
             f"threads of {R} cells, and its register tile holds at most "
             f"{max_threads} threads ({max_threads * R} cells); lower the "
             f"{knob}")
-    _RK4_CHECKED[key] = hit = ((n, S, C, H, W), G)
+    _RK4_CHECKED[key] = hit = ((n, S, C, H, W), G, (gl, gr))
     return hit
 
 
+def _rk4_ghost_args(u, S: int, ghosts, left: bool, right: bool,
+                    count: int):
+    """(sides, pointer) of K5's / K6's ghost buffer: (None, None) for a
+    whole grid, else the shard's sides and the device pointer of its
+    `count` × 4(S+1) ghost cells."""
+    if ghosts is None:
+        if left or right:
+            raise ValueError("a shard's sides need its ghost buffer")
+        return None, None
+    return (bool(left), bool(right)), _check_ghosts(u, ghosts,
+                                                    count * 4 * (S + 1))
+
+
 def rd1d_rk4_fwd_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
-                      h: float, S: int, chunk: int) -> torch.Tensor:
+                      h: float, S: int, chunk: int, ghosts=None,
+                      left: bool = False, right: bool = False
+                      ) -> torch.Tensor:
     """K5 on the current stream: u after S RK4 steps, one block per
-    interior tile of `chunk` cells."""
+    interior tile of `chunk` cells. ghosts: None (a whole grid), or a
+    shard's [left H | right H] cells beyond its ends on the device, with
+    `left` / `right` whether it has a neighbour there (H = 4(S+1)). Counts
+    its launches in `.launches` and the cells they advanced in `.cells`."""
     _check_cuda_args(u, p)
-    geometry, _ = _rk4_launch_args(u, S, chunk, "fwd")
+    sides, gptr = _rk4_ghost_args(u, S, ghosts, left, right, 2)
+    geometry, _, edges = _rk4_launch_args(u, S, chunk, "fwd", sides)
     launch = getattr(load_rd1d_rk4_library(),
                      f"rd1d_rk4_fwd_{_SUFFIX[u.dtype]}")
     out = torch.empty_like(u)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(u.data_ptr(), p.data_ptr(), float(inv_dx2), float(h),
-                    out.data_ptr(), *geometry, stream)
+                    out.data_ptr(), *geometry, gptr, *edges, stream)
     if rc != 0:
         raise RuntimeError(f"rd1d_rk4_fwd launch failed: cudaError {rc}")
     rd1d_rk4_fwd_cuda.launches += 1
+    rd1d_rk4_fwd_cuda.cells += u.numel()
     return out
 
 
-rd1d_rk4_fwd_cuda.launches = 0
+rd1d_rk4_fwd_cuda.launches = rd1d_rk4_fwd_cuda.cells = 0
 
 
 def rd1d_rk4_vjp_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
-                      h: float, S: int, chunk: int,
-                      lam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                      h: float, S: int, chunk: int, lam: torch.Tensor,
+                      ghosts=None, left: bool = False, right: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 on the current stream: (ū, [D̄, k̄]) of S RK4 steps from u, one
     block per interior tile of `chunk` cells, then a one-block pass that
-    sums the per-tile (D̄, k̄) partials in a fixed order (no atomics)."""
+    sums the per-tile (D̄, k̄) partials in a fixed order (no atomics).
+    ghosts: None, or a shard's [u left | u right | λ left | λ right], H
+    cells each, with `left` / `right` as for K5; ū is then the shard's own
+    cells' and D̄, k̄ the sums over them. Counts `.launches` and `.cells`."""
     _check_cuda_args(u, p, lam)
-    geometry, G = _rk4_launch_args(u, S, chunk, "bwd")
+    sides, gptr = _rk4_ghost_args(u, S, ghosts, left, right, 4)
+    geometry, G, edges = _rk4_launch_args(u, S, chunk, "bwd", sides)
     launch = getattr(load_rd1d_rk4_library(),
                      f"rd1d_rk4_bwd_{_SUFFIX[u.dtype]}")
     du = torch.empty_like(u)
@@ -601,14 +705,16 @@ def rd1d_rk4_vjp_cuda(u: torch.Tensor, p: torch.Tensor, inv_dx2: float,
         stream = torch.cuda.current_stream().cuda_stream
         rc = launch(u.data_ptr(), p.data_ptr(), lam.data_ptr(),
                     float(inv_dx2), float(h), du.data_ptr(),
-                    partials.data_ptr(), dp.data_ptr(), *geometry, stream)
+                    partials.data_ptr(), dp.data_ptr(), *geometry, gptr,
+                    *edges, stream)
     if rc != 0:
         raise RuntimeError(f"rd1d_rk4_vjp launch failed: cudaError {rc}")
     rd1d_rk4_vjp_cuda.launches += 1
+    rd1d_rk4_vjp_cuda.cells += u.numel()
     return du, dp
 
 
-rd1d_rk4_vjp_cuda.launches = 0
+rd1d_rk4_vjp_cuda.launches = rd1d_rk4_vjp_cuda.cells = 0
 
 
 # -- the RK4 block: operators and the block function -------------------------
@@ -617,18 +723,28 @@ rd1d_rk4_vjp_cuda.launches = 0
 @torch.library.custom_op("scimlsens_torch::rd1d_rk4_fwd", mutates_args=(),
                          device_types="cpu")
 def rd1d_rk4_fwd(u: torch.Tensor, p: torch.Tensor, inv_dx2: float, h: float,
-                 S: int, chunk: int) -> torch.Tensor:
-    """K5 operator: u after S RK4 steps (`chunk` sets the CUDA tiling)."""
-    return rd1d_rk4_scan_reference(u, p, inv_dx2, h, S)
+                 S: int, chunk: int, ghosts: Optional[torch.Tensor] = None,
+                 left: bool = False, right: bool = False) -> torch.Tensor:
+    """K5 operator: u after S RK4 steps (`chunk` sets the CUDA tiling);
+    ghosts, left, right: a shard's, as `rd1d_rk4_fwd_cuda` takes them."""
+    if ghosts is None:
+        return rd1d_rk4_scan_reference(u, p, inv_dx2, h, S)
+    return rd1d_rk4_scan_shard_reference(u, p, inv_dx2, h, S, ghosts, left,
+                                         right)
 
 
 @torch.library.custom_op("scimlsens_torch::rd1d_rk4_vjp", mutates_args=(),
                          device_types="cpu")
 def rd1d_rk4_vjp(u: torch.Tensor, p: torch.Tensor, inv_dx2: float, h: float,
-                 S: int, chunk: int,
-                 lam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6 operator: (ū, [D̄, k̄]) of the S-step block."""
-    return rd1d_rk4_block_vjp_reference(u, p, inv_dx2, h, S, lam)
+                 S: int, chunk: int, lam: torch.Tensor,
+                 ghosts: Optional[torch.Tensor] = None, left: bool = False,
+                 right: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 operator: (ū, [D̄, k̄]) of the S-step block (ghosts, left,
+    right: a shard's, as `rd1d_rk4_vjp_cuda` takes them)."""
+    if ghosts is None:
+        return rd1d_rk4_block_vjp_reference(u, p, inv_dx2, h, S, lam)
+    return rd1d_rk4_block_vjp_shard_reference(u, p, inv_dx2, h, S, lam,
+                                              ghosts, left, right)
 
 
 rd1d_rk4_fwd.register_kernel("cuda")(rd1d_rk4_fwd_cuda)
@@ -674,6 +790,62 @@ class RD1DRK4Block(torch.autograd.Function):
 register_kernel_function(RD1DRK4Block, "RD1DRK4Block (K5/K6)")
 
 
+class ShardedRD1DRK4Block(torch.autograd.Function):
+    """The block on one rank's shard: K5 with the shard's 4(S+1) ghost
+    cells per side from one halo exchange, the pullback K6 with u's and
+    λ's from one more; ū is the shard's own cells' (each K6 tile's
+    windowed adjoint, no scatter of ghost cotangents), D̄ and k̄ the rank's
+    partial sums. In the `setup_context` form."""
+
+    @staticmethod
+    def forward(u, p, inv_dx2, h, S, chunk, bwd_chunk, shard):
+        if u.is_complex():
+            raise refuse_complex_state("RD1DRK4Block (K5/K6)", u.dtype)
+        ghosts = shard.halo(u, width=4 * (S + 1))
+        return rd1d_rk4_fwd(u, p, float(inv_dx2), float(h), int(S),
+                            int(chunk), ghosts, *shard.sides)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        u, p, inv_dx2, h, S, _chunk, bwd_chunk, shard = inputs
+        ctx.save_for_backward(u, p)
+        ctx.args = (float(inv_dx2), float(h), int(S), int(bwd_chunk))
+        ctx.shard = shard
+
+    @staticmethod
+    def backward(ctx, lam):
+        u, p = ctx.saved_tensors
+        inv_dx2, h, S, bwd_chunk = ctx.args
+        lam = lam.contiguous()
+        ghosts = ctx.shard.halo(u, lam, width=4 * (S + 1))
+        du, dp = rd1d_rk4_vjp(u, p, inv_dx2, h, S, bwd_chunk, lam, ghosts,
+                              *ctx.shard.sides)
+        return du, dp, None, None, None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        raise refuse_forward_mode("RD1DRK4Block (K5/K6)")
+
+
+register_kernel_function(ShardedRD1DRK4Block, "RD1DRK4Block (K5/K6)")
+
+
+def _sharded_block(u, p, inv_dx2, h, S, chunk, bwd_chunk):
+    """The block on a sharded state u (a DTensor): each rank's shard through
+    `ShardedRD1DRK4Block`, the value a DTensor split like u. Every shard's
+    geometry is checked on every rank, so a shard that the kernels cannot
+    take raises `ShardedStateError` on all of them before any exchange."""
+    shard = sharded.ShardContext.of(u)
+    for r, size in enumerate(shard.sizes):
+        sides = (r > 0, r + 1 < shard.world)
+        for c in (chunk, bwd_chunk):
+            _shard_geometry(size, S, c, *sides)
+    out = ShardedRD1DRK4Block.apply(
+        sharded.to_local(u, shard), sharded.replicated_local(p, shard),
+        inv_dx2, h, S, chunk, bwd_chunk, shard)
+    return sharded.from_local(out, shard)
+
+
 def make_rd1d_rk4_block(n: int, S: int, chunk: int = 4096,
                         bwd_chunk: int = 1024):
     """S-step RK4 megakernel over a length-n grid: returns
@@ -693,15 +865,25 @@ def make_rd1d_rk4_block(n: int, S: int, chunk: int = 4096,
     1024 and S = 16, two blocks per SM in float32. Both contracts of
     `_chunk_geometry` are checked here, as in JAX; a window that a kernel
     does not take raises at launch.
-    On the CPU the block runs the plain versions over the whole grid. A
-    sharded u (a DTensor) is refused before any launch: its haloed windows
-    do not reach across shards yet (ROADMAP §1)."""
+    On the CPU the block runs the plain versions over the whole grid.
+
+    A sharded u (a DTensor with placement Shard(0), `parallel/sharded.py`)
+    returns a DTensor placed the same way; p stays a plain tensor (or a
+    replicated DTensor), and its gradient is whole and the same on every
+    rank. Each rank advances its own shard with the tile geometry of its
+    length (the chunk contracts above hold per shard; a shard of fewer than
+    4(S+1) cells raises `ShardedStateError` before any launch), reading the
+    4(S+1) cells beyond each inner end from one halo exchange per call
+    (`ShardedRD1DRK4Block`)."""
     C, _, _, _ = _chunk_geometry(n, S, chunk)
     Cb, _, _, _ = _chunk_geometry(n, S, bwd_chunk)
 
     def block(u, p, inv_dx2, h):
         if sharded.is_sharded(u):
-            raise sharded.refuse("the RK4 block (K5/K6, make_rd1d_rk4_block)")
+            if tuple(u.shape) != (n,):
+                raise ValueError(
+                    f"block of n={n} got u of shape {tuple(u.shape)}")
+            return _sharded_block(u, p, inv_dx2, h, S, chunk, bwd_chunk)
         if tuple(u.shape) != (n,):
             raise ValueError(f"block of n={n} got u of shape {tuple(u.shape)}")
         return RD1DRK4Block.apply(u, p, inv_dx2, h, S, C, Cb)

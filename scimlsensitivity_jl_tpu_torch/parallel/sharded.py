@@ -13,17 +13,19 @@ every rank holds whole. Nothing else changes at the call.
 How such a solve runs:
 
   * every rank runs the solver on its own shard, a plain tensor (`Shard(0)`
-    splits n cells as `torch.chunk` does; an empty shard raises
-    `ShardedStateError`). Step sizes, accept or reject and every other host
-    decision come from global reductions whose bits are the same on every
-    rank, so every rank takes the same steps and calls the same
-    collectives in the same order;
+    splits n cells, or the n rows of a 2-D (n, d) state, as `torch.chunk`
+    does; an empty shard raises `ShardedStateError`). Step sizes, accept
+    or reject and every other host decision come from global reductions
+    whose bits are the same on every rank, so every rank takes the same
+    steps and calls the same collectives in the same order;
   * the caller's field sees the whole state as a DTensor and p as
     replicated DTensors. A field written with `torch.roll` runs through
     DTensor's own rules, which gather the whole state for it (ROADMAP §3);
     the flagship reaction-diffusion field (`ops.rd1d.make_rd1d_field`)
     exchanges one ghost cell per side (`ShardContext.halo`) and launches
-    K1/K2 on the rank's shard;
+    K1/K2 on the rank's shard, the RK4 block (`make_rd1d_rk4_block`) 4(S+1)
+    cells per side for K5/K6, and `ops.mlp.fused_mlp2` on a batch split by
+    rows launches K3/K4 on the rank's rows, which need no exchange;
   * the error norms and BacksolveAdjoint's drift reduce over every rank's
     shard: the solve passes `ShardNorms` down as `SolveOptions.norms`
     (`solvers.integrate.Norms` is the whole-vector version);
@@ -32,7 +34,10 @@ How such a solve runs:
     gradient whole, the same on every rank. The joined reverse states of
     BacksolveAdjoint and InterpolatingAdjoint carry such partial sums in
     their q rows: the rules declare them
-    (`Norms.with_partial_rows`), and the norms sum them before squaring.
+    (`Norms.with_partial_rows`), and the norms sum them before squaring;
+    the Gauss–Kronrod error estimates of p's integral, vectors of such
+    partial sums, are normed the same way (`Norms.partial_norm`), so every
+    rank refines the same panels.
 
 Every collective is an `all_gather`: gloo takes it on CPU and CUDA tensors
 (its send and recv take host memory only: on a CUDA tensor they fail), and
@@ -58,8 +63,9 @@ __all__ = ["ShardContext", "ShardNorms", "ShardedStateError",
 
 
 class ShardedStateError(ValueError):
-    """A sharded state that the port cannot split: not a 1-D DTensor with
-    placement Shard(0) over a 1-D mesh, or a rank with an empty shard."""
+    """A sharded state that the port cannot split: not a 1-D or 2-D
+    DTensor with placement Shard(0) over a 1-D mesh, a rank with an empty
+    shard, or a shard narrower than a kernel's ghost width."""
 
 
 class ShardedStateUnsupported(NotImplementedError):
@@ -73,9 +79,12 @@ def refuse(feature: str) -> ShardedStateUnsupported:
     return ShardedStateUnsupported(
         f"{feature} does not run on a sharded state (a DTensor u0) yet. A "
         "sharded solve takes an ODEProblem with an explicit Runge-Kutta "
-        "stepper (Tsit5), adaptive or on a fixed grid, under sensealg=None, "
-        "BacksolveAdjoint, InterpolatingAdjoint, GaussAdjoint or "
-        "DirectAdjoint, with no callbacks; solve this one on a whole state")
+        "stepper (Tsit5), adaptive or on a fixed grid, under a reverse-mode "
+        "rule (sensealg=None where it resolves to one, BacksolveAdjoint, "
+        "InterpolatingAdjoint, GaussAdjoint, GaussKronrodAdjoint, "
+        "QuadratureAdjoint or DirectAdjoint, with any of their options but "
+        "an autojacvec other than AutoVJP), with no callbacks; solve this "
+        "one on a whole state")
 
 
 def unwrapped(x):
@@ -107,15 +116,20 @@ def _placed(x: DTensor, placements) -> DTensor:
 
 class ShardContext:
     """One sharded state's layout: its mesh and process group, its global
-    length n, each rank's shard (`sizes`, torch.chunk's split), and the
-    collectives over them. Counters: `exchanges` (halo exchanges) and
+    length n (cells, or rows of a 2-D state whose rows hold `row` values
+    each), each rank's shard (`sizes`, torch.chunk's split), and the
+    collectives over them. Counters: `exchanges` (halo exchanges),
+    `ghost_cells` (the ghost values they brought this rank from its
+    neighbours; a global end's edge copy exchanges nothing and counts
+    none) and
     `comm_seconds` (host time inside every collective, gloo's staging
     copies included)."""
 
     _cache = {}
 
-    def __init__(self, mesh, n: int):
+    def __init__(self, mesh, n: int, row: int = 1):
         self.mesh = mesh
+        self.row = row
         self.group = mesh.get_group()
         self.world = mesh.size()
         self.rank = mesh.get_local_rank()
@@ -131,8 +145,18 @@ class ShardContext:
                 "cell: use fewer ranks or more cells")
         self.n = n
         self.local_n = self.sizes[self.rank]
-        self.exchanges = 0
+        self.exchanges = self.ghost_cells = 0
         self.comm_seconds = 0.0
+
+    @property
+    def numel(self) -> int:
+        """The values of the whole state (cells, or rows × row)."""
+        return self.n * self.row
+
+    @property
+    def sides(self) -> Tuple[bool, bool]:
+        """Whether this rank's shard has a neighbour on its (left, right)."""
+        return self.rank > 0, self.rank + 1 < self.world
 
     @classmethod
     def of(cls, x) -> "ShardContext":
@@ -143,17 +167,18 @@ class ShardContext:
             raise ShardedStateError(
                 f"expected a DTensor state, got {type(x).__name__}")
         mesh = x.device_mesh
-        if x.dim() != 1 or mesh.ndim != 1 or tuple(x.placements) != (
-                Shard(0),):
+        if x.dim() not in (1, 2) or mesh.ndim != 1 or tuple(
+                x.placements) != (Shard(0),):
             raise ShardedStateError(
-                "a sharded state is a 1-D DTensor with placements "
-                "[Shard(0)] over a 1-D DeviceMesh; got shape "
-                f"{tuple(x.shape)}, placements {tuple(x.placements)} on a "
-                f"{mesh.ndim}-D mesh")
-        key = (mesh, x.shape[0])
+                "a sharded state is a 1-D DTensor, or a 2-D one split by "
+                "rows, with placements [Shard(0)] over a 1-D DeviceMesh; "
+                f"got shape {tuple(x.shape)}, placements "
+                f"{tuple(x.placements)} on a {mesh.ndim}-D mesh")
+        key = (mesh, tuple(x.shape))
         shard = cls._cache.get(key)
         if shard is None:
-            shard = cls._cache[key] = cls(mesh, x.shape[0])
+            row = x.shape[1] if x.dim() == 2 else 1
+            shard = cls._cache[key] = cls(mesh, x.shape[0], row)
         return shard
 
     # -- collectives ---------------------------------------------------------
@@ -176,20 +201,29 @@ class ShardContext:
             total = total + parts[r]
         return total
 
-    def halo(self, *xs: torch.Tensor) -> torch.Tensor:
+    def halo(self, *xs: torch.Tensor, width: int = 1) -> torch.Tensor:
         """The ghosts of this rank's shards xs (vectors of one state's
-        layout): [left, right] of each in turn, the cells beside the shard,
-        which are the neighbours' edge cells; at the global ends the
-        shard's own edge cell, the edge-copy ghost of `ops.rd1d`. One
-        all_gather of each rank's edge cells."""
-        own = torch.stack([v for x in xs for v in (x[0], x[-1])])
+        layout): [left, right] of each in turn, `width` cells each, the
+        cells beyond the shard, which are the neighbours' edge cells in
+        order; at the global ends the shard's own edge cell repeated, the
+        edge-copy ghost of `ops.rd1d`. One all_gather of each rank's edge
+        cells; every shard must hold `width` cells."""
+        if min(self.sizes) < width:
+            raise ShardedStateError(
+                f"a halo of {width} cells per side needs every shard to "
+                f"hold at least {width} cells; the shards hold {self.sizes}")
+        w = width
+        own = torch.stack([v for x in xs for v in (x[:w], x[-w:])])
         edges = self.gather(own)
         self.exchanges += 1
-        # a left ghost is the last cell of the rank before, a right one the
-        # first cell of the rank after
-        left = edges[self.rank - 1, 1::2] if self.rank > 0 else own[0::2]
-        right = (edges[self.rank + 1, 0::2] if self.rank + 1 < self.world
-                 else own[1::2])
+        # a left ghost is the last cells of the rank before, a right one
+        # the first cells of the rank after
+        left, right = self.sides
+        left = (edges[self.rank - 1, 1::2] if left
+                else own[0::2, :1].expand(-1, w))
+        right = (edges[self.rank + 1, 0::2] if right
+                 else own[1::2, -1:].expand(-1, w))
+        self.ghost_cells += w * sum(self.sides) * len(xs)
         return torch.stack([left, right], dim=1).reshape(-1)
 
     # -- global reductions of local vectors --------------------------------
@@ -219,6 +253,10 @@ class ShardContext:
     def global_sum(self, x: torch.Tensor) -> torch.Tensor:
         """Σ x over the whole sharded vector (a 0-dim result)."""
         return self.rank_sum(x.sum().reshape(1))[0]
+
+    def partial_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """‖Σ over the ranks of x‖₂: x holds this rank's partial sums."""
+        return torch.linalg.vector_norm(self.rank_sum(x))
 
     # -- layout ------------------------------------------------------------
 
@@ -298,8 +336,17 @@ class ShardNorms(Norms):
     def vector_norm(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(self.sum(x.abs() ** 2))
 
+    def partial_norm(self, x: torch.Tensor) -> torch.Tensor:
+        return self.shard.partial_norm(x)
+
     def with_partial_rows(self, start: int, stop: int) -> "ShardNorms":
         return ShardNorms(self.shard, (start, stop))
+
+    def summed(self, x: torch.Tensor) -> torch.Tensor:
+        if self.partial is None:
+            return x
+        a, b = self.partial
+        return torch.cat([x[:a], self.shard.rank_sum(x[a:b]), x[b:]])
 
 
 # -- autograd across the layouts (setup_context form, so torch.func.vjp

@@ -293,41 +293,53 @@ def _mass_matrix_branch(prob, solver, sensealg, dt0, dt, dae_init, u0vec,
     return remake(prob, mass_matrix=None), solver, sensealg
 
 
-# the rules a sharded state runs under (with their default options)
+# the rules a sharded state runs under: every reverse-mode rule, with any of
+# its options but an autojacvec other than AutoVJP
 _SHARDED_RULES = (BacksolveAdjoint, InterpolatingAdjoint, GaussAdjoint,
-                  DirectAdjoint)
+                  GaussKronrodAdjoint, QuadratureAdjoint, DirectAdjoint)
 
 
 def _check_sharded(prob, solver, *, bwd_solver, sensealg, saveat, dense,
                    callback, unroll, save_idxs, dae_init, adaptive, **_):
     """Refuse, before anything launches, what a sharded state does not run
-    yet (ROADMAP §1): every problem type but a plain ODEProblem, steppers
-    other than explicit Runge-Kutta, sensealgs and options outside
-    `_SHARDED_RULES` with their defaults (sensealg=None where it resolves
-    to one of them, or to the fixed grid's discrete path), callbacks, dense
-    output and the other differentiable outputs."""
+    yet (ROADMAP §1): every problem type but a plain ODEProblem, a state
+    split along another dim than 0, steppers other than explicit
+    Runge-Kutta, sensealgs outside `_SHARDED_RULES` (sensealg=None where it
+    resolves to one of them, or to the fixed grid's discrete path, runs),
+    an autojacvec other than AutoVJP, callbacks, dense output and the other
+    differentiable outputs."""
+    from torch.distributed.tensor import Shard
+
+    from .sensealg import AutoVJP
     from .solvers.explicit import ExplicitRK
 
     if not isinstance(prob, ODEProblem):
         raise sharded.refuse(f"{type(prob).__name__}")
+    placements = tuple(sharded.unwrapped(prob.u0).placements)
+    if placements != (Shard(0),):
+        raise sharded.refuse(f"a state placed {placements} (split along "
+                             "another dim than 0)")
     if prob.mass_matrix is not None or dae_init not in (None, "none"):
         raise sharded.refuse("a mass matrix (DAE)")
     for name, step in (("solver", solver), ("bwd_solver", bwd_solver)):
         if step is not None and not isinstance(step, ExplicitRK):
             raise sharded.refuse(f"{name}={step!r} (stiff, extrapolation "
                                  "and multistep steppers)")
-    if sensealg is None and adaptive:
-        sensealg = default_sensealg(prob.u0.shape[0], tree_size(prob.p),
-                                    prob.p is not None)
+    if sensealg is None:
+        sensealg = default_sensealg(prob.u0.numel(), tree_size(prob.p),
+                                    prob.p is not None,
+                                    fixed_grid=not adaptive, unroll=unroll)
+        if not adaptive and not isinstance(sensealg, BacksolveAdjoint):
+            sensealg = None  # the fixed grid's discrete path
     if sensealg is not None:
         if not isinstance(sensealg, _SHARDED_RULES):
             raise sharded.refuse(f"sensealg={sensealg!r}")
-        if type(sensealg)() != sensealg:
-            raise sharded.refuse(f"{sensealg!r} (options other than the "
-                                 "defaults)")
+        vjp = getattr(sensealg, "autojacvec", AutoVJP())
+        if not isinstance(vjp, AutoVJP):
+            raise sharded.refuse(f"{sensealg!r} (autojacvec={vjp!r}: a "
+                                 "sharded state takes AutoVJP)")
     for what, given in (("callbacks and events", callback is not None),
                         ("dense output (dense=True, sol(t))", dense),
-                        ("unroll=True", unroll),
                         ("save_idxs", save_idxs is not None),
                         ("a saveat tensor that requires grad",
                          isinstance(saveat, torch.Tensor)
@@ -354,13 +366,13 @@ def _solve_sharded(prob, solver, **kw):
     local = remake(prob, f=shard.local_field(prob.f),
                    u0=sharded.to_local(prob.u0, shard),
                    p=sharded.sum_over_ranks(prob.p, shard))
-    sol = _solve_ode(local, solver, **kw, n_global=shard.n,
+    sol = _solve_ode(local, solver, **kw, n_global=shard.numel,
                      norms=sharded.ShardNorms(shard))
     return dataclasses.replace(
         sol, ys=sharded.from_local(sol.ys, shard, dim=1), prob=prob,
         dense=None, unravel_u=None,
-        u_final=(None if sol.u_final is None
-                 else sharded.from_local(sol.u_final, shard)))
+        u_final=(None if sol.u_final is None else sharded.from_local(
+            sol.unravel_u(sol.u_final), shard)))
 
 
 def _check_unrolled_continuous(solver, bwd_solver, sensealg, max_steps,

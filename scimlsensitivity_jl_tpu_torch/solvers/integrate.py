@@ -168,11 +168,23 @@ class Norms:
         """‖x‖₂ over the whole vector."""
         return torch.linalg.vector_norm(x)
 
+    def partial_norm(self, x: torch.Tensor) -> torch.Tensor:
+        """‖x‖₂ of a vector of per-rank partial sums (an estimate of p's
+        integral, its error), summed over the ranks first; here x is
+        whole."""
+        return torch.linalg.vector_norm(x)
+
     def with_partial_rows(self, start: int, stop: int) -> "Norms":
         """These norms over vectors whose rows [start, stop) are per-rank
         partial sums (a joined reverse state's q rows); a whole vector has
         none."""
         return self
+
+    def summed(self, x: torch.Tensor) -> torch.Tensor:
+        """x with its partial-sum rows summed over the ranks, the same on
+        every rank, for a function of x that is not linear in them (the
+        initial step's scale |u|·rtol + atol); here x itself."""
+        return x
 
 
 LOCAL_NORMS = Norms()
@@ -192,7 +204,9 @@ def initial_step_size(fvec, t0, u0, f0, order, rtol, atol, tdir,
     kind = type(t0)
     wide = torch.promote_types(u0.dtype, kind_torch_dtype(kind))
     u0, f0 = u0.to(wide), f0.to(wide)
-    sc = u0.abs() * float(rtol) + float(atol)
+    # the scale from partial-sum rows summed over the ranks: then it is the
+    # same on every rank, and x / sc of a partial-sum row stays a partial sum
+    sc = norms.summed(u0).abs() * float(rtol) + float(atol)
     d0, d1 = (kind(v) for v in torch.stack(
         [hairer_norm(u0 / sc, norms),
          hairer_norm(f0 / sc, norms)]).tolist())

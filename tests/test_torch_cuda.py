@@ -598,6 +598,112 @@ def test_rk4_wrappers_refuse_bad_geometry(cuda):
     assert rd1d.rd1d_rk4_fwd_cuda.launches == before
 
 
+# a shard's geometry: (n, S, chunk, bwd_chunk) of one rank's cells, each with
+# a neighbour on both sides, on the left only and on the right only
+RK4_SHARD_GEOMS = [
+    (32768, 16, 4096, 1024),  # the flagship tiles on a shard
+    (1000, 4, 1000, 1000),    # one tile that still needs its halo
+    (5000, 7, 1000, 500),     # windows not a multiple of threads x R
+    (68, 16, 68, 68),         # a shard of exactly 4(S+1) cells
+]
+
+
+@pytest.mark.parametrize("sides", [(True, True), (True, False),
+                                   (False, True)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+@pytest.mark.parametrize("n,S,chunk,bwd_chunk", RK4_SHARD_GEOMS)
+def test_rk4_kernels_with_shard_ghosts_match_plain_versions(
+        cuda, dtype, n, S, chunk, bwd_chunk, sides):
+    """K5 and K6 on a shard, reading the 4(S+1) cells beyond each inner end
+    from a device buffer, against the ghosted plain versions (the scan and
+    the reverse sweep over the shard widened by its ghosts) on the same
+    inputs; K6 gives the same bits twice."""
+    u, lam, p, inv_dx2, h = _rk4_inputs(n, dtype, cuda)
+    H = 4 * (S + 1)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    ghosts = torch.rand(4 * H, generator=gen, device=cuda, dtype=dtype)
+    tol, dp_tol = RK4_TOL[dtype]
+    y = rd1d.rd1d_rk4_fwd_cuda(u, p, inv_dx2, h, S, chunk,
+                               ghosts[:2 * H].contiguous(), *sides)
+    du, dp = rd1d.rd1d_rk4_vjp_cuda(u, p, inv_dx2, h, S, bwd_chunk, lam,
+                                    ghosts, *sides)
+    torch.cuda.synchronize()
+    y_ref = rd1d.rd1d_rk4_scan_shard_reference(u, p, inv_dx2, h, S,
+                                               ghosts[:2 * H], *sides)
+    du_ref, _ = rd1d.rd1d_rk4_block_vjp_shard_reference(
+        u, p, inv_dx2, h, S, lam, ghosts, *sides)
+    _, dp_ref = rd1d.rd1d_rk4_block_vjp_shard_reference(
+        u.double(), p.double(), inv_dx2, h, S, lam.double(),
+        ghosts.double(), *sides)
+    assert float((y - y_ref).abs().max() / y_ref.abs().max()) <= tol
+    assert float((du - du_ref).abs().max() / du_ref.abs().max()) <= tol
+    assert float(((dp.double() - dp_ref).abs() / dp_ref.abs()).max()) \
+        <= dp_tol
+    du2, dp2 = rd1d.rd1d_rk4_vjp_cuda(u, p, inv_dx2, h, S, bwd_chunk, lam,
+                                      ghosts, *sides)
+    assert torch.equal(du2, du) and torch.equal(dp2, dp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=str)
+def test_rk4_kernels_on_pieces_give_the_whole_grids_bits(cuda, dtype):
+    """K5 and K6 with a null ghost buffer over the whole grid, and on two
+    and four pieces whose ends fall on tile ends, each piece reading its
+    neighbours' cells from its ghost buffer: the pieces' windows are the
+    whole grid's, so u after the block and ū are the null launch's bits,
+    and the pieces' D̄, k̄ sum to its."""
+    n, S, chunk, bwd_chunk = 262144, 16, 4096, 1024
+    u, lam, p, inv_dx2, h = _rk4_inputs(n, dtype, cuda)
+    H = 4 * (S + 1)
+    y = rd1d.rd1d_rk4_fwd_cuda(u, p, inv_dx2, h, S, chunk)
+    du, dp = rd1d.rd1d_rk4_vjp_cuda(u, p, inv_dx2, h, S, bwd_chunk, lam)
+    for world in (2, 4):
+        m = n // world
+        ys, dus, dps = [], [], []
+        for r in range(world):
+            a, b = r * m, (r + 1) * m
+            sides = (r > 0, r + 1 < world)
+
+            def ghosts_of(x):
+                left = x[a - H:a] if sides[0] else x.new_zeros(H)
+                right = x[b:b + H] if sides[1] else x.new_zeros(H)
+                return torch.cat([left, right])
+
+            gu = ghosts_of(u)
+            ys.append(rd1d.rd1d_rk4_fwd_cuda(u[a:b], p, inv_dx2, h, S, chunk,
+                                             gu, *sides))
+            d, q = rd1d.rd1d_rk4_vjp_cuda(u[a:b], p, inv_dx2, h, S,
+                                          bwd_chunk, lam[a:b],
+                                          torch.cat([gu, ghosts_of(lam)]),
+                                          *sides)
+            dus.append(d)
+            dps.append(q)
+        assert torch.equal(torch.cat(ys), y)
+        assert torch.equal(torch.cat(dus), du)
+        total = sum(q.double() for q in dps)
+        assert float(((total - dp.double()).abs() / dp.double().abs()).max()
+                     ) <= RK4_TOL[dtype][1]
+
+
+def test_rk4_wrappers_refuse_a_narrow_shard(cuda):
+    """A shard narrower than 4(S+1) cells, or one that the chunk does not
+    divide, raises ShardedStateError before any launch."""
+    from scimlsensitivity_jl_tpu_torch.parallel.sharded import (
+        ShardedStateError)
+
+    u, lam, p, inv_dx2, h = _rk4_inputs(60, torch.float32, cuda)
+    ghosts = torch.zeros(4 * 68, device=cuda)
+    before = (rd1d.rd1d_rk4_fwd_cuda.launches,
+              rd1d.rd1d_rk4_vjp_cuda.launches)
+    with pytest.raises(ShardedStateError, match="at least 4"):
+        rd1d.rd1d_rk4_fwd_cuda(u, p, inv_dx2, h, 16, 60, ghosts[:136],
+                               True, True)
+    with pytest.raises(ShardedStateError, match="divisible"):
+        rd1d.rd1d_rk4_vjp_cuda(u, p, inv_dx2, h, 1, 7, lam, ghosts[:32],
+                               True, False)
+    assert (rd1d.rd1d_rk4_fwd_cuda.launches,
+            rd1d.rd1d_rk4_vjp_cuda.launches) == before
+
+
 def test_rk4_block_gradient_on_card_matches_cpu(cuda):
     """Four chained blocks (S = 16, n = 65536, float64) through
     make_rd1d_rk4_block: the card through K5 and K6 against the port's CPU
@@ -1229,7 +1335,8 @@ def test_sharded_flagship_gradient_on_two_ranks(cuda):
     sys.path.insert(0, root)
     import chip_smoke as C
 
-    out = C.shard_phase(P, rd1d, cuda, torch.cuda.get_device_name(0),
-                        cases=((torch.float64, 262144),), arms=("None",))
+    out, _ = C.shard_phase(P, rd1d, cuda, torch.cuda.get_device_name(0),
+                           cases=((torch.float64, 262144),), arms=("None",),
+                           mega=(), s4_arms=())
     assert out["[shard] rank 0"] == out["[shard] rank 1"]
     assert out["[shard] rank 0"]["K1"] > 0 and out["[shard] rank 0"]["K2"] > 0

@@ -25,12 +25,6 @@ of the gathered state; the error norms over the ranks against those of
 the gathered vector; and each refusal by name, before the field runs.
 """
 
-import os
-import shutil
-import subprocess
-import sys
-import tempfile
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -58,62 +52,9 @@ GROUPS = (("heat adaptive",),
            "rd "))
 
 
-class _Group:
-    """One rank group of tests/sharded_ranks.py (the cases whose names
-    contain one of `names`), its results read when first needed."""
-
-    def __init__(self, names):
-        self.dir = tempfile.mkdtemp(prefix="sharded_ranks_")
-        self.out = os.path.join(self.dir, "results.pt")
-        self.log = open(os.path.join(self.dir, "log.txt"), "w+")
-        self.proc = subprocess.Popen(
-            [sys.executable, R.__file__, self.out, *names], stdout=self.log,
-            stderr=subprocess.STDOUT, stdin=subprocess.DEVNULL)
-        self.results = None
-
-    def get(self):
-        if self.results is None:
-            try:
-                rc = self.proc.wait(timeout=900)
-            except subprocess.TimeoutExpired:
-                self.proc.kill()
-                rc = "killed after 900 s"
-            self.log.seek(0)
-            text = self.log.read()
-            assert rc == 0, f"a rank group failed ({rc}):\n{text[-6000:]}"
-            self.results = torch.load(self.out, weights_only=False)
-        return self.results
-
-    def close(self):
-        if self.proc.poll() is None:
-            self.proc.kill()
-            self.proc.wait()
-        self.log.close()
-        shutil.rmtree(self.dir, ignore_errors=True)
-
-
-class _Ranks:
-    """The rank groups, started by the first test that asks for them and
-    read when a test first needs a result, so that this process computes
-    the JAX references meanwhile."""
-
-    def __init__(self):
-        self.groups = [_Group(names) for names in GROUPS]
-
-    def __getitem__(self, case):
-        for names, group in zip(GROUPS, self.groups):
-            if any(name in case for name in names):
-                return group.get()[case]
-        raise KeyError(case)
-
-    def close(self):
-        for group in self.groups:
-            group.close()
-
-
 @pytest.fixture(scope="module")
 def ranks():
-    groups = _Ranks()
+    groups = R.RankGroups(GROUPS)
     yield groups
     groups.close()
 
@@ -253,17 +194,15 @@ def test_flagship_field_never_gathers_the_state(ranks):
 
 
 REFUSALS = [
-    "QuadratureAdjoint", "GaussKronrodAdjoint", "ForwardDiffSensitivity",
-    "ForwardSensitivity", "NILSS", "InterpolatingAdjoint(checkpointing=True)",
-    "DirectAdjoint(remat=True)",
+    "ForwardDiffSensitivity", "ForwardSensitivity", "NILSS", "JacVJP",
+    "FiniteDiffVJP", "a DTensor weight", "a state split along dim 1",
     "default ForwardDiffSensitivity (n + p <= 100)", "Rosenbrock23", "FBDF",
     "Rosenbrock23 bwd_solver", "extrapolation (Seulex)", "callback",
-    "dense=True", "unroll=True", "save_idxs", "mass matrix", "SDEProblem",
+    "dense=True", "save_idxs", "mass matrix", "SDEProblem",
     "DDEProblem", "adjoint_sensitivities", "ODEAdjointProblem",
     "second_order_sensitivities", "ODEForwardSensitivityProblem",
     "ForwardLSSProblem", "AdjointLSSProblem", "NILSSProblem",
-    "NILSASProblem", "solve_ensemble", "make_rd1d_rk4_block (K5/K6)",
-    "fused_mlp2 (K3/K4)"]
+    "NILSASProblem", "solve_ensemble"]
 
 
 @pytest.mark.parametrize("name", REFUSALS)
